@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Builds the three CUDA tile kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version, and drives the port's main path
-through ``compile_plan(...).run()`` at full configuration:
+Builds the five CUDA kernels from ``src/repro_torch/csrc``, holds each
+against its plain PyTorch version, and drives the port's two main paths
+at full configuration: the graph engine through
+``compile_plan(...).run()`` and the LM's inference path through
+``make_prefill_step`` and ``ServeEngine``:
 
-1. kernels vs plain versions on the card, at the main path's shapes and
-   at a ragged one (T=192, odd batch);
+1. kernels vs plain versions on the card, at the main paths' shapes and
+   at ragged ones (tile kernels: T=192, odd batch; ``flash_attention``:
+   the LM prefill's (2, 32 heads, 8 KV heads, 4096, 128) bf16, suffix-
+   aligned causal with S_q < S_k, non-causal, and S_q > S_k with rows
+   that see no key; ``spmv_ell``: (B, R, K, N) = (4, 262144, 32, 2^20),
+   the PageRank graph's vertex count and mean degree, and a ragged one);
 2. PageRank on ``degree_order(rmat(20, 16, seed=7), ascending=False)``
    (the Graph500 Kronecker generator, A=.57 B=.19 C=.19, edge factor
    16; scale cut from Graph500's ≥26 for host build time), p=512,
@@ -15,14 +21,27 @@ through ``compile_plan(...).run()`` at full configuration:
 3. BFS push, pull and auto on the same store from the vertex of highest
    degree, against ``scipy.sparse.csgraph`` distances;
 4. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
-   tile_dim=512, dense_density=0.001, against an exact scipy count.
+   tile_dim=512, dense_density=0.001, against an exact scipy count;
+5. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
+   float32, TF32 off: the prefill logits with the kernel equal those
+   without it, cached decode reproduces them over 16 positions, and
+   ``ServeEngine``'s greedy outputs in a batch equal the solo runs;
+6. LM at full size: granite-3-8b, 40 layers, bfloat16, seeded random
+   weights on the card.  ``make_prefill_step(use_kernel=True)`` on
+   2 × 4096 tokens (``prefill_32k`` cut from 32 × 32768) launches
+   ``flash_attention`` once per layer and gives a loss near ln V; a
+   profiled window of decode steps gives the device's idle share, and
+   ``ServeEngine(batch_slots=4, cache_len=512)`` serves 8 requests.
 
-Each phase resets the kernels' launch counts just before it drives the
-main path and reads them just after.  Then each kernel is timed on the
-inputs that phase gave it (CUDA events), beside its plain version, a
-one-call PyTorch yardstick where there is one, and its bound: the larger
-of the bytes it must move over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s (H100 SXM data sheet).  Any failed check exits non-zero.
+Each path resets the kernels' launch counts just before it is driven and
+reads them just after.  Then each kernel is timed on the inputs that
+path gave it (CUDA events), beside its plain version, a one-call
+PyTorch yardstick where there is one, and its bound: the larger of the
+bytes it must move over 3.35 TB/s and its operations over the card's
+peak rate for their type (H100 SXM data sheet: 67 TFLOP/s float32 on
+the CUDA cores; 989 TFLOP/s bf16 dense on the tensor cores for the
+attention products, which no float32 arithmetic is needed for).  Any
+failed check exits non-zero.
 
 Output: the card's name and power limit, the build time, one or more
 lines per phase, a JSON line of per-kernel numbers, and as the last line
@@ -43,6 +62,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM: 80 GB HBM3 at 3.35 TB/s
 F32_FLOPS = 67e12              # H100 SXM: float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12         # H100 SXM: bf16 dense on the tensor cores
 INT_MAX = 2**31 - 1
 
 PAGERANK = dict(scale=20, edge_factor=16, seed=7, p=512, tile_dim=512, dense_density=0.005)
@@ -53,11 +73,40 @@ TC_SHAPES = ((3199, 9670, 512), (33, 77, 192))
 PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
+#: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
+#: the LM prefill's shape, the last has S_q > S_k and 256 rows that see no key
+ATTN_SHAPES = ((2, 32, 8, 4096, 4096, 128, "bfloat16", True),
+               (1, 4, 4, 128, 512, 64, "float32", True),
+               (1, 2, 2, 256, 256, 128, "float32", False),
+               (1, 4, 2, 384, 128, 128, "float32", True))
+#: flash_attention vs the plain version's float32 result (before its cast to
+#: the output dtype): |got - want| <= atol + rtol * |want|.  float32: the same
+#: sums in another order (tests/test_kernels.py's 2e-4); bfloat16: those sums
+#: plus the output's rounding, at most half a bf16 step, 2^-8 of the value
+ATTN_TOL = {"float32": dict(rtol=0.0, atol=2e-4), "bfloat16": dict(rtol=2**-8, atol=1e-4)}
+#: spmv_ell checks: (B, R, K, N), PageRank's vertex count and mean degree, and ragged
+ELL_SHAPES = ((4, 262144, 32, 1048576), (3, 200, 7, 500))
+LM_ARCH = "granite-3-8b"
+#: phase 5: depth cut to 2 layers at full width, float32
+LM_EXACT = dict(n_layers=2, batch=2, seq=256, decode=16, requests=4, new_tokens=8)
+#: the reference's decode-vs-prefill tolerance (tests/test_archs.py)
+LM_TOL = dict(atol=2e-4, rtol=1e-3)
+#: phase 6: prefill_32k cut to 2 x 4096; 8 requests through 4 slots
+LM_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens=32,
+               prompt=(16, 64))
+#: decode steps in the profiled window of phase 6
+DECODE_PROFILE_STEPS = 8
+#: a model with random weights predicts about as well as chance: |loss - ln V| bound
+LOSS_BAND = 1.5
+
 SOURCES = {
     "spmv_tiles": ("src/repro_torch/csrc/spmv_tiles.cu", "src/repro/kernels/spmv_tile.py:32"),
     "frontier_tiles": ("src/repro_torch/csrc/frontier_tiles.cu",
                        "src/repro/kernels/frontier_tile.py:48"),
     "tc_tiles": ("src/repro_torch/csrc/tc_tiles.cu", "src/repro/kernels/tc_tile.py:48"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attn_tile.py:82"),
+    "spmv_ell": ("src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:38"),
 }
 
 
@@ -87,13 +136,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+def bound(nbytes: float, ops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
-    bound_ms, bound_by = bound(nbytes, ops)
+def attn_error(got, q, k, v, causal: bool = True) -> tuple[float, float]:
+    """flash_attention's output against the plain version's float32 result:
+    (max |got - want|, largest share of ATTN_TOL used; above 1 fails)."""
+    from repro_torch.kernels import ref
+
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    diff = (got.float() - want).abs()
+    share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    return float(diff.max()), share
+
+
+def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_FLOPS):
+    bound_ms, bound_by = bound(nbytes, ops, rate)
     source, replaces = SOURCES[name]
     rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=int(launches), max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
@@ -158,6 +219,69 @@ def phase_kernels(dev, gen) -> None:
         say(f"phase kernels: tc_tiles ok at nd={nd} B={nb} T={t} (count {got})")
         del tiles, idx
     torch.cuda.empty_cache()
+
+
+def ell_inputs(dev, gen, b, r, k, n):
+    """Padded neighbour lists: row r holds a random number of valid
+    entries in [0, K] (mean K/2) first, then padding."""
+    import torch
+
+    idx = torch.randint(0, n, (b, r, k), generator=gen, device=dev, dtype=torch.int32)
+    deg = torch.randint(0, k + 1, (b, r, 1), generator=gen, device=dev)
+    valid = torch.arange(k, device=dev) < deg
+    x = torch.rand((b, n), generator=gen, device=dev)
+    return idx, valid, x
+
+
+def phase_lm_kernels(dev, gen):
+    """flash_attention and spmv_ell against their plain versions at the
+    shapes of ATTN_SHAPES and ELL_SHAPES.  Returns spmv_ell's record
+    (timed on the first shape): no path of the port calls it, so its
+    launch count is 0."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.spmv_ell import spmv_ell_cuda
+
+    for b, h, h_kv, sq, sk, d, dtype, causal in ATTN_SHAPES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((b, h_kv, sk, d), generator=gen, device=dev).to(dt) for _ in "kv")
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        err, share = attn_error(got, q, k, v, causal)
+        tol = ATTN_TOL[dtype]
+        check(bool(torch.isfinite(got).all()) and got.dtype == dt and share <= 1.0,
+              f"flash_attention {(b, h, h_kv, sq, sk, d, dtype, causal)}: max err {err}, "
+              f"{share:.3f} of the tolerance {tol}")
+        if causal and sq > sk:
+            check(bool((got[:, :, :sq - sk] == 0).all()),
+                  "flash_attention: a row with no visible key is not 0")
+        say(f"phase kernels: flash_attention ok at (B,H,H_kv,S_q,S_k,D)="
+            f"{(b, h, h_kv, sq, sk, d)} {dtype} causal={causal}, max err {err:.2e}, "
+            f"{share:.3f} of the tolerance {tol}")
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+    rec = None
+    for b, r, k, n in ELL_SHAPES:
+        idx, valid, x = ell_inputs(dev, gen, b, r, k, n)
+        got, want = spmv_ell_cuda(idx, valid, x), ref.spmv_ell_ref(idx, valid, x)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL),
+              f"spmv_ell {(b, r, k, n)} vs plain: max err {err}")
+        say(f"phase kernels: spmv_ell ok at (B,R,K,N)={(b, r, k, n)}, max err {err:.2e}")
+        if rec is None:
+            nnz = int(valid.sum())
+            rec = record(
+                "spmv_ell", 0, err,
+                cuda_ms(lambda: spmv_ell_cuda(idx, valid, x), 20),
+                cuda_ms(lambda: ref.spmv_ell_ref(idx, valid, x), 3),
+                idx.numel() * 4 + valid.numel() + nnz * 4 + b * r * 4, float(nnz), None)
+            say(f"  spmv_ell: {nnz} valid entries of {idx.numel()}; no path calls it "
+                f"(launches 0)")
+        del idx, valid, x, got, want
+    torch.cuda.empty_cache()
+    return rec
 
 
 def csr_matrix(g):
@@ -361,12 +485,202 @@ def phase_tc(dev):
     return rec
 
 
+def lm_config(**changes):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config(LM_ARCH), **changes)
+
+
+def prompts(rng, n, lo, hi, vocab):
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist() for _ in range(n)]
+
+
+def serve(cfg, model, dev, reqs, slots, cache_len):
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(cfg, model, batch_slots=slots, cache_len=cache_len, device=dev)
+    for uid, (prompt, new) in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    return {r.uid: r for r in done}, eng.steps_executed, time.perf_counter() - t0
+
+
+def phase_lm_exact(dev, cfg) -> None:
+    """The kernel path against the plain path, decode against prefill, and
+    batched serving against solo serving, all in float32."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+
+    ex = LM_EXACT
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (ex["batch"], ex["seq"]), generator=gen, device=dev)
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        got = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=True)
+        launches = registry.launch_counts()["flash_attention"]
+        check(launches == cfg.n_layers,
+              f"flash_attention launches {launches} != {cfg.n_layers} layers")
+        want = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=False)
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **LM_TOL),
+              f"LM logits, kernel vs plain: max err {err}")
+        state = lm.init_decode_state(cfg, ex["batch"], ex["decode"], device=dev)
+        derr = 0.0
+        for t in range(ex["decode"]):
+            logits, state = lm.decode_step(cfg, model, state, tokens[:, t])
+            derr = max(derr, float((logits - got[:, t]).abs().max()))
+            check(torch.allclose(logits, got[:, t], **LM_TOL),
+                  f"decode logits at position {t} vs prefill: max err {derr}")
+    say(f"phase lm exact: {cfg.name} {cfg.n_layers} layers float32, logits "
+        f"{tuple(got.shape)}: kernel vs plain max err {err:.2e}, decode vs prefill over "
+        f"{ex['decode']} positions max err {derr:.2e} (atol {LM_TOL['atol']}, rtol "
+        f"{LM_TOL['rtol']}), launches {launches}")
+    del got, want, state
+
+    rng = np.random.default_rng(1)
+    reqs = [(p, ex["new_tokens"]) for p in prompts(rng, ex["requests"], 2, 8, cfg.vocab)]
+    batched, _, _ = serve(cfg, model, dev, reqs, ex["requests"], 32)
+    for uid, req in enumerate(reqs):
+        solo, _, _ = serve(cfg, model, dev, [req], 1, 32)
+        check(batched[uid].output == solo[0].output,
+              f"request {uid}: batched {batched[uid].output} != solo {solo[0].output}")
+    say(f"phase lm exact: ServeEngine greedy outputs of {len(reqs)} batched requests equal "
+        f"their solo runs")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_lm_full(dev, cfg):
+    """The whole model in bf16: prefill with the kernel, then serving.
+    Returns flash_attention's record, timed on layer 0's q, k, v."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, registry
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.steps import make_prefill_step
+
+    fu = LM_FULL
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"phase lm: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"memory allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    b, s = fu["batch"], fu["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    step = make_prefill_step(cfg, use_kernel=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = step(model, batch)
+    loss = float(metrics["loss"])
+    first_s = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention {launches['flash_attention']} times, "
+          f"not once per layer ({cfg.n_layers})")
+    ln_v = float(np.log(cfg.vocab))
+    check(np.isfinite(loss) and abs(loss - ln_v) <= LOSS_BAND,
+          f"prefill loss {loss} not within {LOSS_BAND} of ln V = {ln_v:.3f}")
+    t0 = time.perf_counter()
+    step(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    say(f"phase lm prefill: B={b} S={s}, loss {loss:.4f} (ln V {ln_v:.4f}), first run "
+        f"{first_s:.3f} s, second {prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s, host "
+        f"clock), max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+        f"launches {launches}")
+    try:
+        _, wall, busy, top = device_profile(lambda: step(model, batch))
+        say(f"phase lm prefill: profiled run {wall:.1f} ms wall, device busy {busy:.1f} ms "
+            f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
+    except Exception as e:  # a measurement only; the checks above decide the phase
+        say(f"phase lm prefill: device time not measured ({type(e).__name__}: {e})")
+
+    with torch.inference_mode():
+        state = lm.init_decode_state(cfg, fu["slots"], fu["cache_len"], device=dev)
+        toks = torch.zeros(fu["slots"], dtype=torch.int32, device=dev)
+
+        def decode():
+            nonlocal state
+            for _ in range(DECODE_PROFILE_STEPS):
+                logits, state = lm.decode_step(cfg, model, state, toks)
+            return logits
+
+        decode()                      # warm
+        try:
+            _, wall, busy, top = device_profile(decode)
+            n = DECODE_PROFILE_STEPS
+            say(f"phase lm decode: profiled {n} steps of {fu['slots']} slots, "
+                f"{wall / n:.2f} ms wall per step, device busy {busy / n:.2f} ms per step "
+                f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
+        except Exception as e:  # a measurement only
+            say(f"phase lm decode: device time not measured ({type(e).__name__}: {e})")
+        del state
+
+    rng = np.random.default_rng(0)
+    lo, hi = fu["prompt"]
+    reqs = [(p, fu["new_tokens"]) for p in prompts(rng, fu["requests"], lo, hi, cfg.vocab)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    done, steps, serve_s = serve(cfg, model, dev, reqs, fu["slots"], fu["cache_len"])
+    check(len(done) == len(reqs) and all(r.done and not r.truncated
+                                         and len(r.output) == fu["new_tokens"]
+                                         for r in done.values()),
+          "ServeEngine did not finish every request")
+    new_tokens = sum(len(r.output) for r in done.values())
+    say(f"phase lm serve: {len(reqs)} requests (prompts {lo}-{hi} tokens, "
+        f"{fu['new_tokens']} new each) through {fu['slots']} slots, cache {fu['cache_len']}: "
+        f"{steps} decode steps in {serve_s:.2f} s, {serve_s * 1e3 / steps:.2f} ms per step, "
+        f"{new_tokens / serve_s:.1f} generated tokens/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    # time the kernel on layer 0's q, k, v from this forward
+    layer = model.layers[0]
+    with torch.inference_mode():
+        x = rms_norm(F.embedding(tokens, model.embed), layer.ln1)
+        q, k, v = (t.transpose(1, 2).contiguous() for t in attention.project_qkv(
+            layer.attn, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+            rope_theta=cfg.rope_theta))
+        del x, model
+        torch.cuda.empty_cache()
+        err, share = attn_error(flash_attention_cuda(q, k, v), q, k, v)
+        check(share <= 1.0, f"flash_attention on layer 0's inputs: max err {err}, "
+              f"{share:.3f} of the tolerance {ATTN_TOL[cfg.dtype]}")
+        say(f"  flash_attention on layer 0's inputs: max err {err:.2e}, {share:.3f} of the "
+            f"tolerance {ATTN_TOL[cfg.dtype]}")
+        # S_q = S_k, so SDPA's top-left causal mask equals the suffix-aligned one
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True), 5)
+        pairs = b * cfg.n_heads * s * (s + 1) // 2          # visible (query, key) pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        rec = record("flash_attention", launches["flash_attention"], err,
+                     cuda_ms(lambda: flash_attention_cuda(q, k, v), 5),
+                     cuda_ms(lambda: ref.attention_ref(q, k, v), 2),
+                     nbytes, 4.0 * cfg.d_head * pairs, library, rate=BF16_TC_FLOPS)
+    say(f"  flash_attention timed on layer 0's q {tuple(q.shape)}, k, v {tuple(k.shape)} "
+        f"{cfg.dtype}: {4.0 * cfg.d_head * pairs / rec['ms'] / 1e9:.1f} TFLOP/s")
+    return rec
+
+
 def run(dev) -> list[dict]:
-    """The four phases in order; returns the per-kernel records."""
+    """The six phases in order; returns the per-kernel records."""
     import torch
     from repro_torch.core import build_block_store, degree_order, rmat
 
-    phase_kernels(dev, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    phase_kernels(dev, gen)
+    ell = phase_lm_kernels(dev, gen)
 
     cfg = PAGERANK
     t0 = time.perf_counter()
@@ -379,8 +693,11 @@ def run(dev) -> list[dict]:
     del plan, store, g
     torch.cuda.empty_cache()
     tc = phase_tc(dev)
+    torch.cuda.empty_cache()
 
-    return [spmv, frontier, tc]
+    phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))
+    attn = phase_lm_full(dev, lm_config())
+    return [spmv, frontier, tc, attn, ell]
 
 
 def main() -> int:

@@ -1,0 +1,16 @@
+"""granite-3-8b — dense GQA [hf:ibm-granite/granite-3.0-2b-base; hf]."""
+from dataclasses import replace
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12800, vocab=49155, qkv_bias=False,
+    rope_theta=10_000_000.0, mlp_type="swiglu",
+    source="hf:ibm-granite/granite-3.0-2b-base family",
+)
+
+SMOKE = replace(
+    CONFIG, name="granite-3-8b-smoke",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+)

@@ -1,12 +1,14 @@
-"""Carry a graph store and an algorithm state across from numpy fields.
+"""Carry a graph store, an algorithm state and LM weights across from
+numpy fields.
 
-For this system the "weights" are the data: a partitioned graph and the
-state of a run.  :func:`store_from_numpy` rebuilds the port's
+For the graph engine the "weights" are the data: a partitioned graph and
+the state of a run.  :func:`store_from_numpy` rebuilds the port's
 :class:`~repro_torch.core.blocks.BlockStore` from the plain numpy fields
 of a block store (the JAX package's ``BlockStore`` has the same
 fields), and :func:`state_from_numpy` puts an algorithm state on a
-device.  Tests use both to run the two packages on one store and to
-step both from one mid-run state.
+device.  :func:`lm_params_from_numpy` turns the JAX LM's parameter tree,
+taken to numpy, into the port's :class:`~repro_torch.models.lm.LM`.
+Tests use them to run the two packages on the same inputs.
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ from .core.blocks import BlockStore
 from .core.context import to_device
 from .core.graph import Graph
 from .core.partition import layout_from_cuts
+from .configs.base import ArchConfig
+from .models.lm import LM
 
-__all__ = ["STORE_FIELDS", "TILE_FIELDS", "store_from_numpy", "state_from_numpy"]
+__all__ = ["STORE_FIELDS", "TILE_FIELDS", "store_from_numpy", "state_from_numpy",
+           "lm_params_from_numpy"]
 
 #: arrays every store carries (``cuts`` is the layout's cut vector)
 STORE_FIELDS = ("src", "dst", "edge_block", "block_ptr", "indptr", "indices",
@@ -59,3 +64,45 @@ def state_from_numpy(state: Mapping[str, Any],
     ``device``, dtypes kept."""
     return to_device({k: np.asarray(v) for k, v in state.items()},
                      torch.device(device))
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
+def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
+                         device: "str | torch.device" = "cpu") -> LM:
+    """The port's :class:`LM` holding the weights of the reference's
+    parameter tree ``params`` (nested dicts of numpy arrays, per-layer
+    arrays stacked on a leading ``(L, ...)`` axis).
+
+    Each stacked array is split into the layers; ``(d_in, d_out)``
+    orientation is kept.  Values go through float32 (exact for bfloat16
+    both ways) and are cast to the parameter dtype of ``cfg``.
+    """
+    flat = _flatten(params)
+    model = LM(cfg, device=device)
+    used = set()
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":           # layers.<i>.attn.wq ← layers.attn.wq[i]
+            key = ".".join(["layers", *parts[2:]])
+            a = flat[key][int(parts[1])]
+        else:
+            key = name
+            a = flat[key]
+        used.add(key)
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape != tuple(param.shape):
+            raise ValueError(f"lm_params_from_numpy: {name} is {a.shape}, "
+                             f"expected {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(param.dtype))
+    if set(flat) - used:
+        raise KeyError(f"lm_params_from_numpy: no place for {sorted(set(flat) - used)}")
+    return model

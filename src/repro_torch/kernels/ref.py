@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every tile kernel (the ``ref.py`` contract).
+"""Plain PyTorch versions of every kernel (the ``ref.py`` contract).
 
 Each function is the mathematical definition of the corresponding
 kernel of the reference package (``repro/kernels/ref.py``), written with
@@ -15,12 +15,14 @@ from __future__ import annotations
 import torch
 
 INT_MAX = 2**31 - 1
+#: the kernels' masked score (finite, so an empty softmax row stays finite)
+NEG = -1e30
 
 #: tiles per chunk of the batched plain versions
 CHUNK = 256
 
 __all__ = [
-    "INT_MAX", "spmv_tiles_ref", "frontier_tiles_ref", "tc_tiles_ref",
+    "INT_MAX", "NEG", "spmv_tiles_ref", "frontier_tiles_ref", "tc_tiles_ref",
     "tc_tiles_idx_ref", "spmv_ell_ref", "attention_ref",
 ]
 
@@ -89,15 +91,28 @@ def spmv_ell_ref(idx: torch.Tensor, valid: torch.Tensor,
 
 
 def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """Plain softmax attention oracle — q,k,v: (B, H, S, D) → (B, H, S, D)."""
+    """Softmax attention as the kernel computes it — q (B,H,S_q,D), k and v
+    (B,H_kv,S_k,D) with H a multiple of H_kv → (B,H,S_q,D) in q's dtype.
+
+    Head h reads K/V head ``h // (H // H_kv)`` (the reference's repeat on
+    the head axis).  Float32 throughout, scale applied to q; causal is
+    suffix-aligned (row i sees keys j ≤ i + S_k − S_q).  Masked scores
+    are -1e30 and the denominator is kept above 1e-30, as in the kernel,
+    so a row with no visible key comes out 0 (the JAX oracle's ``-inf``
+    gives NaN there).
+    """
     d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k, v = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
     scale = (d ** -0.5) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
     if causal:
         s_q, s_k = logits.shape[-2], logits.shape[-1]
         mask = torch.ones((s_q, s_k), dtype=torch.bool,
                           device=q.device).tril(diagonal=s_k - s_q)
-        logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
-    probs = probs / probs.sum(-1, keepdim=True)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+        logits = logits.masked_fill(~mask, NEG)
+    m = logits.amax(-1, keepdim=True)
+    probs = torch.where(logits > NEG / 2, torch.exp(logits - m), 0.0)
+    den = probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (torch.einsum("bhqk,bhkd->bhqd", probs, v.float()) / den).to(q.dtype)

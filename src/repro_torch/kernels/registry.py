@@ -1,4 +1,4 @@
-"""Kernel registry of the port: the three tile kernels by name, their
+"""Kernel registry of the port: the hand-written kernels by name, their
 launch counts, and the per-kernel workspace estimators.
 
 There is no fallback chain.  A kernel runs where its tensors lie: CPU
@@ -11,7 +11,9 @@ from __future__ import annotations
 from typing import Callable
 
 from . import ref
+from .flash_attention import flash_attention, flash_attention_cuda
 from .frontier_tiles import frontier_tiles, frontier_tiles_cuda
+from .spmv_ell import spmv_ell, spmv_ell_cuda
 from .spmv_tiles import spmv_tiles, spmv_tiles_cuda
 from .tc_tiles import tc_tiles, tc_tiles_cuda
 
@@ -29,6 +31,8 @@ KERNELS: dict[str, tuple[Callable, Callable, Callable]] = {
     "spmv_tiles": (spmv_tiles, spmv_tiles_cuda, ref.spmv_tiles_ref),
     "frontier_tiles": (frontier_tiles, frontier_tiles_cuda, ref.frontier_tiles_ref),
     "tc_tiles": (tc_tiles, tc_tiles_cuda, ref.tc_tiles_idx_ref),
+    "spmv_ell": (spmv_ell, spmv_ell_cuda, ref.spmv_ell_ref),
+    "flash_attention": (flash_attention, flash_attention_cuda, ref.attention_ref),
 }
 
 

@@ -1,0 +1,168 @@
+"""Attention: GQA self-attention (full / sliding-window / causal) and
+single-token decode against a KV cache.
+
+Port of ``repro/models/attention.py``.  The weights of one attention
+block are an :class:`Attention` module (the reference's ``init_attn``)
+with the reference's parameter names (``wq``, ``wk``, ``wv``, ``wo`` in
+``(d_in, d_out)`` orientation, ``bq``, ``bk``, ``bv`` with a QKV bias).  ``self_attention`` runs the
+hand-written ``flash_attention`` kernel under the reference's guard
+(``use_kernel`` in place of ``use_pallas``); every other branch is plain
+torch, as the reference's is plain XLA.  Cross-attention waits for the
+vlm and audio families (ROADMAP A13).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention import flash_attention
+from .common import apply_rope, dense_init, rope
+
+__all__ = ["Attention", "project_qkv", "self_attention", "decode_attention"]
+
+
+class Attention(nn.Module):
+    """One attention block's weights (the reference's ``init_attn``),
+    drawn from ``generator`` on ``device``."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, d_head: int, *,
+                 bias: bool, dtype: torch.dtype, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+
+        def param(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        kw = dict(generator=generator, device=device)
+        self.wq = param(dense_init((d_model, n_heads * d_head), dtype, **kw))
+        self.wk = param(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
+        self.wv = param(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
+        self.wo = param(dense_init((n_heads * d_head, d_model), dtype, **kw))
+        if bias:
+            for name, width in (("bq", n_heads), ("bk", n_kv_heads), ("bv", n_kv_heads)):
+                setattr(self, name, param(torch.zeros(width * d_head, dtype=dtype,
+                                                      device=device)))
+
+
+def _project_qkv(p, x, n_heads, n_kv_heads, d_head):
+    b, s, _ = x.shape
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return (q.reshape(b, s, n_heads, d_head), k.reshape(b, s, n_kv_heads, d_head),
+            v.reshape(b, s, n_kv_heads, d_head))
+
+
+def project_qkv(p, x, *, n_heads, n_kv_heads, d_head, rope_theta):
+    """q (B,S,H,D), k and v (B,S,H_kv,D) of a prefill, rotary applied:
+    what ``self_attention`` hands its attention core."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, d_head)
+    if rope_theta:
+        cos, sin = rope(torch.arange(x.shape[1], device=x.device), d_head, rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _chunked_sdpa(q, k, v, *, causal, window, block_k: int = 512):
+    """Online-softmax attention over kv chunks of ``block_k`` keys; the
+    same masking rules as :func:`_sdpa`."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    bk = min(block_k, t)
+    if t % bk:
+        raise ValueError(f"_chunked_sdpa: {t} keys are not a multiple of {bk}")
+    qg = q.reshape(b, s, hkv, g, d).float() * (d ** -0.5)
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s if causal else 0)
+    m = torch.full((b, hkv, g, s), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=q.device)
+    for j in range(t // bk):
+        kb, vb = k[:, j * bk:(j + 1) * bk].float(), v[:, j * bk:(j + 1) * bk].float()
+        logits = torch.einsum("bshgd,bthd->bhgst", qg, kb)
+        kpos = j * bk + torch.arange(bk, device=q.device)[None, :]
+        mask = torch.ones((s, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.where(logits > -1e29, torch.exp(logits - m_new[..., None]), 0.0)
+        alpha = torch.exp(torch.clamp_max(m - m_new, 0.0))
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgst,bthd->bhgsd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _sdpa(q, k, v, *, causal, window, q_pos0=0, probs_dtype=None):
+    """q (B,S,H,D); k, v (B,T,H_kv,D), grouped to H.  Returns (B,S,H,D)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    # the reference's preferred_element_type=float32: exact products of
+    # the input dtype, summed in float32
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float()) * d ** -0.5
+    qpos = q_pos0 + torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, -1e30)
+    if probs_dtype is not None:
+        logits = logits.to(probs_dtype)
+    probs = torch.softmax(logits.float(), dim=-1).to(probs_dtype or v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, h, d)
+
+
+def self_attention(p, x, *, n_heads, n_kv_heads, d_head, rope_theta, causal=True, window=0,
+                   use_kernel=False, impl="full", probs_dtype=None):
+    b, s, _ = x.shape
+    q, k, v = project_qkv(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads, d_head=d_head,
+                          rope_theta=rope_theta)
+    if use_kernel and not window and d_head % 64 == 0 and s % 128 == 0:
+        # the kernel reads the shared K/V head in place of the reference's repeat
+        out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous(), causal=causal).transpose(1, 2)
+    elif impl == "chunked" and s > 512:
+        out = _chunked_sdpa(q, k, v, causal=causal, window=window)
+    else:
+        out = _sdpa(q, k, v, causal=causal, window=window, probs_dtype=probs_dtype)
+    return out.reshape(b, s, n_heads * d_head) @ p.wo
+
+
+def decode_attention(p, x, cache_k, cache_v, pos, *, n_heads, n_kv_heads, d_head,
+                     rope_theta, window=0):
+    """One-token decode.  x (B,1,d); cache (B,T,H_kv,D); pos a 0-d int tensor.
+
+    Returns (out (B,1,d), cache_k, cache_v).  Unlike the reference, the
+    caches are updated in place (one slot per call) and returned as the
+    same tensors.  For sliding-window layers the cache is a ring buffer
+    of size ``window``.
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, d_head)
+    if rope_theta:
+        cos, sin = rope(pos[None], d_head, rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    t = cache_k.shape[1]
+    slot = (pos % max(t, 1) if window else pos).reshape(1).long()
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
+    hkv = cache_k.shape[2]
+    qg = q.reshape(b, 1, hkv, n_heads // hkv, d_head)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() * d_head ** -0.5
+    kpos = torch.arange(t, device=x.device)
+    if window:
+        valid = (kpos <= slot) | (pos >= t)       # ring buffer: the last `window` positions
+    else:
+        valid = kpos <= pos
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, cache_v).reshape(b, 1, n_heads * d_head)
+    return out @ p.wo, cache_k, cache_v

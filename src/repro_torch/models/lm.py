@@ -1,0 +1,206 @@
+"""The LM, dense family: pre-RMSNorm GQA decoder with a SwiGLU or GELU
+MLP, RoPE and an optional QKV bias.
+
+Port of ``repro/models/lm.py`` for inference.  The reference's stacked
+parameter tree becomes an :class:`LM` module whose names follow the
+reference's dict (``embed``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``,
+``layers.<i>.mlp.w_gate``, ``final_norm``, ``lm_head``); a Python loop
+over the layers replaces ``lax.scan``.  What the reference does and this
+module does not:
+
+* remat (``jax.checkpoint``) is dropped — inference keeps no activations
+  for a backward, and the parameters carry no gradient until the train
+  step is ported (ROADMAP A13b);
+* ``sharding.constrain`` is a no-op on one device and is not ported;
+* the decode caches are updated in place (see ``decode_attention``).
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core.engine import resolve_device
+from .attention import Attention, decode_attention, self_attention
+from .common import Dtype, dense_init, gelu_mlp, rms_norm, swiglu
+
+__all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
+           "decode_step", "check_family", "UNPORTED_FAMILIES"]
+
+LOSS_CHUNK = 512
+
+#: families of the reference not ported yet → the ROADMAP item that ports them
+UNPORTED_FAMILIES = {
+    "moe": "A13c (MoE family: routed experts)",
+    "hybrid": "A13d (hybrid family: Mamba branch)",
+    "ssm": "A13e (ssm family: xLSTM blocks)",
+    "vlm": "A13f (vlm family: cross-attention)",
+    "audio": "A13f (audio family: encoder and cross-attention)",
+}
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise unless the port runs ``cfg``'s family."""
+    if cfg.family != "dense":
+        item = UNPORTED_FAMILIES.get(cfg.family, "A13")
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP {item})")
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        d, f = cfg.d_model, cfg.d_ff
+        self.gated = cfg.mlp_type == "swiglu"
+        if self.gated:
+            self.w_gate = _param(dense_init((d, f), dtype, **kw))
+            self.w_up = _param(dense_init((d, f), dtype, **kw))
+            self.w_down = _param(dense_init((f, d), dtype, **kw))
+        else:
+            self.w_up = _param(dense_init((d, f), dtype, **kw))
+            self.b_up = _param(torch.zeros(f, dtype=dtype, device=device))
+            self.w_down = _param(dense_init((f, d), dtype, **kw))
+            self.b_down = _param(torch.zeros(d, dtype=dtype, device=device))
+
+    def forward(self, x):
+        if self.gated:
+            return swiglu(x, self.w_gate, self.w_up, self.w_down)
+        return gelu_mlp(x, self.w_up, self.b_up, self.w_down, self.b_down)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
+        super().__init__()
+        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                              bias=cfg.qkv_bias, dtype=dtype, generator=generator,
+                              device=device)
+        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.mlp = MLP(cfg, dtype, generator=generator, device=device)
+
+
+class LM(nn.Module):
+    """The dense-family LM's weights (the reference's ``init_params``),
+    drawn from ``generator`` (seeded 0 on ``device`` when not given)
+    directly on ``device`` (default: the current card; raises without one)."""
+
+    def __init__(self, cfg: ArchConfig, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        dtype = Dtype(cfg.dtype).param
+        kw = dict(generator=generator, device=device)
+        self.embed = _param(dense_init((cfg.vocab, cfg.d_model), dtype, scale=0.02, **kw))
+        self.final_norm = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(dense_init((cfg.d_model, cfg.vocab), dtype, **kw))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, **kw) for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+# ----------------------------------------------------------------------
+# prefill / eval forward
+
+
+def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, *, use_kernel):
+    x = rms_norm(h, layer.ln1)
+    h = h + self_attention(
+        layer.attn, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        rope_theta=cfg.rope_theta, causal=True, window=cfg.attn_window, use_kernel=use_kernel,
+        impl=cfg.attn_impl,
+        probs_dtype=torch.bfloat16 if cfg.attn_probs_dtype == "bfloat16" else None)
+    return h + layer.mlp(rms_norm(h, layer.ln2))
+
+
+def _run_decoder(cfg: ArchConfig, model: LM, h, *, use_kernel=False):
+    for layer in model.layers:
+        h = _decoder_layer(cfg, layer, h, use_kernel=use_kernel)
+    return h
+
+
+def _chunked_loss(cfg: ArchConfig, model: LM, h, labels):
+    """h (B,S,d), labels (B,S) → mean NLL, ``loss_chunk`` positions at a
+    time so the full (B,S,V) logits never exist."""
+    b, s, _ = h.shape
+    chunk = min(cfg.loss_chunk if cfg.loss_chunk > 0 else LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
+    head = model.head()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        logits = (h[:, i:i + chunk] @ head).float()
+        gold = logits.gather(-1, labels[:, i:i + chunk, None].long())[..., 0]
+        total = total + (torch.logsumexp(logits, -1) - gold).sum()
+    return total / (b * s)
+
+
+def _embed(model: LM, tokens):
+    return F.embedding(tokens.long(), model.embed)
+
+
+def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
+    """Full (B,S,V) float32 logits — test/eval only."""
+    h = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    return (rms_norm(h, model.final_norm) @ model.head()).float()
+
+
+def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
+    """batch: tokens (B,S), labels (B,S).  Returns (loss, metrics)."""
+    h = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    loss = _chunked_loss(cfg, model, rms_norm(h, model.final_norm), batch["labels"])
+    return loss, dict(nll=loss, loss=loss)
+
+
+# ----------------------------------------------------------------------
+# decode (single-token serve step)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
+    """Zero caches (L,B,T,H_kv,D) in the param dtype and position 0, on
+    ``device`` (default: the current card; raises without one)."""
+    check_family(cfg)
+    device = resolve_device(device)
+    dt = Dtype(cfg.dtype).param
+    t = min(cfg.attn_window, seq_len) if cfg.attn_window else seq_len
+    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.d_head)
+    return dict(cache=dict(k=torch.zeros(shape, dtype=dt, device=device),
+                           v=torch.zeros(shape, dtype=dt, device=device)),
+                pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def decode_step(cfg: ArchConfig, model: LM, state, tokens):
+    """One decode step.  tokens (B,) int → (logits (B,V) float32, state).
+
+    The returned state holds the same cache tensors, written in place,
+    and the next position."""
+    pos = state["pos"]
+    cache = state["cache"]
+    h = _embed(model, tokens[:, None])
+    for i, layer in enumerate(model.layers):
+        x = rms_norm(h, layer.ln1)
+        out, _, _ = decode_attention(
+            layer.attn, x, cache["k"][i], cache["v"][i], pos, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            window=cfg.attn_window)
+        h = h + out
+        h = h + layer.mlp(rms_norm(h, layer.ln2))
+    logits = rms_norm(h, model.final_norm) @ model.head()
+    return logits[:, 0].float(), dict(cache=cache, pos=pos + 1)

@@ -13,13 +13,20 @@ import numpy as np
 import pytest
 import torch
 
+from dataclasses import replace
+
 from repro_torch.algorithms import bfs_algorithm, pagerank_algorithm, tc_algorithm
 from repro_torch.algorithms.tc import orient_dag
 from repro_torch.core import build_block_store, compile_plan, degree_order, rmat
 from repro_torch.kernels import ref, registry
+from repro_torch.configs import get_smoke
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.frontier_tiles import frontier_tiles
+from repro_torch.kernels.spmv_ell import spmv_ell
 from repro_torch.kernels.spmv_tiles import spmv_tiles
 from repro_torch.kernels.tc_tiles import tc_tiles
+from repro_torch.models import lm
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -78,6 +85,86 @@ def test_tc_tiles_cuda_vs_plain(cuda, nd, nb, t, dtype):
     got = tc_tiles(tiles, idx)
     assert got.dtype == torch.int64
     assert int(got) == int(ref.tc_tiles_idx_ref(tiles, idx))
+
+
+ATTN_CASES = [  # b, h, h_kv, s_q, s_k, d, causal
+    (1, 2, 2, 128, 128, 64, True), (2, 4, 1, 128, 256, 64, True), (1, 2, 2, 256, 256, 128, False),
+    (1, 4, 2, 256, 128, 128, True),          # S_q > S_k: the first 128 rows see no key
+    (2, 6, 3, 100, 77, 64, True),            # ragged ends on both axes
+    (1, 8, 2, 300, 300, 128, False)]
+
+
+@pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_vs_plain(cuda, b, h, h_kv, sq, sk, d, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, h, sq, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, h_kv, sk, d), generator=gen, device=cuda).to(dtype) for _ in "kv")
+    before = registry.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    assert registry.launch_counts()["flash_attention"] == before + 1
+    # against the plain version's float32 result, before its cast: f32 is
+    # the same arithmetic summed in another order (the reference's 2e-4);
+    # a bf16 output adds its rounding, at most half a step (2^-8 of the value)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else dict(rtol=2**-8, atol=1e-4)
+    torch.testing.assert_close(got.float(), want, **tol)
+    if causal and sq > sk:
+        assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+@pytest.mark.parametrize("b,r,k,n", [(1, 128, 8, 256), (3, 200, 7, 500), (2, 1000, 32, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_ell_cuda_vs_plain(cuda, b, r, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    idx = torch.randint(0, n, (b, r, k), generator=gen, device=cuda, dtype=torch.int32)
+    valid = torch.rand((b, r, k), generator=gen, device=cuda) < 0.7
+    x = torch.rand((b, n), generator=gen, device=cuda).to(dtype)
+    before = registry.launch_counts()["spmv_ell"]
+    got = spmv_ell(idx, valid, x)
+    assert registry.launch_counts()["spmv_ell"] == before + 1
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), ref.spmv_ell_ref(idx, valid, x).float(), **tol)
+
+
+def test_spmv_ell_cuda_skips_masked_indices(cuda):
+    idx = torch.full((1, 4, 3), 10**6, dtype=torch.int32, device=cuda)
+    idx[0, :, 0] = torch.arange(4, device=cuda, dtype=torch.int32)
+    valid = torch.zeros((1, 4, 3), dtype=torch.bool, device=cuda)
+    valid[0, :, 0] = True
+    x = torch.arange(8.0, device=cuda)[None]
+    assert torch.equal(spmv_ell(idx, valid, x), x[:, :4])
+
+
+def _small_lm(device):
+    cfg = replace(get_smoke("granite-3-8b"), d_model=256, n_heads=4, n_kv_heads=2,
+                  dtype="float32")
+    return cfg, lm.LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                      device=device)
+
+
+def test_lm_forward_kernel_vs_plain_on_the_card(cuda):
+    cfg, model = _small_lm(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    registry.reset_launch_counts()
+    with torch.inference_mode():
+        got = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=True)
+        assert registry.launch_counts()["flash_attention"] == cfg.n_layers
+        want = lm.forward_logits(cfg, model, dict(tokens=tokens))
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-4)
+
+
+def test_serve_engine_on_the_card_equals_the_cpu(cuda):
+    cfg, model = _small_lm("cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, model.to(dev), batch_slots=2, cache_len=32, device=dev)
+        for uid in range(3):
+            eng.submit(Request(uid=uid, prompt=[1 + uid, 5, 9], max_new_tokens=5))
+        runs[str(dev)] = {r.uid: r.output for r in eng.run_until_drained()}
+    assert runs["cpu"] == runs[str(cuda)]
 
 
 def test_cuda_kernels_reject_cpu_tensors(cuda):

@@ -104,6 +104,25 @@ def test_spmv_ell_plain_vs_oracle(b, r, k, n):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("b,r,k,n", [(1, 128, 8, 256), (3, 256, 16, 512)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_spmv_ell_plain_vs_pallas(b, r, k, n, dtype):
+    from repro.kernels.spmv_ell import spmv_ell as p_spmv_ell
+    from repro_torch.kernels.spmv_ell import spmv_ell
+
+    rng = np.random.default_rng(b * 100 + k)
+    idx = rng.integers(0, n, (b, r, k)).astype(np.int32)
+    valid = rng.random((b, r, k)) < 0.7
+    jx, tx = _both(rng.random((b, n)).astype(np.float32), dtype)
+    want = p_spmv_ell(jnp.asarray(idx), jnp.asarray(valid), jx, interpret=True)
+    got = spmv_ell(torch.from_numpy(idx), torch.from_numpy(valid), tx)
+    assert got.dtype == tx.dtype and got.shape == (b, r)
+    # f32: the same sums in another order; bf16: both round a sum of up
+    # to 16 values near 0.5 to bf16 (2^-8 relative)
+    tol = dict(rtol=1e-5) if dtype == "f32" else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.float32(want.astype(jnp.float32)), **tol)
+
+
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [(1, 2, 128, 128, 64, True),
                                                 (2, 1, 128, 256, 64, True),
                                                 (1, 1, 256, 128, 64, False)])
@@ -119,6 +138,11 @@ def test_attention_plain_vs_oracle(b, h, sq, sk, d, causal):
 
 
 def _cpu_args(name):
+    if name == "spmv_ell":
+        return (torch.zeros((1, 2, 3), dtype=torch.int32), torch.ones((1, 2, 3), dtype=torch.bool),
+                torch.arange(4.0)[None])
+    if name == "flash_attention":
+        return torch.ones((1, 2, 4, 64)), torch.ones((1, 1, 4, 64)), torch.ones((1, 1, 4, 64))
     tiles = torch.zeros((2, 8, 8))
     second = {"spmv_tiles": torch.zeros((2, 8)), "frontier_tiles": torch.zeros((2, 8)),
               "tc_tiles": torch.zeros((1, 3), dtype=torch.int32)}[name]
@@ -144,6 +168,6 @@ def test_cpu_tensors_take_the_plain_version(name):
 
 def test_get_kernel_rejects_unknown_names():
     with pytest.raises(KeyError):
-        registry.get_kernel("spmv_ell")
+        registry.get_kernel("spmv_csr")
     with pytest.raises(ValueError, match="backend"):
         registry.get_kernel("spmv_tiles", "triton")
