@@ -11,7 +11,8 @@ at full configuration: the graph engine through
    at ragged ones (tile kernels: T=192, odd batch; ``flash_attention``:
    the LM prefill's (2, 32 heads, 8 KV heads, 4096, 128) bf16, suffix-
    aligned causal with S_q < S_k, non-causal, and S_q > S_k with rows
-   that see no key; ``spmv_ell``: (B, R, K, N) = (4, 262144, 32, 2^20),
+   that see no key, each in float32 and bf16, and a bf16 D=64 shape;
+   ``spmv_ell``: (B, R, K, N) = (4, 262144, 32, 2^20),
    the PageRank graph's vertex count and mean degree, and a ragged one);
 2. PageRank on ``degree_order(rmat(20, 16, seed=7), ascending=False)``
    (the Graph500 Kronecker generator, A=.57 B=.19 C=.19, edge factor
@@ -43,8 +44,10 @@ the CUDA cores; 989 TFLOP/s bf16 dense on the tensor cores for the
 attention products, which no float32 arithmetic is needed for).  Any
 failed check exits non-zero.
 
-Output: the card's name and power limit, the build time, one or more
-lines per phase, a JSON line of per-kernel numbers, and as the last line
+Output: the card's name and power limit, the build time, flash_attention's
+registers and spills (ptxas) and its tensor-core and TMA instructions
+(cuobjdump; the bf16 route must have both), one or more lines per phase,
+a JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root::
 
     python3 chip_smoke.py
@@ -52,6 +55,9 @@ lines per phase, a JSON line of per-kernel numbers, and as the last line
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -74,11 +80,17 @@ PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
-#: the LM prefill's shape, the last has S_q > S_k and 256 rows that see no key
+#: the LM prefill's shape; then suffix-aligned causal with S_q < S_k, non-causal,
+#: and S_q > S_k with 256 rows that see no key, in float32 (the CUDA-core route)
+#: and bf16 (the tensor-core route); last a bf16 D=64 shape
 ATTN_SHAPES = ((2, 32, 8, 4096, 4096, 128, "bfloat16", True),
                (1, 4, 4, 128, 512, 64, "float32", True),
                (1, 2, 2, 256, 256, 128, "float32", False),
-               (1, 4, 2, 384, 128, 128, "float32", True))
+               (1, 4, 2, 384, 128, 128, "float32", True),
+               (1, 4, 4, 128, 512, 64, "bfloat16", True),
+               (1, 2, 2, 256, 256, 128, "bfloat16", False),
+               (1, 4, 2, 384, 128, 128, "bfloat16", True),
+               (2, 8, 2, 2048, 2048, 64, "bfloat16", True))
 #: flash_attention vs the plain version's float32 result (before its cast to
 #: the output dtype): |got - want| <= atol + rtol * |want|.  float32: the same
 #: sums in another order (tests/test_kernels.py's 2e-4); bfloat16: those sums
@@ -163,6 +175,43 @@ def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
         f"{bound_ms:.4f} ms ({bound_by}), launches {launches}, max_abs_err {err}")
     return rec
+
+
+def _route(mangled: str) -> str:
+    """The route and head width of a flash_attention kernel from its mangled name."""
+    d = re.search(r"kernelILi(\d+)E", mangled).group(1)
+    return f"{'bf16' if 'tc6kernel' in mangled else 'f32'} D={d}"
+
+
+def tensor_core_report(log: str) -> None:
+    """flash_attention's build: ptxas's registers and spills per kernel, the
+    register counts its warpgroups set (``setmaxnreg``), and the tensor-core
+    (HGMMA) and TMA (UTMALDG) instructions in its SASS.  Fails if the bf16
+    route has none of either; says so when the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    name = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _route(line)
+        elif "registers" in line or "spill" in line:
+            say(f"  flash_attention ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        say("  flash_attention SASS: not read (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        route = _route(fn.split("\n", 1)[0])
+        hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
+        top = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
+        nreg = sorted(set(re.findall(r"USETMAXREG\.(\w+)\.CTAPOOL[^,;]*,? *(0x[0-9a-f]+)", fn)))
+        say(f"  flash_attention SASS {route}: HGMMA {hgmma}, UTMALDG {utmaldg}, registers "
+            f"up to R{top}, setmaxnreg {[(k, int(v, 16)) for k, v in nreg]}")
+        if route.startswith("bf16"):
+            check(hgmma > 0 and utmaldg > 0, f"flash_attention {route}: no HGMMA or UTMALDG")
 
 
 def device_profile(run):
@@ -659,9 +708,16 @@ def phase_lm_full(dev, cfg):
               f"{share:.3f} of the tolerance {ATTN_TOL[cfg.dtype]}")
         say(f"  flash_attention on layer 0's inputs: max err {err:.2e}, {share:.3f} of the "
             f"tolerance {ATTN_TOL[cfg.dtype]}")
+
         # S_q = S_k, so SDPA's top-left causal mask equals the suffix-aligned one
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                 enable_gqa=True), 5)
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        # information, not a check: the library's arithmetic against the same limit
+        sdpa_err, sdpa_share = attn_error(sdpa(), q, k, v)
+        say(f"  SDPA on layer 0's inputs: max err {sdpa_err:.2e}, {sdpa_share:.3f} of the "
+            f"same tolerance (not a check)")
+        library = cuda_ms(sdpa, 5)
         pairs = b * cfg.n_heads * s * (s + 1) // 2          # visible (query, key) pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         rec = record("flash_attention", launches["flash_attention"], err,
@@ -720,8 +776,9 @@ def main() -> int:
     say(smi.stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    _build.build_all(list(SOURCES))
+    logs = _build.build_all(list(SOURCES))
     say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    tensor_core_report(logs["flash_attention"])
 
     kernels = run(dev)
     say(json.dumps({"kernels": kernels}))

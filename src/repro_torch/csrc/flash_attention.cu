@@ -9,32 +9,75 @@
 // where head h reads K/V head h / (H / H_kv) (the reference repeats K/V to
 // H heads first; reading the shared head in place gives the same numbers),
 // and with `causal` key j is visible to row i iff j <= i + (S_k - S_q).
-// scale = D^-1/2 is applied to q in float32, as the TPU kernel does.  A row
-// with no visible key gets l = 0 and writes 0 (acc / max(l, 1e-30)).
+// Masked scores are -1e30; a row with no visible key gets l = 0 and writes
+// 0 (acc / max(l, 1e-30)).  Ragged S_q and S_k are masked here (the Pallas
+// kernel asserted S % 128 == 0).
 //
 // Bound on Hopper: operations.  The two products do 4*D flops for every
-// visible (query, key) pair, and each q/k/v/o element is read or written
-// once, so at the LM's shapes (S = 4096, D = 128) there are ~1,600 flops
-// per byte -- far above the ~295 at which even the bf16 tensor cores
-// outrun device memory.  This first version runs both products in float32
-// on the CUDA cores (67 TFLOP/s peak, not the tensor cores' 989).
+// visible (query, key) pair, at most 989 TFLOP/s on the bf16 tensor cores,
+// and each q/k/v/o element is read or written once, so at the LM's shapes
+// (S = 4096, D = 128) there are ~1,600 flops per byte -- far above the
+// ~295 at which the tensor cores outrun device memory.
 //
-// Design: grid (ceil(S_q/64), B*H), 128 threads.  A block owns 64 query
-// rows; it stages them once in shared memory (float32, scaled), then walks
-// the keys in tiles of 32 rows: K and V tiles are staged in shared memory,
-// each thread computes a 4x4 patch of the 64x32 score tile (rows 4*ty..,
-// columns tx + 8*j), row max and row sum are reduced over the 8 threads
-// that share a row with __shfl_xor_sync, the probabilities go through
-// shared memory, and each thread accumulates 4 rows x D/8 output columns
-// in registers.  Causal blocks stop at their last visible key tile, and
-// blocks are issued last-query-block first so the longest ones start
-// early.  Ragged S_q and S_k are masked here (the Pallas kernel asserted
-// S % 128 == 0).  Row strides of the q and k tiles are padded by one word
-// and the probability tile by two, so that no shared-memory read conflicts.
+// Two routes, chosen by dtype in flash_attention_launch:
+//
+// * bfloat16 (the LM's prefill): Hopper's tensor cores.  Grid (ceil(S_q/128),
+//   B*H), issued last query tile first so that the longest causal blocks
+//   start early; 384 threads in three warpgroups.  Warpgroup 2 is the
+//   producer: it gives up registers (setmaxnreg 24) and one thread issues
+//   every TMA load -- Q once, then K and V tiles of 128 keys through a
+//   ring of two shared-memory stages with a full and an empty mbarrier
+//   each.  The tensor maps are 3-D, (D, S, B*H) for q and (D, S_k, B*H_kv)
+//   for k and v, so a ragged tile at the end of one head is zero-filled by
+//   the hardware instead of reading the next head's rows; 128-byte swizzle,
+//   boxes of 64 columns x 128 rows.  Warpgroups 0 and 1 are the consumers
+//   (setmaxnreg 240), 64 query rows each.  Per K/V tile a consumer
+//     - computes S = Q K^T with wgmma m64n128k16 (both operands in shared
+//       memory, bf16 products exact in the float32 sums);
+//     - scales S in float32 by scale * log2(e) (q is not pre-scaled: q *
+//       scale rounded to bf16 would add error), masks it only on tiles
+//       that cross the causal diagonal or the ragged end, and runs the
+//       online softmax on exp2, the row max reduced over the four threads
+//       that share a row of the wgmma accumulator;
+//     - splits P in registers into P_hi = bf16(P) and P_lo = bf16(P - P_hi)
+//       and issues O += P_hi V and O += P_lo V as register-A wgmmas that
+//       read the V stage through the transposed (MN-major) descriptor;
+//     - arrives on the stage's empty barrier only after both have retired.
+//   A causal block stops at its last visible K tile.  The epilogue divides
+//   by max(l, 1e-30), rounds to bf16 and stores the rows below S_q.
+//
+//   Why P is split.  The check this kernel is held to is |out - want| <=
+//   1e-4 + 2^-8 |want| against the float32 plain version: the output's own
+//   bf16 rounding plus 1e-4.  Emulated on the CPU (bf16 randn q, k, v,
+//   B=1, H=8, S=2048, D=128, causal; exact bf16 products summed in float32;
+//   P rounded as named before the PV product; output rounded to bf16), the
+//   largest share of that limit used is 0.960 with P in float32, 12.1 with
+//   P as one bf16 term (4.0 even on rows 512-2048), 1.67 with P in fp16,
+//   and 0.960 with P_hi + P_lo.  The split costs one more wgmma on the PV
+//   product (1.5x the tensor-core work) and no shared-memory traffic: both
+//   terms are A operands taken from registers.
+//
+// * float32 (exactness checks only; TF32 or bf16 products would not meet
+//   their 2e-4): the CUDA cores.  Grid (ceil(S_q/64), B*H), 128 threads; a
+//   block stages its 64 query rows once in shared memory (scaled), then
+//   walks the keys in tiles of 32 rows; each thread computes a 4x4 patch
+//   of the 64x32 score tile, row max and sum are reduced over the 8
+//   threads that share a row with __shfl_xor_sync, the probabilities go
+//   through shared memory, and each thread accumulates 4 rows x D/8 output
+//   columns in registers.  Row strides are padded so that no shared-memory
+//   read conflicts.
+#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kNeg = -1e30f;
+
+// ------------------------------------------------------------ float32: CUDA cores
+
+namespace f32 {
 
 constexpr int kBQ = 64;                     // query rows per block
 constexpr int kBK = 32;                     // key rows per shared-memory tile
@@ -43,12 +86,6 @@ constexpr int kColThreads = 8;              // threads sharing one score row
 constexpr int kRows = kBQ / (kThreads / kColThreads);   // 4 rows per thread
 constexpr int kCols = kBK / kColThreads;                // 4 score columns per thread
 constexpr int kPld = kBK + 2;               // padded row stride of the p tile
-constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -56,11 +93,10 @@ constexpr size_t smem_bytes() {
                           (size_t)kBK * D + (size_t)kBQ * kPld);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int h, int group,
-                       int sq, int sk, int causal, float scale) {
+kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+       float* __restrict__ o, int h, int group, int sq, int sk, int causal, float scale) {
   constexpr int kLd = D + 1;                // padded row stride of the q and k tiles
   constexpr int kDc = D / kColThreads;      // output columns per thread
   extern __shared__ float smem[];
@@ -73,10 +109,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / h, hh = bh % h;
   const int h_kv = h / group;
   const long long q0 = (long long)(gridDim.x - 1 - blockIdx.x) * kBQ;
-  const T* qp = q + ((long long)bh * sq + q0) * D;
-  const T* kp = k + (long long)(b * h_kv + hh / group) * sk * D;
-  const T* vp = v + (long long)(b * h_kv + hh / group) * sk * D;
-  T* op = o + ((long long)bh * sq + q0) * D;
+  const float* qp = q + ((long long)bh * sq + q0) * D;
+  const float* kp = k + (long long)(b * h_kv + hh / group) * sk * D;
+  const float* vp = v + (long long)(b * h_kv + hh / group) * sk * D;
+  float* op = o + ((long long)bh * sq + q0) * D;
 
   const int tid = threadIdx.x;
   const int tx = tid % kColThreads, ty = tid / kColThreads;
@@ -84,7 +120,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    q_s[r * kLd + c] = q0 + r < sq ? to_f32(qp[(long long)r * D + c]) * scale : 0.f;
+    q_s[r * kLd + c] = q0 + r < sq ? qp[(long long)r * D + c] * scale : 0.f;
   }
 
   float acc[kRows][kDc];
@@ -104,8 +140,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const bool in = k0 + r < sk;
-      k_s[r * kLd + c] = in ? to_f32(kp[(k0 + r) * D + c]) : 0.f;
-      v_s[r * D + c] = in ? to_f32(vp[(k0 + r) * D + c]) : 0.f;
+      k_s[r * kLd + c] = in ? kp[(k0 + r) * D + c] : 0.f;
+      v_s[r * D + c] = in ? vp[(k0 + r) * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -179,50 +215,434 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kDc; ++c) put(&op[(long long)r * D + tx + kColThreads * c], acc[i][c] / den);
+    for (int c = 0; c < kDc; ++c) op[(long long)r * D + tx + kColThreads * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
                    int h_kv, int sq, int sk, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)(b * h));
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), h, h / h_kv, sq, sk, causal, scale);
+  kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), h, h / h_kv, sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int b, int h,
-                     int h_kv, int sq, int sk, int d, int causal, float scale,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch<T, 64>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+}  // namespace f32
+
+// ------------------------------------------------------------ bfloat16: tensor cores
+
+namespace tc {
+
+constexpr int kBQ = 128;                    // query rows per block, 64 per consumer warpgroup
+constexpr int kBK = 128;                    // keys per K/V tile
+constexpr int kStages = 2;                  // K/V tiles in flight
+constexpr int kThreads = 384;               // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumerWarps = 8;           // arrivals that free a stage
+constexpr int kPanel = 128 * 128;           // bytes of 128 rows x 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-byte aligned base: Q, K[kStages], V[kStages],
+// each a 128 x D tile stored as D/64 panels of 128 rows x 128 bytes (the
+// TMA box; 128-byte swizzle within each 1024-byte group of 8 rows), then
+// the barriers: q_full, full[kStages], empty[kStages].
+template <int D>
+struct Smem {
+  static constexpr int kTile = (D / 64) * kPanel;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte swizzled operand.  SBO is
+// the 1024 bytes between groups of 8 rows; LBO matters only for an MN-major
+// operand wider than 64 columns, where it is the distance between panels.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence/commit/wait instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+              "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+            "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define D64 D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
+            "%62, %63"
+
+// d (m64 x n128, f32) (+)= A (m64 x k16, shared, K-major) B (k16 x n128, shared, K-major)
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64 "}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n128, f32) += A (m64 x k16 bf16, registers) B (k16 x n128, shared, MN-major)
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (m64 x n64, f32) += A (m64 x k16 bf16, registers) B (k16 x n64, shared, MN-major)
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  if constexpr (D == 128) mma_rs_n128(acc, a0, a1, a2, a3, b);
+  else mma_rs_n64(acc, a0, a1, a2, a3, b);
+}
+
+// Two floats rounded to bf16 and packed, `lo` in the low half (the element
+// of the lower column, as the wgmma A fragment and a bf16x2 store want).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int h,
+       int group, int sq, int sk, int causal, float scale_log2) {
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t q_full = base + L::kBar;
+  auto k_s = [&](int s) { return base + L::kK + s * L::kTile; };
+  auto v_s = [&](int s) { return base + L::kV + s * L::kTile; };
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+
+  const int bh = blockIdx.y;
+  const int bkv = (bh / h) * (h / group) + (bh % h) / group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const long long off = (long long)sk - sq;     // row i sees keys j <= i + off
+  long long kend = sk;
+  if (causal) kend = min(kend, q0 + kBQ + off);  // past the block's last visible key
+  const int nk = kend > 0 ? (int)((kend + kBK - 1) / kBK) : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      bar_expect_tx(q_full, L::kTile);
+      for (int p = 0; p < D / 64; ++p) tma_load(q_s + p * kPanel, &tm_q, q_full, 64 * p, q0, bh);
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % kStages;
+        bar_wait(empty(s), ((t / kStages) & 1) ^ 1);
+        bar_expect_tx(full(s), 2 * L::kTile);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(k_s(s) + p * kPanel, &tm_k, full(s), 64 * p, t * kBK, bkv);
+          tma_load(v_s(s) + p * kPanel, &tm_v, full(s), 64 * p, t * kBK, bkv);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    // accumulator layout of wgmma m64nN: element 4j + e of a thread lies in
+    // row r_lo + 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2
+    const int r_lo = q0 + 64 * wg + 16 * warp + lane / 4;
+    const int c_lane = 2 * (lane % 4);
+    const uint32_t q_wg = q_s + wg * 64 * 128;   // this warpgroup's 64 rows of each panel
+    const long long row_first = (long long)q0 + 64 * wg;
+
+    float acc[D / 2], sc[64];
+    uint32_t p_hi[32], p_lo[32];
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    bar_wait(q_full, 0);
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages;
+      const int k0 = t * kBK;
+      bar_wait(full(s), (t / kStages) & 1);
+
+      // S = Q K^T over D in steps of 16 (32 bytes inside a swizzled row)
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t koff = (ks / 4) * kPanel + (ks % 4) * 32;
+        mma_ss_n128(sc, desc(q_wg + koff, 16), desc(k_s(s) + koff, 16), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax in the exp2 domain; mask only tiles that need it
+      const bool masked = k0 + kBK > sk || (causal && k0 + kBK - 1 > row_first + off);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float x = sc[i] * scale_log2;
+        if (masked) {
+          const long long col = k0 + 8 * (i / 4) + c_lane + (i % 2);
+          const long long row = r_lo + 8 * ((i % 4) / 2);
+          if (col >= sk || (causal && col > row + off)) x = kNeg;
+        }
+        sc[i] = x;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(fminf(m[r] - mx[r], 0.f));
+        m[r] = mx[r];
+      }
+      // P, its thread-partial row sums, and its split into two bf16 terms;
+      // the pair (sc[2u], sc[2u+1]) is register u of the wgmma A fragment
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        const int r = u % 2;
+        float p0 = exp2f(sc[2 * u] - m[r]), p1 = exp2f(sc[2 * u + 1] - m[r]);
+        if (masked) {
+          p0 = sc[2 * u] > kNeg / 2 ? p0 : 0.f;
+          p1 = sc[2 * u + 1] > kNeg / 2 ? p1 : 0.f;
+        }
+        sum[r] += p0 + p1;
+        p_hi[u] = pack_bf16(p0, p1);
+        p_lo[u] = pack_bf16(p0 - __uint_as_float(p_hi[u] << 16),
+                            p1 - __uint_as_float(p_hi[u] & 0xffff0000u));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+
+      // O += P_hi V + P_lo V over the 128 keys in steps of 16 (2048 bytes)
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t b = desc(v_s(s) + kk * 2048, kPanel);
+        mma_pv<D>(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3], b);
+        mma_pv<D>(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3], b);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty(s));
+    }
+
+    // epilogue: the row sums over the four threads of a row, then O / l
+    __nv_bfloat16* ob = o + (long long)bh * sq * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const float den = fmaxf(l[r], 1e-30f);
+      const int row = r_lo + 8 * r;
+      if (row < sq) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(ob + (long long)row * D + 8 * j + c_lane) =
+              pack_bf16(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+        }
+      }
+    }
   }
 }
+
+#undef F8
+#undef D32
+#undef D64
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), reached through the runtime
+// so that the library needs no -lcuda.
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A 3-D map (D, rows, heads) of a contiguous (heads, rows, D) bf16 tensor,
+// read in boxes of 64 columns x 128 rows with 128-byte swizzle; rows past
+// the end of a head are zero-filled.
+cudaError_t tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int rows,
+                       int heads) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * rows};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
+                   int h_kv, int sq, int sk, int causal, float scale, cudaStream_t stream) {
+  if (sk == 0)   // no key at all: every row is empty and writes 0
+    return cudaMemsetAsync(o, 0, (size_t)b * h * sq * D * sizeof(__nv_bfloat16), stream);
+  EncodeTiled enc;
+  cudaError_t e = encoder(&enc);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mq, mk, mv;
+  if ((e = tensor_map(enc, &mq, q, D, sq, b * h)) != cudaSuccess) return e;
+  if ((e = tensor_map(enc, &mk, k, D, sk, b * h_kv)) != cudaSuccess) return e;
+  if ((e = tensor_map(enc, &mv, v, D, sk, b * h_kv)) != cudaSuccess) return e;
+  constexpr int smem = Smem<D>::kBytes;
+  e = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)(b * h));
+  kernel<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), h,
+                                               h / h_kv, sq, sk, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // q, o: (b, h, sq, d); k, v: (b, h_kv, sk, d); all contiguous and of one
-// dtype: 0 = float32, 1 = bfloat16.  d must be 64 or 128, h a multiple of h_kv.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, all four
+// 16-byte aligned for TMA).  d must be 64 or 128, h a multiple of h_kv.
 extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       const void* v, void* o, int b, int h, int h_kv,
                                       int sq, int sk, int d, int causal, float scale,
                                       int dtype, void* stream) {
-  if (h_kv <= 0 || h % h_kv != 0) return cudaErrorInvalidValue;
+  if (h_kv <= 0 || h % h_kv != 0 || (d != 64 && d != 128)) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = d == 128;
   switch (dtype) {
-    case 0: return launch_d<float>(q, k, v, o, b, h, h_kv, sq, sk, d, causal, scale, s);
-    case 1: return launch_d<__nv_bfloat16>(q, k, v, o, b, h, h_kv, sq, sk, d, causal, scale, s);
+    case 0:
+      return wide ? f32::launch<128>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s)
+                  : f32::launch<64>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s);
+    case 1:
+      return wide ? tc::launch<128>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s)
+                  : tc::launch<64>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

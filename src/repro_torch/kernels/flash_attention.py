@@ -3,8 +3,9 @@ in float32, grouped K/V heads, suffix-aligned causal masking.
 
 Port of the Pallas kernel ``repro/kernels/attn_tile.py::flash_attention``.
 The CUDA kernel is ``csrc/flash_attention.cu`` (its header says what
-bounds it and how it is laid out); the plain version is
-:func:`repro_torch.kernels.ref.attention_ref`.
+bounds it and how it is laid out): bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA, P split into two bf16 terms), float32 on the CUDA
+cores.  The plain version is :func:`repro_torch.kernels.ref.attention_ref`.
 """
 from __future__ import annotations
 
@@ -58,6 +59,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: bf16 q, k, v and the output must start on a "
+                         "16-byte boundary (the tensor-core route reads them with TMA)")
     fn = _build.function("flash_attention", "flash_attention_launch", _ARGTYPES)
     err = fn(dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h_kv,
              sq, sk, d, int(causal), d ** -0.5, _DTYPES[q.dtype], _build.stream_handle(dev))

@@ -91,7 +91,9 @@ ATTN_CASES = [  # b, h, h_kv, s_q, s_k, d, causal
     (1, 2, 2, 128, 128, 64, True), (2, 4, 1, 128, 256, 64, True), (1, 2, 2, 256, 256, 128, False),
     (1, 4, 2, 256, 128, 128, True),          # S_q > S_k: the first 128 rows see no key
     (2, 6, 3, 100, 77, 64, True),            # ragged ends on both axes
-    (1, 8, 2, 300, 300, 128, False)]
+    (1, 8, 2, 300, 300, 128, False),
+    (1, 4, 1, 2048, 2048, 128, True),        # many K/V ring stages, the prefill's GQA group of 4
+    (1, 8, 2, 1000, 1000, 128, True)]        # ragged at D=128
 
 
 @pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal", ATTN_CASES)
@@ -112,6 +114,14 @@ def test_flash_attention_cuda_vs_plain(cuda, b, h, h_kv, sq, sk, d, causal, dtyp
     torch.testing.assert_close(got.float(), want, **tol)
     if causal and sq > sk:
         assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+def test_flash_attention_cuda_rejects_a_misaligned_tensor(cuda):
+    # TMA reads from 16-byte aligned addresses: a view one element in raises
+    q = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 2, 128, 64)
+    k = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, k)
 
 
 @pytest.mark.parametrize("b,r,k,n", [(1, 128, 8, 256), (3, 200, 7, 500), (2, 1000, 32, 4096)])
