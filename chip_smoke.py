@@ -8,7 +8,12 @@ at full configuration: the graph engine through
 ``make_prefill_step`` and ``ServeEngine``:
 
 1. kernels vs plain versions on the card, at the main paths' shapes and
-   at ragged ones (tile kernels: T=192, odd batch; ``flash_attention``:
+   at ragged ones (tile kernels: T=192, odd batch; ``frontier_tiles`` and
+   ``tc_tiles`` also with ragged extents -- tiles zeroed outside a block
+   rectangle of 0, 1, 63, 65 or T rows and columns -- at T in {64, 192,
+   512} and at T=50 float32 and T=36, 37 bf16, whose unaligned rows take
+   ``tc_tiles``' cp.async route, float32 and bf16 tiles, masked triples
+   and an empty frontier; ``flash_attention``:
    the LM prefill's (2, 32 heads, 8 KV heads, 4096, 128) bf16, suffix-
    aligned causal with S_q < S_k, non-causal, and S_q > S_k with rows
    that see no key, each in float32 and bf16, and a bf16 D=64 shape;
@@ -41,12 +46,17 @@ PyTorch yardstick where there is one, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its operations over the card's
 peak rate for their type (H100 SXM data sheet: 67 TFLOP/s float32 on
 the CUDA cores; 989 TFLOP/s bf16 dense on the tensor cores for the
-attention products, which no float32 arithmetic is needed for).  Any
-failed check exits non-zero.
+attention products, which no float32 arithmetic is needed for; 495
+TFLOP/s TF32 for ``tc_tiles``' wedge products, exact on 0/1 tiles).
+The tile kernels' bounds count only what lies inside each tile's block
+rectangle (its extents); the whole-tile bound they had before is printed
+beside.  Any failed check exits non-zero.
 
-Output: the card's name and power limit, the build time, flash_attention's
-registers and spills (ptxas) and its tensor-core and TMA instructions
-(cuobjdump; the bf16 route must have both), one or more lines per phase,
+Output: the card's name and power limit, the build time, the registers and
+spills (ptxas) and the tensor-core and TMA instructions (cuobjdump) of
+flash_attention (the bf16 route must have both) and tc_tiles (every route
+of its count kernel must have HGMMA, the TMA route UTMALDG), one or more
+lines per phase,
 a JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root::
 
@@ -69,6 +79,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM: 80 GB HBM3 at 3.35 TB/s
 F32_FLOPS = 67e12              # H100 SXM: float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # H100 SXM: bf16 dense on the tensor cores
+TF32_TC_FLOPS = 495e12         # H100 SXM: TF32 dense on the tensor cores
 INT_MAX = 2**31 - 1
 
 PAGERANK = dict(scale=20, edge_factor=16, seed=7, p=512, tile_dim=512, dense_density=0.005)
@@ -76,6 +87,14 @@ TC = dict(scale=16, edge_factor=16, seed=7, p=256, tile_dim=512, dense_density=0
 #: phase 1 shapes: PageRank's (nd, T), TC's (nd, B, T), and ragged ones
 SPMV_SHAPES = ((4128, 512), (33, 192))
 TC_SHAPES = ((3199, 9670, 512), (33, 77, 192))
+#: extents checks of the two tile kernels: (T, tile dtype); T=50 float32 and
+#: T=36, 37 bf16 have rows that are not 16-byte aligned (tc_tiles' cp.async route)
+EXTENT_SHAPES = ((64, "float32"), (192, "float32"), (512, "float32"), (64, "bfloat16"),
+                 (192, "bfloat16"), (512, "bfloat16"), (50, "float32"), (36, "bfloat16"),
+                 (37, "bfloat16"))
+#: batch of the extents checks (odd): tiles, triples (enough that some triples'
+#: boxes are wide in all three directions and count triangles)
+EXTENT_BATCH = (9, 201)
 PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
@@ -177,41 +196,55 @@ def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_
     return rec
 
 
-def _route(mangled: str) -> str:
-    """The route and head width of a flash_attention kernel from its mangled name."""
-    d = re.search(r"kernelILi(\d+)E", mangled).group(1)
-    return f"{'bf16' if 'tc6kernel' in mangled else 'f32'} D={d}"
+def _route(kernel: str, mangled: str) -> str:
+    """The route of a kernel from its mangled name: flash_attention's
+    type and head width; for tc_tiles, which of its two kernels (the
+    patch-mask pre-pass or the count), the tile type and the load route."""
+    if kernel == "flash_attention":
+        d = re.search(r"kernelILi(\d+)E", mangled).group(1)
+        return f"{'bf16' if 'tc6kernel' in mangled else 'f32'} D={d}"
+    dtype = "bf16" if "bfloat16" in mangled else "f32"
+    if "patch_masks" in mangled:
+        return f"masks {dtype} {'16-byte' if 'Lb1E' in mangled else 'scalar'}"
+    return f"count {dtype} {'TMA' if 'Lb1E' in mangled else 'cp.async'}"
 
 
-def tensor_core_report(log: str) -> None:
-    """flash_attention's build: ptxas's registers and spills per kernel, the
-    register counts its warpgroups set (``setmaxnreg``), and the tensor-core
-    (HGMMA) and TMA (UTMALDG) instructions in its SASS.  Fails if the bf16
-    route has none of either; says so when the toolkit has no cuobjdump."""
+def tensor_core_report(logs: dict) -> None:
+    """flash_attention's and tc_tiles' builds: ptxas's registers and spills
+    per kernel, the register counts flash_attention's warpgroups set
+    (``setmaxnreg``), and the tensor-core (HGMMA) and TMA (UTMALDG)
+    instructions in their SASS.  Fails if flash_attention's bf16 route
+    lacks either, or a route of tc_tiles' count kernel has no HGMMA (or
+    its TMA route no UTMALDG); says so when the toolkit has no cuobjdump."""
     from repro_torch.kernels import _build
 
-    name = ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = _route(line)
-        elif "registers" in line or "spill" in line:
-            say(f"  flash_attention ptxas {name}: {line.split(':', 1)[-1].strip()}")
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        say("  flash_attention SASS: not read (no cuobjdump)")
-        return
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        route = _route(fn.split("\n", 1)[0])
-        hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
-        top = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
-        nreg = sorted(set(re.findall(r"USETMAXREG\.(\w+)\.CTAPOOL[^,;]*,? *(0x[0-9a-f]+)", fn)))
-        say(f"  flash_attention SASS {route}: HGMMA {hgmma}, UTMALDG {utmaldg}, registers "
-            f"up to R{top}, setmaxnreg {[(k, int(v, 16)) for k, v in nreg]}")
-        if route.startswith("bf16"):
-            check(hgmma > 0 and utmaldg > 0, f"flash_attention {route}: no HGMMA or UTMALDG")
+    for kernel in ("flash_attention", "tc_tiles"):
+        name = ""
+        for line in logs[kernel].splitlines():
+            if "Compiling entry function" in line:
+                name = _route(kernel, line)
+            elif name and ("registers" in line or "spill" in line):
+                say(f"  {kernel} ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        if not os.path.exists(tool):
+            say(f"  {kernel} SASS: not read (no cuobjdump)")
+            continue
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(kernel))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+            route = _route(kernel, fn.split("\n", 1)[0])
+            hgmma, utmaldg = fn.count("HGMMA"), fn.count("UTMALDG")
+            top = max((int(r) for r in re.findall(r"\bR(\d+)\b", fn)), default=0)
+            nreg = sorted(set(re.findall(r"USETMAXREG\.(\w+)\.CTAPOOL[^,;]*,? *(0x[0-9a-f]+)",
+                                         fn)))
+            say(f"  {kernel} SASS {route}: HGMMA {hgmma}, UTMALDG {utmaldg}, registers "
+                f"up to R{top}, setmaxnreg {[(k, int(v, 16)) for k, v in nreg]}")
+            if kernel == "flash_attention" and route.startswith("bf16"):
+                check(hgmma > 0 and utmaldg > 0, f"flash_attention {route}: no HGMMA or UTMALDG")
+            if kernel == "tc_tiles" and route.startswith("count"):
+                check(hgmma > 0, f"tc_tiles {route}: no HGMMA")
+                check(utmaldg > 0 or "TMA" not in route, f"tc_tiles {route}: no UTMALDG")
 
 
 def device_profile(run):
@@ -233,18 +266,63 @@ def device_profile(run):
     return out, wall, busy, [(e.key[:60], e.self_device_time_total / 1e3) for e in top]
 
 
+def ragged(tiles, gen, dev):
+    """``tiles`` zeroed in place outside random extents drawn from (0, 1, 63,
+    65, T) (the first two tiles: 0 x T and T x 0); returns the extents."""
+    import torch
+
+    nd, t = tiles.shape[0], tiles.shape[1]
+    choices = torch.tensor([0, 1, 63, 65, t], dtype=torch.int32, device=dev).clamp_max(t)
+    rows, cols = (choices[torch.randint(0, 5, (nd,), generator=gen, device=dev)]
+                  for _ in "rc")
+    rows[:2] = torch.tensor([0, t], dtype=torch.int32, device=dev)[:nd]
+    cols[:2] = torch.tensor([t, 0], dtype=torch.int32, device=dev)[:nd]
+    pos = torch.arange(t, device=dev)
+    tiles.mul_((pos[None, :, None] < rows[:, None, None]).to(tiles.dtype))
+    tiles.mul_((pos[None, None, :] < cols[:, None, None]).to(tiles.dtype))
+    return rows, cols
+
+
+def check_tile_kernels(tiles, idx, f, extents, what):
+    """frontier_tiles and tc_tiles against their plain versions (which read
+    whole tiles) on the same inputs, with ``extents`` and without."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
+    from repro_torch.kernels.tc_tiles import tc_tiles_cuda
+
+    want = ref.frontier_tiles_ref(tiles, f)
+    for ext in (None, extents):
+        check(torch.equal(frontier_tiles_cuda(tiles, f, ext), want),
+              f"frontier_tiles {what} extents={ext is not None} vs plain")
+        empty = frontier_tiles_cuda(tiles, torch.zeros_like(f), ext)
+        check(bool((empty == INT_MAX).all()),
+              f"frontier_tiles {what} extents={ext is not None}: empty frontier")
+    plain = int(ref.tc_tiles_idx_ref(tiles, idx))
+    for ext in (None, extents):
+        got = int(tc_tiles_cuda(tiles, idx, ext))
+        check(got == plain, f"tc_tiles {what} extents={ext is not None}: kernel {got} "
+              f"vs plain {plain}")
+    return plain
+
+
 def phase_kernels(dev, gen) -> None:
     """Each kernel against its plain version at the main path's shapes
     (PageRank's 4128 tiles, TC's 9670 triples over 3199 tiles) and at a
-    ragged T=192 with an odd batch."""
+    ragged T=192 with an odd batch; the two extents-taking kernels also
+    with ragged extents, at the EXTENT_SHAPES."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
     from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
-    from repro_torch.kernels.tc_tiles import tc_tiles_cuda
 
-    def tiles_of(nd, t):
-        return (torch.rand((nd, t, t), generator=gen, device=dev) < 0.01).float()
+    def tiles_of(nd, t, density=0.01, dtype=torch.float32):
+        return (torch.rand((nd, t, t), generator=gen, device=dev) < density).to(dtype)
+
+    def triples(nd, nb):
+        idx = torch.randint(0, nd, (nb, 3), generator=gen, device=dev, dtype=torch.int32)
+        idx[::13] = -1                                  # masked padding triples
+        return idx
 
     for nd, t in SPMV_SHAPES:
         tiles = tiles_of(nd, t)
@@ -255,18 +333,35 @@ def phase_kernels(dev, gen) -> None:
         f = torch.rand((nd, t), generator=gen, device=dev) < 0.3
         check(torch.equal(frontier_tiles_cuda(tiles, f), ref.frontier_tiles_ref(tiles, f)),
               f"frontier_tiles ({nd},{t}) vs plain")
-        empty = frontier_tiles_cuda(tiles, torch.zeros_like(f))
+        extents = ragged(tiles, gen, dev)
+        check(torch.equal(frontier_tiles_cuda(tiles, f, extents),
+                          ref.frontier_tiles_ref(tiles, f)),
+              f"frontier_tiles ({nd},{t}) ragged extents vs plain")
+        empty = frontier_tiles_cuda(tiles, torch.zeros_like(f), extents)
         check(bool((empty == INT_MAX).all()), f"frontier_tiles ({nd},{t}) empty frontier")
-        say(f"phase kernels: spmv_tiles, frontier_tiles ok at nd={nd} T={t}")
+        say(f"phase kernels: spmv_tiles, frontier_tiles ok at nd={nd} T={t} "
+            f"(frontier_tiles also with ragged extents)")
         del tiles, xs, f, got, want, empty
     for nd, nb, t in TC_SHAPES:
         tiles = tiles_of(nd, t)
-        idx = torch.randint(0, nd, (nb, 3), generator=gen, device=dev, dtype=torch.int32)
-        idx[::13] = -1                                  # masked padding triples
-        got, want = int(tc_tiles_cuda(tiles, idx)), int(ref.tc_tiles_idx_ref(tiles, idx))
-        check(got == want, f"tc_tiles ({nd},{nb},{t}): kernel {got} vs plain {want}")
-        say(f"phase kernels: tc_tiles ok at nd={nd} B={nb} T={t} (count {got})")
-        del tiles, idx
+        idx = triples(nd, nb)
+        f = torch.rand((nd, t), generator=gen, device=dev) < 0.3
+        whole = check_tile_kernels(tiles, idx, f, None, f"({nd},{nb},{t})")
+        cropped = check_tile_kernels(tiles, idx, f, ragged(tiles, gen, dev),
+                                     f"({nd},{nb},{t}) ragged")
+        say(f"phase kernels: tc_tiles ok at nd={nd} B={nb} T={t} (count {whole}; "
+            f"{cropped} with ragged extents)")
+        del tiles, idx, f
+    nd, nb = EXTENT_BATCH
+    for t, dtype in EXTENT_SHAPES:
+        tiles = tiles_of(nd, t, 0.2, getattr(torch, dtype))
+        extents = ragged(tiles, gen, dev)
+        idx = triples(nd, nb)
+        for fdtype in (torch.bool, torch.float32, torch.bfloat16):
+            f = (torch.rand((nd, t), generator=gen, device=dev) < 0.3).to(fdtype)
+            count = check_tile_kernels(tiles, idx, f, extents, f"({nd},{nb},{t}) {dtype}")
+        say(f"phase kernels: frontier_tiles, tc_tiles ok at nd={nd} B={nb} T={t} {dtype} "
+            f"with ragged extents and without (count {count})")
     torch.cuda.empty_cache()
 
 
@@ -413,6 +508,11 @@ def phase_pagerank(dev, store):
         cuda_ms(lambda: ref.spmv_tiles_ref(tiles, xs), 3),
         nd * t * t * 4 + 2 * nd * t * 4, 2.0 * nd * t * t,
         cuda_ms(lambda: torch.einsum("brc,br->bc", tiles, xs), 5))
+    # what the same work would need if spmv_tiles read only the block rectangles
+    area = float((ctx.tile_rows.double() * ctx.tile_cols.double()).sum())
+    inside, _ = bound(area * 4 + 2 * nd * t * 4, 2.0 * area)
+    say(f"  spmv_tiles: bound inside the block rectangles {inside:.4f} ms (the kernel "
+        f"reads whole tiles; information, not its recorded bound)")
     return plan, rec
 
 
@@ -463,21 +563,40 @@ def phase_bfs(dev, store, schedule):
     cols = torch.arange(t, device=dev)
     fcols = torch.cat([frontier, frontier.new_zeros(t)])[ctx.tile_col_start[:, None] + cols]
     tiles = ctx.tiles
-    got, want = frontier_tiles_cuda(tiles, fcols), ref.frontier_tiles_ref(tiles, fcols)
+    extents = (ctx.tile_rows, ctx.tile_cols)
+    got = frontier_tiles_cuda(tiles, fcols, extents)
+    want = ref.frontier_tiles_ref(tiles, fcols)
     check(torch.equal(got, want), "frontier_tiles main-path inputs")
+    check(torch.equal(frontier_tiles_cuda(tiles, fcols), want),
+          "frontier_tiles main-path inputs, whole tiles")
     nd = tiles.shape[0]
-    # elements this frontier needs: each row's frontier columns up to its
-    # first hit, all of them when the row has none
-    seen = fcols.long().cumsum(dim=1)
-    needed = torch.where(want == INT_MAX, seen[:, -1:],
-                         seen.gather(1, want.clamp_max(t - 1).long())).sum().item()
+
+    def needed(f, rows):
+        """Tile elements this frontier needs: each row's frontier columns up
+        to its first hit, all of them when the row has none, over the rows
+        below ``rows``."""
+        seen = f.long().cumsum(dim=1)
+        per_row = torch.where(want == INT_MAX, seen[:, -1:],
+                              seen.gather(1, want.clamp_max(t - 1).long()))
+        return float(torch.where(cols[None, :] < rows[:, None], per_row, 0).sum())
+
+    # over whole tiles, then inside the block rectangles
+    old_needed = needed(fcols, torch.full((nd,), t, device=dev))
+    old_bound = bound(old_needed * 4 + nd * t * (1 + 4), old_needed)
+    inside = fcols & (cols[None, :] < ctx.tile_cols[:, None])
+    new_needed = needed(inside, ctx.tile_rows)
     rec = record(
         "frontier_tiles", launches["frontier_tiles"],
         float((got.long() - want.long()).abs().max()),
-        cuda_ms(lambda: frontier_tiles_cuda(tiles, fcols), 20),
+        cuda_ms(lambda: frontier_tiles_cuda(tiles, fcols, extents), 20),
         cuda_ms(lambda: ref.frontier_tiles_ref(tiles, fcols), 3),
-        needed * 4 + nd * t * (1 + 4), float(needed), None)
-    say(f"  frontier_tiles timed on level {level}: frontier {int(frontier.sum())} vertices")
+        new_needed * 4 + float(ctx.tile_cols.sum()) + nd * t * 4 + 2 * nd * 4,
+        new_needed, None)
+    whole_ms = cuda_ms(lambda: frontier_tiles_cuda(tiles, fcols), 20)
+    say(f"  frontier_tiles timed on level {level}: frontier {int(frontier.sum())} vertices; "
+        f"elements needed {new_needed:.0f} inside the rectangles, {old_needed:.0f} over whole "
+        f"tiles; whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel "
+        f"without extents {whole_ms:.4f} ms")
     return rec
 
 
@@ -511,10 +630,25 @@ def phase_tc(dev):
     say(f"phase tc: {res.result} triangles in {res.seconds * 1e3:.1f} ms (scipy {want}), "
         f"launches {launches}")
 
-    got, plain = int(tc_tiles_cuda(tiles, idx)), int(ref.tc_tiles_idx_ref(tiles, idx))
+    ctx = plan.context
+    extents = (ctx.tile_rows, ctx.tile_cols)
+    got, plain = int(tc_tiles_cuda(tiles, idx, extents)), int(ref.tc_tiles_idx_ref(tiles, idx))
     check(got == plain, f"tc_tiles main-path inputs: kernel {got} vs plain {plain}")
+    whole = int(tc_tiles_cuda(tiles, idx))
+    check(whole == plain, f"tc_tiles main-path inputs, whole tiles: kernel {whole} vs {plain}")
     nd, t = tiles.shape[0], tiles.shape[1]
-    nnz_ij = float(tiles.sum(dim=(1, 2))[idx[:, 0].long()].sum())
+    live = idx[idx[:, 0] >= 0].long()
+    nnz = tiles.sum(dim=(1, 2)).double()
+    nnz_ij = float(nnz[idx[:, 0].long()].sum())
+    # over whole tiles: every tile byte once, 2T flops per entry of
+    # A_ij at the float32 CUDA-core rate
+    old_bound = bound(nd * t * t * 4 + idx.numel() * 4 + 8, 2.0 * t * nnz_ij)
+    # inside the rectangles: each distinct tile's rectangle once, and
+    # 2 * cols[ik] flops per entry of A_ij at the TF32 tensor-core rate
+    used = torch.unique(live.reshape(-1))
+    area = float((ctx.tile_rows[used].double() * ctx.tile_cols[used].double()).sum())
+    new_bytes = area * tiles.element_size() + idx.numel() * 4 + 2 * nd * 4 + 8
+    new_ops = 2.0 * float((ctx.tile_cols[live[:, 1]].double() * nnz[live[:, 0]]).sum())
 
     def library():
         total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -526,11 +660,14 @@ def phase_tc(dev):
 
     rec = record(
         "tc_tiles", launches["tc_tiles"], abs(got - plain),
-        cuda_ms(lambda: tc_tiles_cuda(tiles, idx), 5),
+        cuda_ms(lambda: tc_tiles_cuda(tiles, idx, extents), 5),
         cuda_ms(lambda: ref.tc_tiles_idx_ref(tiles, idx), 2),
-        nd * t * t * 4 + idx.numel() * 4 + 8, 2.0 * t * nnz_ij,
-        cuda_ms(library, 2))
-    say(f"  tc_tiles: dense-path count {got} of {res.result}")
+        new_bytes, new_ops, cuda_ms(library, 2), rate=TF32_TC_FLOPS)
+    whole_ms = cuda_ms(lambda: tc_tiles_cuda(tiles, idx), 5)
+    say(f"  tc_tiles: dense-path count {got} of {res.result}; {used.numel()} distinct tiles, "
+        f"{float(nnz.sum()) / nd:.1f} entries per tile, rectangles {area * 4 / 1e9:.3f} GB, "
+        f"{new_ops / 1e9:.2f} GFLOP; whole-tile bound "
+        f"{old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents {whole_ms:.4f} ms")
     return rec
 
 
@@ -778,7 +915,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(list(SOURCES))
     say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    tensor_core_report(logs["flash_attention"])
+    tensor_core_report(logs)
 
     kernels = run(dev)
     say(json.dumps({"kernels": kernels}))

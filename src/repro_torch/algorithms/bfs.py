@@ -85,7 +85,7 @@ def _bottom_up_tiles(ctx, state):
     frontier = state["frontier"]
     fcols = torch.cat([frontier, frontier.new_zeros(t)])[ctx.tile_col_start[:, None] + cols]
     # per tile row: smallest local frontier column, else INT32_MAX
-    cand_local = frontier_tiles(ctx.tiles, fcols)
+    cand_local = frontier_tiles(ctx.tiles, fcols, (ctx.tile_rows, ctx.tile_cols))
     cand = torch.where(cand_local == _UNVISITED, _UNVISITED,
                        cand_local + ctx.tile_col_start[:, None])
     rows = (ctx.tile_row_start[:, None] + cols).clamp_max(n)  # rows past n pad

@@ -14,7 +14,7 @@ row (``row_block_ptr``).
   ``items × dp`` scratch stays bounded.
 * dense path: for tile-resident triples, the ``tc_tiles`` kernel counts
   ``Σ (A_ik · A_jkᵀ) ∘ A_ij`` reading the three tiles of each triple in
-  place.
+  place, and only inside their blocks' rectangles (the tiles' extents).
 
 The count is an exact int64 on both paths.
 """
@@ -166,7 +166,8 @@ def _kernel_dense(ctx, state, it):
     idx = ctx.extras["tc_tiles_idx"]
     if idx is None:
         return state
-    return dict(state, nt=state["nt"] + tc_tiles(ctx.tiles, idx))
+    extents = (ctx.tile_rows, ctx.tile_cols)
+    return dict(state, nt=state["nt"] + tc_tiles(ctx.tiles, idx, extents))
 
 
 def tc_algorithm() -> BlockAlgorithm:

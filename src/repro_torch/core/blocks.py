@@ -11,7 +11,10 @@ the reference package's flat layout:
   ``row_block_ptr[u, k]`` gives its start.
 * **Dense bitmap tiles** — blocks selected by the scheduler's density
   cut-off are additionally materialized as 0/1 tiles of a fixed
-  ``tile_dim`` for the dense (K_D) kernels.
+  ``tile_dim`` for the dense (K_D) kernels.  Block ``(i, j)`` fills the
+  top-left ``tile_rows × tile_cols`` corner of its tile (the widths of
+  stripes ``i`` and ``j``); the rest is zero, and the tile kernels take
+  these extents so that they skip it.
 
 All arrays are numpy on the host; :meth:`BlockStore.to_device` converts
 what the kernels need to torch tensors once, narrowing the int64 arrays
@@ -66,6 +69,8 @@ class BlockStore:
     tiles: np.ndarray = field(default_factory=lambda: np.zeros((0, 0, 0), np.float32))
     tile_row_start: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     tile_col_start: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    tile_rows: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
+    tile_cols: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
 
     # device copies, one dict per device; cleared when the tiles change
     _device_cache: dict = field(default_factory=dict, repr=False)
@@ -104,6 +109,13 @@ class BlockStore:
             int(self.layout.cuts[j + 1] - self.layout.cuts[j]),
         )
 
+    def tile_extents(self, block_ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``block_range`` of each block of ``block_ids`` as two int32
+        arrays: the height and width of its rectangle in its tile."""
+        w = np.diff(self.layout.cuts).astype(np.int32)
+        i, j = np.divmod(np.asarray(block_ids, dtype=np.int64), self.p)
+        return w[i], w[j]
+
     # ------------------------------------------------------------------
     def materialize_tiles(self, block_ids: np.ndarray, tile_dim: int) -> None:
         """Pack the selected blocks as dense 0/1 tiles of shape (tile_dim²).
@@ -132,6 +144,7 @@ class BlockStore:
         self.tiles = tiles
         self.tile_row_start = row_start
         self.tile_col_start = col_start
+        self.tile_rows, self.tile_cols = self.tile_extents(block_ids)
         self._device_cache.clear()
 
     # ------------------------------------------------------------------
@@ -170,6 +183,8 @@ class BlockStore:
                 tiles=put("tiles", self.tiles),
                 tile_row_start=put("tile_row_start", self.tile_row_start),
                 tile_col_start=put("tile_col_start", self.tile_col_start),
+                tile_rows=put("tile_rows", self.tile_rows),
+                tile_cols=put("tile_cols", self.tile_cols),
             )
         self._device_cache[key] = out
         return out

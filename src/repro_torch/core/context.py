@@ -62,6 +62,9 @@ class Context:
     tiles: torch.Tensor | None = None
     tile_row_start: torch.Tensor | None = None
     tile_col_start: torch.Tensor | None = None
+    # (nd,) int32 height and width of each block's rectangle in its tile
+    tile_rows: torch.Tensor | None = None
+    tile_cols: torch.Tensor | None = None
     # --- per-algorithm prepare outputs --------------------------------
     extras: dict[str, Any] = field(default_factory=dict)
     # --- scalars -------------------------------------------------------
@@ -111,6 +114,8 @@ def build_context(store: "BlockStore", schedule: "Schedule",
         tiles=arrays.get("tiles"),
         tile_row_start=arrays.get("tile_row_start"),
         tile_col_start=arrays.get("tile_col_start"),
+        tile_rows=arrays.get("tile_rows"),
+        tile_cols=arrays.get("tile_cols"),
         extras=to_device(dict(extras or {}), device),
         n=store.n,
         m=store.m,

@@ -66,10 +66,11 @@
 //   through shared memory, and each thread accumulates 4 rows x D/8 output
 //   columns in registers.  Row strides are padded so that no shared-memory
 //   read conflicts.
-#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"     // mbarrier, TMA, wgmma and tensor-map helpers
 
 namespace {
 
@@ -260,84 +261,7 @@ struct Smem {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;   // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte swizzled operand.  SBO is
-// the 1024 bytes between groups of 8 rows; LBO matters only for an MN-major
-// operand wider than 64 columns, where it is the distance between panels.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence/commit/wait instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-              "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
-            "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define D64 D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
-            "%62, %63"
+using namespace hopper;
 
 // d (m64 x n128, f32) (+)= A (m64 x k16, shared, K-major) B (k16 x n128, shared, K-major)
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
@@ -468,7 +392,7 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
         mma_ss_n128(sc, desc(q_wg + koff, 16), desc(k_s(s) + koff, 16), ks > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       // online softmax in the exp2 domain; mask only tiles that need it
@@ -525,7 +449,7 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
         mma_pv<D>(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3], b);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(p_hi);
       fence_regs(p_lo);
@@ -552,51 +476,13 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
   }
 }
 
-#undef F8
-#undef D32
-#undef D64
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda function), reached through the runtime
-// so that the library needs no -lcuda.
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // A 3-D map (D, rows, heads) of a contiguous (heads, rows, D) bf16 tensor,
 // read in boxes of 64 columns x 128 rows with 128-byte swizzle; rows past
 // the end of a head are zero-filled.
-cudaError_t tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int rows,
-                       int heads) {
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int d, int rows, int heads) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * rows};
-  const cuuint32_t box[3] = {64, 128, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, (cuuint64_t)d * 2,
+                       (cuuint64_t)d * 2 * rows, 64, 128);
 }
 
 template <int D>
@@ -604,13 +490,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
                    int h_kv, int sq, int sk, int causal, float scale, cudaStream_t stream) {
   if (sk == 0)   // no key at all: every row is empty and writes 0
     return cudaMemsetAsync(o, 0, (size_t)b * h * sq * D * sizeof(__nv_bfloat16), stream);
-  EncodeTiled enc;
-  cudaError_t e = encoder(&enc);
-  if (e != cudaSuccess) return e;
   CUtensorMap mq, mk, mv;
-  if ((e = tensor_map(enc, &mq, q, D, sq, b * h)) != cudaSuccess) return e;
-  if ((e = tensor_map(enc, &mk, k, D, sk, b * h_kv)) != cudaSuccess) return e;
-  if ((e = tensor_map(enc, &mv, v, D, sk, b * h_kv)) != cudaSuccess) return e;
+  cudaError_t e;
+  if ((e = tensor_map(&mq, q, D, sq, b * h)) != cudaSuccess) return e;
+  if ((e = tensor_map(&mk, k, D, sk, b * h_kv)) != cudaSuccess) return e;
+  if ((e = tensor_map(&mv, v, D, sk, b * h_kv)) != cudaSuccess) return e;
   constexpr int smem = Smem<D>::kBytes;
   e = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

@@ -4,83 +4,137 @@
 // Replaces the Pallas kernel src/repro/kernels/frontier_tile.py::frontier_tiles
 // (BFS's dense bottom-up K_D path, src/repro/algorithms/bfs.py:162).
 //
-// Bound on Hopper: memory.  The work is one compare per tile element, and
-// only the elements up to the first hit of a row are needed, so the bytes
-// read depend on the data: from nd*T*sizeof(f) when every row hits in its
-// first columns up to nd*T*T*sizeof(tile) when no row hits.
+// Contract: tile b is zero at rows >= rows[b] and columns >= cols[b] (its
+// block's rectangle in the padded T x T tile; no extents means the whole
+// tile).  The kernel reads nothing outside the rectangle.
 //
-// Design: grid (nd, ceil(T/8)), 8 warps; one warp per tile row.  The
-// frontier columns of tile b are staged once per block as bytes in shared
-// memory.  The warp scans the row 32 columns at a time, lane l reading
-// column c0+l (one coalesced line per step, and only where the frontier
-// bit is set); __ballot_sync gathers the hits of the step and the lowest
-// set bit is the row's minimum, so the warp stops at the first step with
-// a hit.  That early exit is the paper's "stop at the first frontier
-// neighbour" (Listing 3), which the TPU kernel had to replace with a full
-// min-reduction.  The result is exact; an empty frontier gives INT32_MAX
-// everywhere.  Any T works: lanes past T are masked (the Pallas kernel
-// shrank its panel to a divisor of T instead).
+// Bound on Hopper: memory.  The work is one compare per frontier column of
+// a row, and only the ones up to the row's first hit are needed, so the
+// bytes read depend on the data: from nothing (an empty frontier) up to
+// every frontier column of every row inside the rectangles.
+//
+// Design: grid nd, 256 threads (8 warps); one block per tile.
+// * The block reads the frontier columns c < cols[b] of its tile once and
+//   compacts the set ones, in order, into a list in shared memory (a
+//   ballot and a prefix popc per warp, warp offsets through shared
+//   memory).
+// * Rows u >= rows[b] -- and every row when the list is empty -- write
+//   INT32_MAX without reading the tile.
+// * A warp takes 8 rows at a time and walks the list 32 entries per step:
+//   lane l gathers A[b, u, list[j0 + l]] for each of the 8 rows (8
+//   independent loads in flight), one ballot per row gives that row's
+//   hits, and because the list is in column order the lowest set bit is
+//   the row's minimum.  A row leaves the walk at its first hit, the warp
+//   when all 8 have (the paper's "stop at the first frontier neighbour",
+//   Listing 3, which the TPU kernel had to replace with a full
+//   min-reduction over the tile).
+// The result is exact for any T.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // tile rows per block
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 8;   // rows in flight per warp
 constexpr int kIntMax = 2147483647;
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ bool positive(float v) { return v > 0.f; }
 __device__ __forceinline__ bool positive(__nv_bfloat16 v) { return __bfloat162float(v) > 0.f; }
 __device__ __forceinline__ bool positive(uint8_t v) { return v != 0; }
 
-template <typename T, typename F>
-__global__ void __launch_bounds__(kWarps * 32)
-frontier_tiles_kernel(const T* __restrict__ tiles, const F* __restrict__ fcols,
-                      int* __restrict__ out, int t) {
-  extern __shared__ uint8_t f_s[];
-  const long long b = blockIdx.x;
-  for (int c = threadIdx.x; c < t; c += blockDim.x) f_s[c] = positive(fcols[b * t + c]);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int u = blockIdx.y * kWarps + warp;
-  if (u >= t) return;  // the whole warp shares u
-  const T* row = tiles + (b * t + u) * (long long)t;
-  int best = kIntMax;
-  for (int c0 = 0; c0 < t; c0 += 32) {
-    const int c = c0 + lane;
-    const bool hit = c < t && f_s[c] && positive(row[c]);
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (mask) {
-      best = c0 + __ffs(mask) - 1;
-      break;
-    }
-  }
-  if (lane == 0) out[b * t + u] = best;
+__device__ __forceinline__ int extent(const int* ext, long long b, int t) {
+  return ext ? min(max(ext[b], 0), t) : t;
 }
 
 template <typename T, typename F>
-cudaError_t launch(const void* tiles, const void* fcols, int* out, long long nd,
-                   int t, cudaStream_t stream) {
-  const size_t smem = (size_t)t;
+__global__ void __launch_bounds__(kThreads)
+frontier_tiles_kernel(const T* __restrict__ tiles, const F* __restrict__ fcols,
+                      const int* __restrict__ ext_rows, const int* __restrict__ ext_cols,
+                      int* __restrict__ out, int t) {
+  extern __shared__ int list[];   // the tile's frontier columns, in order
+  __shared__ int warp_n[kWarps];
+  const long long b = blockIdx.x;
+  const int rows = extent(ext_rows, b, t), cols = extent(ext_cols, b, t);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int* o = out + b * t;
+
+  int n = 0;
+  for (int c0 = 0; c0 < cols; c0 += kThreads) {
+    const int c = c0 + tid;
+    const bool set = c < cols && positive(fcols[b * t + c]);
+    const unsigned m = __ballot_sync(kAll, set);
+    if (lane == 0) warp_n[warp] = __popc(m);
+    __syncthreads();
+    int at = n;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? warp_n[w] : 0;
+      n += warp_n[w];
+    }
+    if (set) list[at + __popc(m & ((1u << lane) - 1u))] = c;
+    __syncthreads();
+  }
+
+  for (int u = (n ? rows : 0) + tid; u < t; u += kThreads) o[u] = kIntMax;
+  if (n == 0) return;
+
+  for (int u0 = warp * kRows; u0 < rows; u0 += kWarps * kRows) {
+    const T* row = tiles + (b * t + u0) * (long long)t;
+    unsigned open = 0;
+    int best[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      best[k] = kIntMax;
+      open |= (u0 + k < rows ? 1u : 0u) << k;
+    }
+    for (int j0 = 0; j0 < n && open; j0 += 32) {
+      const int j = j0 + lane;
+      const int c = j < n ? list[j] : 0;
+      bool hit[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+        hit[k] = j < n && ((open >> k) & 1u) && positive(row[(long long)k * t + c]);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const unsigned m = __ballot_sync(kAll, hit[k]);
+        if (m && ((open >> k) & 1u)) {   // uniform across the warp
+          best[k] = __shfl_sync(kAll, c, __ffs(m) - 1);
+          open &= ~(1u << k);
+        }
+      }
+    }
+    int mine = kIntMax;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) mine = lane == k ? best[k] : mine;
+    if (lane < kRows && u0 + lane < rows) o[u0 + lane] = mine;
+  }
+}
+
+template <typename T, typename F>
+cudaError_t launch(const void* tiles, const void* fcols, const int* rows, const int* cols,
+                   int* out, long long nd, int t, cudaStream_t stream) {
+  const size_t smem = (size_t)t * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(frontier_tiles_kernel<T, F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((unsigned)nd, (unsigned)((t + kWarps - 1) / kWarps));
-  frontier_tiles_kernel<T, F><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const F*>(fcols), out, t);
+  frontier_tiles_kernel<T, F><<<(unsigned)nd, kThreads, smem, stream>>>(
+      static_cast<const T*>(tiles), static_cast<const F*>(fcols), rows, cols, out, t);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_f(const void* tiles, const void* fcols, int* out, long long nd,
-                     int t, int fdtype, cudaStream_t stream) {
+cudaError_t launch_f(const void* tiles, const void* fcols, const int* rows, const int* cols,
+                     int* out, long long nd, int t, int fdtype, cudaStream_t stream) {
   switch (fdtype) {
-    case 0: return launch<T, uint8_t>(tiles, fcols, out, nd, t, stream);
-    case 1: return launch<T, float>(tiles, fcols, out, nd, t, stream);
-    case 2: return launch<T, __nv_bfloat16>(tiles, fcols, out, nd, t, stream);
+    case 0: return launch<T, uint8_t>(tiles, fcols, rows, cols, out, nd, t, stream);
+    case 1: return launch<T, float>(tiles, fcols, rows, cols, out, nd, t, stream);
+    case 2: return launch<T, __nv_bfloat16>(tiles, fcols, rows, cols, out, nd, t, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -89,16 +143,21 @@ cudaError_t launch_f(const void* tiles, const void* fcols, int* out, long long n
 
 // dtype of the tiles: 0 = float32, 1 = bfloat16.
 // fdtype of the frontier columns: 0 = bool (one byte), 1 = float32, 2 = bfloat16.
+// rows and cols are the (nd,) int32 extents of the tiles, or both null for
+// whole tiles.
 extern "C" int frontier_tiles_launch(int device, const void* tiles, const void* fcols,
-                                     void* out, long long nd, int t, int dtype,
-                                     int fdtype, void* stream) {
+                                     const void* rows, const void* cols, void* out,
+                                     long long nd, int t, int dtype, int fdtype,
+                                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
+  const int* er = static_cast<const int*>(rows);
+  const int* ec = static_cast<const int*>(cols);
   switch (dtype) {
-    case 0: return launch_f<float>(tiles, fcols, o, nd, t, fdtype, s);
-    case 1: return launch_f<__nv_bfloat16>(tiles, fcols, o, nd, t, fdtype, s);
+    case 0: return launch_f<float>(tiles, fcols, er, ec, o, nd, t, fdtype, s);
+    case 1: return launch_f<__nv_bfloat16>(tiles, fcols, er, ec, o, nd, t, fdtype, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,6 +19,7 @@ import torch
 
 from .core.blocks import BlockStore
 from .core.context import to_device
+from .core.engine import resolve_device
 from .core.graph import Graph
 from .core.partition import layout_from_cuts
 from .configs.base import ArchConfig
@@ -55,6 +56,7 @@ def store_from_numpy(fields: Mapping[str, Any], *, directed: bool = False,
         for k in TILE_FIELDS:
             setattr(store, k, np.array(fields[k]))
         store.tile_dim = int(store.tiles.shape[-1])
+        store.tile_rows, store.tile_cols = store.tile_extents(store.tile_block_ids)
     return store
 
 
@@ -77,17 +79,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
 
 
 def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
-                         device: "str | torch.device" = "cpu") -> LM:
+                         device: "str | torch.device | None" = None) -> LM:
     """The port's :class:`LM` holding the weights of the reference's
     parameter tree ``params`` (nested dicts of numpy arrays, per-layer
-    arrays stacked on a leading ``(L, ...)`` axis).
+    arrays stacked on a leading ``(L, ...)`` axis), on ``device``: by
+    default the current card, raising where there is none unless the
+    caller names the CPU.
 
     Each stacked array is split into the layers; ``(d_in, d_out)``
     orientation is kept.  Values go through float32 (exact for bfloat16
     both ways) and are cast to the parameter dtype of ``cfg``.
     """
     flat = _flatten(params)
-    model = LM(cfg, device=device)
+    model = LM(cfg, device=resolve_device(device))
     used = set()
     for name, param in model.named_parameters():
         parts = name.split(".")

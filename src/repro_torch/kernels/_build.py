@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 Each kernel is one CUDA C++ source under ``repro_torch/csrc/`` with a
-plain C interface (no PyTorch headers), compiled by ``nvcc`` for
+plain C interface (no PyTorch headers; ``hopper.cuh`` holds the inline
+PTX helpers the tensor-core kernels share), compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``repro_torch/csrc/build/`` and
 loaded with :mod:`ctypes`.  A library's file name carries a digest of
-its source and flags, so an edited source is rebuilt and a built one is
+its source, the headers and the flags, so an edited source is rebuilt and a built one is
 reused.  Nothing here runs when the package is imported: the first
 launch of a kernel builds it, and :func:`build_all` builds several at
 once, one ``nvcc`` process per source, all started together.
@@ -25,7 +26,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "build_all", "function", "raise_on_error",
-           "require_cuda", "require_contiguous", "stream_handle", "library_path"]
+           "require_cuda", "require_contiguous", "check_extents", "stream_handle",
+           "library_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -50,9 +52,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the shared library of kernel ``name`` is (or will be) built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the shared library of kernel ``name`` is (or will be) built.
+
+    The digest covers the source, every header under ``csrc/`` (which
+    the sources include) and the flags, so editing either rebuilds."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -156,6 +163,26 @@ def require_contiguous(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+def check_extents(name: str, extents, tiles: torch.Tensor):
+    """``extents`` of ``(nd, T, T)`` tiles as ``(rows, cols)``: two
+    ``(nd,)`` int32 tensors on the tiles' device, or ``(None, None)``
+    for ``extents=None`` (whole tiles).  Raises on anything else.  The
+    values are not read here (that would wait for the device); kernels
+    clamp them to ``[0, T]``."""
+    if extents is None:
+        return None, None
+    if not isinstance(extents, (tuple, list)) or len(extents) != 2:
+        raise ValueError(f"{name}: extents must be a (rows, cols) pair or None")
+    nd = tiles.shape[0]
+    for what, e in zip(("rows", "cols"), extents):
+        if not isinstance(e, torch.Tensor) or tuple(e.shape) != (nd,) or e.dtype != torch.int32:
+            got = (tuple(e.shape), e.dtype) if isinstance(e, torch.Tensor) else type(e)
+            raise ValueError(f"{name}: extents {what} must be ({nd},) int32; got {got}")
+        if e.device != tiles.device:
+            raise ValueError(f"{name}: extents {what} on {e.device}, tiles on {tiles.device}")
+    return tuple(extents)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -19,22 +19,30 @@ __all__ = ["frontier_tiles", "frontier_tiles_cuda"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FDTYPES = {torch.bool: 0, torch.float32: 1, torch.bfloat16: 2}
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
-def frontier_tiles(tiles: torch.Tensor, fcols: torch.Tensor) -> torch.Tensor:
+def frontier_tiles(tiles: torch.Tensor, fcols: torch.Tensor, extents=None) -> torch.Tensor:
     """(nd, T, T) tiles × (nd, T) frontier columns → (nd, T) int32.
+
+    ``extents=(rows, cols)``, two ``(nd,)`` int32 tensors, promises that
+    tile ``b`` is zero at rows ≥ ``rows[b]`` and at columns ≥
+    ``cols[b]``; the kernel does not read those entries (nor the
+    frontier columns ≥ ``cols[b]``).  ``None`` means whole tiles.  The
+    plain version ignores ``extents`` and reads whole tiles.
 
     Tensors on the CPU take the plain version; anything else launches
     the CUDA kernel, which raises for a tensor that is not on a card.
     """
+    _build.check_extents("frontier_tiles", extents, tiles)
     if tiles.device.type == "cpu" and fcols.device.type == "cpu":
-        return ref.frontier_tiles_ref(tiles, fcols)
-    return frontier_tiles_cuda(tiles, fcols)
+        return ref.frontier_tiles_ref(tiles, fcols, extents)
+    return frontier_tiles_cuda(tiles, fcols, extents)
 
 
-def frontier_tiles_cuda(tiles: torch.Tensor, fcols: torch.Tensor) -> torch.Tensor:
+def frontier_tiles_cuda(tiles: torch.Tensor, fcols: torch.Tensor,
+                        extents=None) -> torch.Tensor:
     """The CUDA kernel alone; counts its launches in ``.launches``."""
     dev = _build.require_cuda("frontier_tiles", tiles, fcols)
     if tiles.dim() != 3 or tiles.shape[1] != tiles.shape[2]:
@@ -49,12 +57,16 @@ def frontier_tiles_cuda(tiles: torch.Tensor, fcols: torch.Tensor) -> torch.Tenso
     if fcols.dtype not in _FDTYPES:
         raise TypeError(
             f"frontier_tiles: fcols must be bool, float32 or bfloat16; got {fcols.dtype}")
-    _build.require_contiguous("frontier_tiles", tiles, fcols)
+    rows, cols = _build.check_extents("frontier_tiles", extents, tiles)
+    _build.require_contiguous("frontier_tiles", tiles, fcols,
+                              *(e for e in (rows, cols) if e is not None))
     out = torch.empty((nd, t), dtype=torch.int32, device=dev)
     if nd == 0 or t == 0:
         return out
     fn = _build.function("frontier_tiles", "frontier_tiles_launch", _ARGTYPES)
-    err = fn(dev.index, tiles.data_ptr(), fcols.data_ptr(), out.data_ptr(), nd, t,
+    err = fn(dev.index, tiles.data_ptr(), fcols.data_ptr(),
+             None if rows is None else rows.data_ptr(),
+             None if cols is None else cols.data_ptr(), out.data_ptr(), nd, t,
              _DTYPES[tiles.dtype], _FDTYPES[fcols.dtype], _build.stream_handle(dev))
     _build.raise_on_error("frontier_tiles", err)
     frontier_tiles_cuda.launches += 1

@@ -9,6 +9,9 @@ for CUDA tensors.
 
 The tile versions work over the tile batch in chunks so that their
 ``(chunk, T, T)`` temporaries stay bounded at the main path's shapes.
+Those that take ``extents`` (the block rectangle inside each padded
+tile, outside which a tile is zero) ignore it and read whole tiles, so
+that holding a kernel against them tests the kernel's cropping.
 """
 from __future__ import annotations
 
@@ -37,9 +40,11 @@ def spmv_tiles_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def frontier_tiles_ref(tiles: torch.Tensor, fcols: torch.Tensor) -> torch.Tensor:
+def frontier_tiles_ref(tiles: torch.Tensor, fcols: torch.Tensor,
+                       extents=None) -> torch.Tensor:
     """Bottom-up BFS tile step: per tile row, the smallest local column c
-    with an edge into the frontier, else INT_MAX — (nd,T,T),(nd,T)→(nd,T) i32."""
+    with an edge into the frontier, else INT_MAX — (nd,T,T),(nd,T)→(nd,T) i32.
+    ``extents`` is ignored: whole tiles are read."""
     t = tiles.shape[-1]
     colid = torch.arange(t, dtype=torch.int32, device=tiles.device)[None, None, :]
     out = torch.empty(fcols.shape, dtype=torch.int32, device=tiles.device)
@@ -60,13 +65,15 @@ def tc_tiles_ref(a_ik: torch.Tensor, a_jk: torch.Tensor,
     return torch.sum(w * a_ij.float())
 
 
-def tc_tiles_idx_ref(tiles: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def tc_tiles_idx_ref(tiles: torch.Tensor, idx: torch.Tensor,
+                     extents=None) -> torch.Tensor:
     """Triangle count of the tile triples ``idx`` (B,3) = (ij, ik, jk)
     read out of ``tiles`` — rows whose ``ij`` entry is negative count
     nothing.  Gathers the operands chunk by chunk and contracts them as
     :func:`tc_tiles_ref` does; each entry of the masked wedge matrix is
     an integer ≤ T, so the chunk sums are taken in int64 and the count
-    is exact.  Returns a 0-d int64 tensor."""
+    is exact.  ``extents`` is ignored: whole tiles are read.  Returns a
+    0-d int64 tensor."""
     total = torch.zeros((), dtype=torch.int64, device=tiles.device)
     idx = idx.long()
     for s in range(0, idx.shape[0], CHUNK):

@@ -87,6 +87,72 @@ def test_tc_tiles_cuda_vs_plain(cuda, nd, nb, t, dtype):
     assert int(got) == int(ref.tc_tiles_idx_ref(tiles, idx))
 
 
+#: tile sides and types for the extents cases: the TMA route at T in {64, 192,
+#: 512}, and the cp.async route where the row stride is not 16-byte aligned
+#: (T*4 or T*2 bytes), including a bf16 T whose rows are not 4-byte aligned
+EXTENT_CASES = [(64, torch.float32), (192, torch.float32), (512, torch.float32),
+                (64, torch.bfloat16), (192, torch.bfloat16), (512, torch.bfloat16),
+                (50, torch.float32), (36, torch.bfloat16), (37, torch.bfloat16)]
+
+
+def _ragged(rng, nd, t, density, cuda, dtype):
+    """0/1 tiles zeroed outside random extents that include 0 and T."""
+    tiles = _tiles(rng, nd, t, density)
+    rows, cols = (np.minimum(rng.choice([0, 1, 63, 65, t], nd), t).astype(np.int32)
+                  for _ in "rc")
+    rows[:2], cols[:2] = (0, t), (t, 0)
+    for n in range(nd):
+        tiles[n, rows[n]:] = 0
+        tiles[n, :, cols[n]:] = 0
+    return (torch.from_numpy(tiles).to(cuda, dtype),
+            (torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)))
+
+
+@pytest.mark.parametrize("t,dtype", EXTENT_CASES)
+def test_tc_tiles_cuda_with_extents_vs_plain(cuda, t, dtype):
+    rng = np.random.default_rng(t)
+    tiles, extents = _ragged(rng, 9, t, 0.2, cuda, dtype)
+    idx = rng.integers(0, 9, (201, 3)).astype(np.int32)
+    idx[::5] = -1                              # masked (padding) triples
+    idx = torch.from_numpy(idx).to(cuda)
+    want = int(ref.tc_tiles_idx_ref(tiles, idx))
+    before = registry.launch_counts()["tc_tiles"]
+    assert int(tc_tiles(tiles, idx, extents)) == want
+    assert int(tc_tiles(tiles, idx)) == want   # extents=None: whole tiles
+    assert registry.launch_counts()["tc_tiles"] == before + 2
+
+
+@pytest.mark.parametrize("t,dtype", EXTENT_CASES)
+@pytest.mark.parametrize("fdtype", [torch.bool, torch.float32, torch.bfloat16])
+def test_frontier_tiles_cuda_with_extents_vs_plain(cuda, t, dtype, fdtype):
+    rng = np.random.default_rng(t)
+    tiles, extents = _ragged(rng, 9, t, 0.05, cuda, dtype)
+    f = torch.from_numpy(rng.random((9, t)) < 0.3).to(cuda, fdtype)
+    want = ref.frontier_tiles_ref(tiles, f)
+    assert torch.equal(frontier_tiles(tiles, f, extents), want)
+    assert torch.equal(frontier_tiles(tiles, f), want)
+    empty = frontier_tiles(tiles, torch.zeros_like(f), extents)
+    assert bool((empty == INT_MAX).all())
+
+
+def test_tc_tiles_cuda_checks_live_triples_only(cuda):
+    tiles = torch.zeros((3, 64, 64), device=cuda)
+    masked = torch.tensor([[-1, 7, -5], [0, 1, 2]], dtype=torch.int32, device=cuda)
+    assert int(tc_tiles(tiles, masked)) == 0     # a masked triple may hold anything
+    for bad in ([0, 1, 3], [2, -1, 0]):
+        with pytest.raises(IndexError, match="outside"):
+            tc_tiles(tiles, torch.tensor([bad], dtype=torch.int32, device=cuda))
+
+
+def test_tile_kernels_reject_extents_on_another_device(cuda):
+    tiles = torch.zeros((2, 8, 8), device=cuda)
+    rows = torch.full((2,), 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="extents"):
+        tc_tiles(tiles, torch.zeros((1, 3), dtype=torch.int32, device=cuda), (rows, rows))
+    with pytest.raises(ValueError, match="extents"):
+        frontier_tiles(tiles, torch.zeros((2, 8), device=cuda), (rows, rows))
+
+
 ATTN_CASES = [  # b, h, h_kv, s_q, s_k, d, causal
     (1, 2, 2, 128, 128, 64, True), (2, 4, 1, 128, 256, 64, True), (1, 2, 2, 256, 256, 128, False),
     (1, 4, 2, 256, 128, 128, True),          # S_q > S_k: the first 128 rows see no key

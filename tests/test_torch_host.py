@@ -151,6 +151,37 @@ def test_interop_store_round_trip(name):
     _assert_store_equal(sr, st)
 
 
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("alg", ["pagerank", "tc"])
+def test_tile_extents_are_the_blocks_ranges(name, alg):
+    gr, gt = _graphs(name, ordered=True)
+    if alg == "tc":
+        from repro.algorithms.tc import orient_dag as r_orient
+        from repro_torch.algorithms.tc import orient_dag as t_orient
+
+        gr, gt = r_orient(gr), t_orient(gt)
+    sr, st = rc.build_block_store(gr, 8), tc.build_block_store(gt, 8)
+    mk_r, mk_t, _ = ALGS[alg]
+    rc.build_schedule(mk_r(), sr, tile_dim=128, dense_density=0.001)
+    tc.build_schedule(mk_t(), st, tile_dim=128, dense_density=0.001)
+    assert st.tile_block_ids.size > 0
+    want = np.array([sr.block_range(int(b)) for b in sr.tile_block_ids], np.int32)
+    assert st.tile_rows.dtype == st.tile_cols.dtype == np.int32
+    np.testing.assert_array_equal(np.stack([st.tile_rows, st.tile_cols], 1), want)
+    for tile, rows, cols in zip(st.tiles, st.tile_rows, st.tile_cols):
+        assert not tile[rows:].any() and not tile[:, cols:].any()
+    arrays = st.to_device("cpu")
+    for k in ("tile_rows", "tile_cols"):
+        assert arrays[k].dtype == torch.int32
+        np.testing.assert_array_equal(arrays[k].numpy(), getattr(st, k))
+    # a store carried across from the reference's fields gets the same extents
+    fields = {k: getattr(sr, k) for k in interop.STORE_FIELDS if k != "cuts"}
+    fields.update({k: getattr(sr, k) for k in interop.TILE_FIELDS}, cuts=sr.layout.cuts)
+    carried = interop.store_from_numpy(fields, directed=gr.directed, name=gr.name)
+    np.testing.assert_array_equal(carried.tile_rows, st.tile_rows)
+    np.testing.assert_array_equal(carried.tile_cols, st.tile_cols)
+
+
 def test_interop_state_keeps_dtypes():
     state = interop.state_from_numpy(
         dict(a=np.arange(3, dtype=np.int32), b=np.float32(2.5), c=np.zeros(2, bool)),

@@ -56,6 +56,59 @@ def test_tc_tiles_plain_masks_padding_triples():
     assert want > 0 and int(tc_tiles(ta, idx)) == want
 
 
+def _ragged(rng, nd, t, density):
+    """0/1 tiles zeroed outside random extents drawn from (0, 1, 63, 65, T),
+    and those extents as int32 tensors."""
+    tiles = _tiles(rng, nd, t, density)
+    rows, cols = (rng.choice([0, 1, 63, 65, t], nd).astype(np.int32) for _ in "rc")
+    for n in range(nd):
+        tiles[n, rows[n]:] = 0
+        tiles[n, :, cols[n]:] = 0
+    return tiles, (torch.from_numpy(rows), torch.from_numpy(cols))
+
+
+@pytest.mark.parametrize("nd,nb,t", [(5, 7, 128), (4, 3, 256)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tc_tiles_plain_with_extents_vs_pallas(nd, nb, t, dtype):
+    rng = np.random.default_rng(nd * 100 + t)
+    tiles, extents = _ragged(rng, nd, t, 0.2)
+    idx = rng.integers(0, nd, (nb, 3)).astype(np.int32)
+    ja, ta = _both(tiles, dtype)
+    want = float(p_tc(ja[idx[:, 1]], ja[idx[:, 2]], ja[idx[:, 0]], block_t=128,
+                      interpret=True))
+    got = tc_tiles(ta, torch.from_numpy(idx), extents)
+    assert got.dtype == torch.int64 and int(got) == want       # exact below 2**24
+
+
+@pytest.mark.parametrize("nd,t", [(6, 128), (3, 192)])
+@pytest.mark.parametrize("fdtype", [torch.float32, torch.bool])
+def test_frontier_tiles_plain_with_extents_vs_pallas(nd, t, fdtype):
+    rng = np.random.default_rng(nd * 100 + t)
+    tiles, extents = _ragged(rng, nd, t, 0.05)
+    f = (rng.random((nd, t)) < 0.3).astype(np.float32)
+    want = np.asarray(p_frontier(jnp.asarray(tiles), jnp.asarray(f), interpret=True))
+    got = frontier_tiles(torch.from_numpy(tiles), torch.from_numpy(f).to(fdtype), extents)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bad_extents(nd):
+    rows = torch.full((nd,), 8, dtype=torch.int32)
+    return [rows,                                               # not a pair
+            (rows, rows[:-1]),                                  # cols of the wrong length
+            (rows.long(), rows),                                # rows not int32
+            (rows[:, None], rows),                              # rows not 1-D
+            (rows, None)]                                       # cols missing
+
+
+@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("name", ["tc_tiles", "frontier_tiles"])
+def test_tile_kernels_reject_wrong_shaped_extents(name, case):
+    tiles, second = _cpu_args(name)
+    with pytest.raises(ValueError, match="extents"):
+        registry.get_kernel(name)(tiles, second, _bad_extents(tiles.shape[0])[case])
+
+
 @pytest.mark.parametrize("nb,t", [(1, 128), (4, 128), (2, 256)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_spmv_tiles_plain_vs_pallas(nb, t, dtype):

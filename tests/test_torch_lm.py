@@ -250,7 +250,8 @@ def lm_pair():
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
-    return rcfg, cfg, params, interop.lm_params_from_numpy(cfg, params), tokens, labels
+    return (rcfg, cfg, params, interop.lm_params_from_numpy(cfg, params, device="cpu"),
+            tokens, labels)
 
 
 def test_lm_params_from_numpy_carries_every_weight(lm_pair):
@@ -261,7 +262,7 @@ def test_lm_params_from_numpy_carries_every_weight(lm_pair):
                                   params["layers"]["attn"]["wk"][1])
     np.testing.assert_array_equal(model.lm_head.numpy(), params["lm_head"])
     with pytest.raises(KeyError, match="no place"):
-        interop.lm_params_from_numpy(cfg, dict(params, extra=np.zeros(3)))
+        interop.lm_params_from_numpy(cfg, dict(params, extra=np.zeros(3)), device="cpu")
 
 
 def test_forward_logits_matches(lm_pair):
@@ -341,7 +342,7 @@ def test_serve_engine_batch_equals_solo(lm_pair):
 def test_bf16_smoke_forward_within_bf16_tolerance():
     rcfg, cfg = _cfgs("bfloat16")
     params = r_lm.init_params(rcfg, jax.random.key(1))
-    model = interop.lm_params_from_numpy(cfg, _np(params))
+    model = interop.lm_params_from_numpy(cfg, _np(params), device="cpu")
     assert model.embed.dtype == torch.bfloat16
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128)).astype(np.int32)
     want = jax.jit(lambda p, t: r_lm.forward_logits(rcfg, p, dict(tokens=t), use_pallas=True))(
@@ -394,6 +395,14 @@ def test_lm_and_decode_state_without_device_raise_on_a_cardless_host():
         lm.LM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_decode_state(cfg, 1, 8)
+
+
+def test_lm_params_from_numpy_without_device_raises_on_a_cardless_host(lm_pair):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, cfg, params, _, _, _ = lm_pair
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_params_from_numpy(cfg, params)
 
 
 def test_launch_serve_without_device_raises_on_a_cardless_host():
