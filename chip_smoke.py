@@ -8,17 +8,21 @@ at full configuration: the graph engine through
 ``make_prefill_step`` and ``ServeEngine``:
 
 1. kernels vs plain versions on the card, at the main paths' shapes and
-   at ragged ones (tile kernels: T=192, odd batch; ``frontier_tiles`` and
-   ``tc_tiles`` also with ragged extents -- tiles zeroed outside a block
-   rectangle of 0, 1, 63, 65 or T rows and columns -- at T in {64, 192,
-   512} and at T=50 float32 and T=36, 37 bf16, whose unaligned rows take
-   ``tc_tiles``' cp.async route, float32 and bf16 tiles, masked triples
-   and an empty frontier; ``flash_attention``:
+   at ragged ones (tile kernels: T=192, odd batch; all three also with
+   ragged extents -- tiles zeroed outside a block rectangle whose rows
+   are drawn from, and whose columns cycle through, 0, 1, 3, 7, 13, 30,
+   63, 65, 100, 200, 300 and T (every lane-group width of each of
+   ``spmv_tiles``' routes) -- at T in {64, 192, 512} and at T=50 float32
+   and T=36, 37 bf16, whose unaligned rows take ``tc_tiles``' cp.async
+   route and ``spmv_tiles``' scalar one, float32 and bf16 tiles, masked
+   triples and an empty frontier; ``spmv_tiles``' output must be exactly 0
+   past each rectangle's columns; ``flash_attention``:
    the LM prefill's (2, 32 heads, 8 KV heads, 4096, 128) bf16, suffix-
    aligned causal with S_q < S_k, non-causal, and S_q > S_k with rows
    that see no key, each in float32 and bf16, and a bf16 D=64 shape;
    ``spmv_ell``: (B, R, K, N) = (4, 262144, 32, 2^20),
-   the PageRank graph's vertex count and mean degree, and a ragged one);
+   the PageRank graph's vertex count and mean degree, and two with K
+   not a multiple of 4);
 2. PageRank on ``degree_order(rmat(20, 16, seed=7), ascending=False)``
    (the Graph500 Kronecker generator, A=.57 B=.19 C=.19, edge factor
    16; scale cut from Graph500's ≥26 for host build time), p=512,
@@ -53,9 +57,10 @@ rectangle (its extents); the whole-tile bound they had before is printed
 beside.  Any failed check exits non-zero.
 
 Output: the card's name and power limit, the build time, the registers and
-spills (ptxas) and the tensor-core and TMA instructions (cuobjdump) of
-flash_attention (the bf16 route must have both) and tc_tiles (every route
-of its count kernel must have HGMMA, the TMA route UTMALDG), one or more
+spills (ptxas) of flash_attention, tc_tiles, spmv_tiles and spmv_ell, the
+tensor-core and TMA instructions (cuobjdump) of flash_attention (the bf16
+route must have both) and tc_tiles (every route of its count kernel must
+have HGMMA, the TMA route UTMALDG), one or more
 lines per phase,
 a JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root::
@@ -92,9 +97,14 @@ TC_SHAPES = ((3199, 9670, 512), (33, 77, 192))
 EXTENT_SHAPES = ((64, "float32"), (192, "float32"), (512, "float32"), (64, "bfloat16"),
                  (192, "bfloat16"), (512, "bfloat16"), (50, "float32"), (36, "bfloat16"),
                  (37, "bfloat16"))
-#: batch of the extents checks (odd): tiles, triples (enough that some triples'
-#: boxes are wide in all three directions and count triangles)
-EXTENT_BATCH = (9, 201)
+#: extents of the ragged rectangles besides 0 and T (clamped to T): a width of
+#: each power-of-two lane group of spmv_tiles' routes (V = 1, 4 or 8 columns
+#: a lane, 1 to 256 lanes), and 300, a rectangle whose second panel is ragged
+EXTENT_CHOICES = (0, 1, 3, 7, 13, 30, 63, 65, 100, 200, 300)
+#: batch of the extents checks (odd): tiles (enough that the columns take every
+#: choice twice), triples (enough that some triples' boxes are wide in all
+#: three directions and count triangles)
+EXTENT_BATCH = (27, 601)
 PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
@@ -115,8 +125,9 @@ ATTN_SHAPES = ((2, 32, 8, 4096, 4096, 128, "bfloat16", True),
 #: sums in another order (tests/test_kernels.py's 2e-4); bfloat16: those sums
 #: plus the output's rounding, at most half a bf16 step, 2^-8 of the value
 ATTN_TOL = {"float32": dict(rtol=0.0, atol=2e-4), "bfloat16": dict(rtol=2**-8, atol=1e-4)}
-#: spmv_ell checks: (B, R, K, N), PageRank's vertex count and mean degree, and ragged
-ELL_SHAPES = ((4, 262144, 32, 1048576), (3, 200, 7, 500))
+#: spmv_ell checks: (B, R, K, N), PageRank's vertex count and mean degree (K = 32,
+#: the int4 route), and two whose K takes the scalar route (not a multiple of 4)
+ELL_SHAPES = ((4, 262144, 32, 1048576), (3, 200, 7, 500), (2, 40000, 13, 65536))
 LM_ARCH = "granite-3-8b"
 #: phase 5: depth cut to 2 layers at full width, float32
 LM_EXACT = dict(n_layers=2, batch=2, seq=256, decode=16, requests=4, new_tokens=8)
@@ -199,7 +210,15 @@ def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_
 def _route(kernel: str, mangled: str) -> str:
     """The route of a kernel from its mangled name: flash_attention's
     type and head width; for tc_tiles, which of its two kernels (the
-    patch-mask pre-pass or the count), the tile type and the load route."""
+    patch-mask pre-pass or the count), the tile type and the load route;
+    for spmv_tiles and spmv_ell, the type and the load route."""
+    if kernel == "spmv_tiles":
+        v = re.search(r"kernelI(?:f|13__nv_bfloat16)Li(\d+)E", mangled).group(1)
+        dtype = "bf16" if "bfloat16" in mangled else "f32"
+        return f"{dtype} {'scalar' if v == '1' else f'16-byte ({v} elements)'}"
+    if kernel == "spmv_ell":
+        dtype = "bf16" if "bfloat16" in mangled else "f32"
+        return f"{dtype} {'int4' if 'Lb1E' in mangled else 'scalar'}"
     if kernel == "flash_attention":
         d = re.search(r"kernelILi(\d+)E", mangled).group(1)
         return f"{'bf16' if 'tc6kernel' in mangled else 'f32'} D={d}"
@@ -210,8 +229,9 @@ def _route(kernel: str, mangled: str) -> str:
 
 
 def tensor_core_report(logs: dict) -> None:
-    """flash_attention's and tc_tiles' builds: ptxas's registers and spills
-    per kernel, the register counts flash_attention's warpgroups set
+    """ptxas's registers and spills per kernel and route of flash_attention,
+    tc_tiles, spmv_tiles and spmv_ell; for the first two, the register
+    counts flash_attention's warpgroups set
     (``setmaxnreg``), and the tensor-core (HGMMA) and TMA (UTMALDG)
     instructions in their SASS.  Fails if flash_attention's bf16 route
     lacks either, or a route of tc_tiles' count kernel has no HGMMA (or
@@ -220,13 +240,14 @@ def tensor_core_report(logs: dict) -> None:
 
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    for kernel in ("flash_attention", "tc_tiles"):
+    for kernel in ("flash_attention", "tc_tiles", "spmv_tiles", "spmv_ell"):
         name = ""
         for line in logs[kernel].splitlines():
             if "Compiling entry function" in line:
                 name = _route(kernel, line)
             elif name and ("registers" in line or "spill" in line):
                 say(f"  {kernel} ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    for kernel in ("flash_attention", "tc_tiles"):
         if not os.path.exists(tool):
             say(f"  {kernel} SASS: not read (no cuobjdump)")
             continue
@@ -267,14 +288,18 @@ def device_profile(run):
 
 
 def ragged(tiles, gen, dev):
-    """``tiles`` zeroed in place outside random extents drawn from (0, 1, 63,
-    65, T) (the first two tiles: 0 x T and T x 0); returns the extents."""
+    """``tiles`` zeroed in place outside random extents: rows drawn from
+    EXTENT_CHOICES and T, columns cycling through them from a random
+    start, so that a batch of 2 + 12 k tiles takes each width k times (the
+    first two tiles: 0 x T and T x 0); returns the extents."""
     import torch
 
     nd, t = tiles.shape[0], tiles.shape[1]
-    choices = torch.tensor([0, 1, 63, 65, t], dtype=torch.int32, device=dev).clamp_max(t)
-    rows, cols = (choices[torch.randint(0, 5, (nd,), generator=gen, device=dev)]
-                  for _ in "rc")
+    choices = torch.tensor([*EXTENT_CHOICES, t], dtype=torch.int32, device=dev).clamp_max(t)
+    k = len(choices)
+    rows = choices[torch.randint(0, k, (nd,), generator=gen, device=dev)]
+    start = torch.randint(0, k, (1,), generator=gen, device=dev)
+    cols = choices[(torch.arange(nd, device=dev) + start) % k]
     rows[:2] = torch.tensor([0, t], dtype=torch.int32, device=dev)[:nd]
     cols[:2] = torch.tensor([t, 0], dtype=torch.int32, device=dev)[:nd]
     pos = torch.arange(t, device=dev)
@@ -306,15 +331,39 @@ def check_tile_kernels(tiles, idx, f, extents, what):
     return plain
 
 
+def check_spmv(tiles, xs, extents, what):
+    """spmv_tiles against its plain version (which reads whole tiles) on the
+    same inputs, without extents and with them; with them, ys must be
+    exactly 0 past each rectangle's columns.  The absolute tolerance is
+    SPMV_ATOL scaled by max|want| where that is below 1 (PageRank's ys are
+    ~1e-5), so that it stays below the values it checks.  Returns the
+    largest error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
+
+    want = ref.spmv_tiles_ref(tiles, xs)
+    atol = SPMV_ATOL * min(1.0, float(want.abs().max()))
+    err = 0.0
+    for ext in (None, extents):
+        got = spmv_tiles_cuda(tiles, xs, ext)
+        err = max(err, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=SPMV_RTOL, atol=atol),
+              f"spmv_tiles {what} extents={ext is not None} vs plain: max err {err}")
+    past = torch.arange(tiles.shape[1], device=tiles.device)[None, :] >= extents[1][:, None]
+    check(bool((got[past] == 0).all()), f"spmv_tiles {what}: ys not 0 past the rectangles")
+    return err
+
+
 def phase_kernels(dev, gen) -> None:
     """Each kernel against its plain version at the main path's shapes
     (PageRank's 4128 tiles, TC's 9670 triples over 3199 tiles) and at a
-    ragged T=192 with an odd batch; the two extents-taking kernels also
-    with ragged extents, at the EXTENT_SHAPES."""
+    ragged T=192 with an odd batch; the three tile kernels also with
+    ragged extents, spmv_tiles and frontier_tiles at the SPMV_SHAPES, all
+    three at the EXTENT_SHAPES."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
-    from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
 
     def tiles_of(nd, t, density=0.01, dtype=torch.float32):
         return (torch.rand((nd, t, t), generator=gen, device=dev) < density).to(dtype)
@@ -327,9 +376,8 @@ def phase_kernels(dev, gen) -> None:
     for nd, t in SPMV_SHAPES:
         tiles = tiles_of(nd, t)
         xs = torch.rand((nd, t), generator=gen, device=dev)
-        got, want = spmv_tiles_cuda(tiles, xs), ref.spmv_tiles_ref(tiles, xs)
-        check(torch.allclose(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL),
-              f"spmv_tiles ({nd},{t}) vs plain: max err {float((got - want).abs().max())}")
+        whole = torch.full((nd,), t, dtype=torch.int32, device=dev)
+        err = check_spmv(tiles, xs, (whole, whole), f"({nd},{t})")
         f = torch.rand((nd, t), generator=gen, device=dev) < 0.3
         check(torch.equal(frontier_tiles_cuda(tiles, f), ref.frontier_tiles_ref(tiles, f)),
               f"frontier_tiles ({nd},{t}) vs plain")
@@ -339,9 +387,10 @@ def phase_kernels(dev, gen) -> None:
               f"frontier_tiles ({nd},{t}) ragged extents vs plain")
         empty = frontier_tiles_cuda(tiles, torch.zeros_like(f), extents)
         check(bool((empty == INT_MAX).all()), f"frontier_tiles ({nd},{t}) empty frontier")
-        say(f"phase kernels: spmv_tiles, frontier_tiles ok at nd={nd} T={t} "
-            f"(frontier_tiles also with ragged extents)")
-        del tiles, xs, f, got, want, empty
+        err = max(err, check_spmv(tiles, xs, extents, f"({nd},{t}) ragged"))
+        say(f"phase kernels: spmv_tiles, frontier_tiles ok at nd={nd} T={t} with whole and "
+            f"ragged extents (spmv_tiles max err {err:.2e})")
+        del tiles, xs, f, empty
     for nd, nb, t in TC_SHAPES:
         tiles = tiles_of(nd, t)
         idx = triples(nd, nb)
@@ -360,8 +409,11 @@ def phase_kernels(dev, gen) -> None:
         for fdtype in (torch.bool, torch.float32, torch.bfloat16):
             f = (torch.rand((nd, t), generator=gen, device=dev) < 0.3).to(fdtype)
             count = check_tile_kernels(tiles, idx, f, extents, f"({nd},{nb},{t}) {dtype}")
-        say(f"phase kernels: frontier_tiles, tc_tiles ok at nd={nd} B={nb} T={t} {dtype} "
-            f"with ragged extents and without (count {count})")
+        xs = torch.rand((nd, t), generator=gen, device=dev).to(tiles.dtype)
+        err = check_spmv(tiles, xs, extents, f"({nd},{t}) {dtype} ragged")
+        say(f"phase kernels: frontier_tiles, tc_tiles, spmv_tiles ok at nd={nd} B={nb} T={t} "
+            f"{dtype} with ragged extents and without (count {count}, spmv_tiles max err "
+            f"{err:.2e})")
     torch.cuda.empty_cache()
 
 
@@ -500,19 +552,27 @@ def phase_pagerank(dev, store):
     cols = torch.arange(t, device=dev)
     xs = torch.cat([contrib, contrib.new_zeros(t)])[ctx.tile_row_start[:, None] + cols]
     tiles = ctx.tiles
-    got, want = spmv_tiles_cuda(tiles, xs), ref.spmv_tiles_ref(tiles, xs)
-    check(torch.allclose(got, want, rtol=SPMV_RTOL, atol=SPMV_ATOL), "spmv_tiles main-path inputs")
-    rec = record(
-        "spmv_tiles", launches["spmv_tiles"], float((got - want).abs().max()),
-        cuda_ms(lambda: spmv_tiles_cuda(tiles, xs), 20),
-        cuda_ms(lambda: ref.spmv_tiles_ref(tiles, xs), 3),
-        nd * t * t * 4 + 2 * nd * t * 4, 2.0 * nd * t * t,
-        cuda_ms(lambda: torch.einsum("brc,br->bc", tiles, xs), 5))
-    # what the same work would need if spmv_tiles read only the block rectangles
+    extents = (ctx.tile_rows, ctx.tile_cols)
+    err = check_spmv(tiles, xs, extents, "main-path inputs")
+    # inside the block rectangles: each rectangle's elements and the x
+    # below its rows once, ys written whole, the extents read
     area = float((ctx.tile_rows.double() * ctx.tile_cols.double()).sum())
-    inside, _ = bound(area * 4 + 2 * nd * t * 4, 2.0 * area)
-    say(f"  spmv_tiles: bound inside the block rectangles {inside:.4f} ms (the kernel "
-        f"reads whole tiles; information, not its recorded bound)")
+    x_read = float(ctx.tile_rows.double().sum()) * xs.element_size()
+    rec = record(
+        "spmv_tiles", launches["spmv_tiles"], err,
+        cuda_ms(lambda: spmv_tiles_cuda(tiles, xs, extents), 20),
+        cuda_ms(lambda: ref.spmv_tiles_ref(tiles, xs), 3),
+        area * tiles.element_size() + x_read + nd * t * 4 + 2 * nd * 4, 2.0 * area,
+        cuda_ms(lambda: torch.einsum("brc,br->bc", tiles, xs), 5))
+    old_bound = bound(nd * t * t * 4 + 2 * nd * t * 4, 2.0 * nd * t * t)
+    whole_ms = cuda_ms(lambda: spmv_tiles_cuda(tiles, xs), 20)
+    rows, cols = ctx.tile_rows.double(), ctx.tile_cols.double()
+    corr = float(torch.corrcoef(torch.stack([rows, cols]))[0, 1])
+    say(f"  spmv_tiles: {area / (nd * t * t):.4f} of the tile elements inside the "
+        f"rectangles; rows/cols median {float(rows.median()):.0f}/{float(cols.median()):.0f}, "
+        f"correlation {corr:.3f}, largest rectangle {float((rows * cols).max()):.0f} elements; "
+        f"whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents "
+        f"{whole_ms:.4f} ms")
     return plan, rec
 
 

@@ -80,7 +80,8 @@ def _kernel_dense(ctx, state, it):
     contrib = state["rank"] * ctx.extras["inv_deg"]
     cols = torch.arange(t, device=acc.device)
     xs = torch.cat([contrib, contrib.new_zeros(t)])[ctx.tile_row_start[:, None] + cols]
-    ys = spmv_tiles(ctx.tiles, xs)                              # (nd, T)
+    # (nd, T); exactly 0 at columns >= tile_cols, which index the next stripe
+    ys = spmv_tiles(ctx.tiles, xs, (ctx.tile_rows, ctx.tile_cols))
     idx = (ctx.tile_col_start[:, None] + cols).reshape(-1)
     acc_pad = torch.cat([acc, acc.new_zeros(t)]).index_add_(0, idx, ys.reshape(-1))
     return dict(state, acc=acc_pad[:n])

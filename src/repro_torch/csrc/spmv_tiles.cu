@@ -1,77 +1,225 @@
-// spmv_tiles: y[b] = A[b]^T x[b] over a batch of dense 0/1 bitmap tiles.
+// spmv_tiles: y[b] = A[b]^T x[b] over a batch of dense 0/1 bitmap tiles,
+// each read only inside its block rectangle.
 //
 // Replaces the Pallas kernel src/repro/kernels/spmv_tile.py::spmv_tiles
 // (PageRank's dense K_D path, src/repro/algorithms/pagerank.py:100).
 //
-// Bound on Hopper: memory.  Each tile element is read once and used in
-// one multiply-add, so the kernel moves nd*T*T*sizeof(tile) bytes for
-// 2*nd*T*T flops -- far below the ~20 flop/byte at which an H100's f32
-// units, let alone its tensor cores, would become the limit.
+// Contract: tile b is zero at rows >= rows[b] and columns >= cols[b] (its
+// block's rectangle in the padded T x T tile; no extents means the whole
+// tile).  The kernel uses no tile element and no x[b, r] outside the
+// rectangle (a 16-byte load of the row segment may take up to V - 1
+// elements past cols[b], inside the same row; their sums are dropped).
 //
-// Design: grid (nd, ceil(T/128)), 128 threads.  x[b] is staged once per
-// block in shared memory; each thread owns one output column c and walks
-// the rows r, so a warp reads 32 neighbouring elements of row r (one
-// coalesced 128-byte line in f32) per step and keeps 8 loads in flight
-// through the unrolled loop.  The f32 accumulator is private to the
-// thread, so no reduction or atomic is needed.  Any T works: the last
-// column block masks c >= T (the Pallas kernel asserted T % 128 == 0).
+// Output contract: ys[b, c] is exactly 0 for every c >= cols[b].  PageRank
+// index-adds all T columns of ys at tile_col_start[b] + c, and past
+// cols[b] those indices are the next stripe's vertices.  The kernel writes
+// every element of ys -- the sums below cols[b], zeros past it -- so the
+// wrapper allocates ys with torch.empty and no memset runs.
+//
+// Bound on Hopper: memory.  Each tile element inside the rectangle is read
+// once and used in one multiply-add: 2 flops per 4 bytes (float32) or 2
+// bytes (bf16), far below the ~20 flop/byte at which an H100's float32
+// units bind, so no tensor cores.  The bytes are the rectangles (about
+// 6 % of the padded tiles at PageRank's chip configuration), x below
+// rows[b], and ys.
+//
+// Design:
+// * Work items are (tile, panel of kPanel = 256 columns), panel-major.  An
+//   item walks every row below rows[b] of its panel's columns below
+//   cols[b] and writes the panel's columns of ys: the sums, then zeros.
+//   Each output has one writer and is summed in one fixed order: no
+//   atomics, no memset, the same bits on every run.  A rectangle wider
+//   than 256 columns spreads over two blocks.
+// * Load balance over ragged rectangles (1 to 512 rows and columns): one
+//   256-thread block per item, so the hardware's block scheduler hands
+//   items to SMs as they free up; an item with no rows or columns writes
+//   its zeros and leaves.  A persistent grid (as many blocks as the card
+//   holds at once, items in a static interleave) measured 5-15 % slower on
+//   the main path's inputs and was dropped (times in PERF.md).  Row slabs
+//   (an item per 64 to 256 rows, an atomicAdd per column into a zeroed ys)
+//   measured slower than whole-height panels on the same rectangles (H100
+//   80GB HBM3, 700 W): there a tall rectangle is narrow and a wide one
+//   short (chip_smoke.py prints the extents' correlation and the largest
+//   rectangle), so the slabs bought little balance for their memset and
+//   adds.
+// * Inside an item the columns go to wp lanes, wp a power of two, each
+//   lane owning V adjacent columns: V = 4 float32 or 8 bf16 elements (one
+//   16-byte load) where the rows are 16-byte aligned, else V = 1 (the
+//   scalar route: T * sizeof(element) not a multiple of 16, or a
+//   misaligned tiles pointer).  The 256 / wp groups of wp lanes split the
+//   rows.  A row segment costs its own 32-byte sectors, so a narrow
+//   rectangle costs about its own bytes, not a 128-column panel's.
+// * Bytes in flight: each thread issues the loads of kBatch = 4 rows (and
+//   their x values) before it uses any, one 16-byte load a row: 16 KB a
+//   block, and six blocks fit on an SM (40 registers a thread): ~96 KB in
+//   flight per SM, against the ~25 KB an SM needs to cover DRAM's latency
+//   at 3.35 TB/s.  The tile loads are __ldcs (evict-first): each element is
+//   read once a call, so it should not push x and ys out of L2.  No TMA or
+//   cp.async ring: a TMA box has a fixed size and would over-read the
+//   narrow rectangles, and plain vector loads already keep enough in
+//   flight.  (Batches of 8 or 16 rows, 128- or 512-thread blocks, 512-column
+//   panels and loads without the evict-first hint measured no faster on
+//   the main path's inputs, on the same card.)
+// * The groups' partial sums fold with shuffles inside a warp and through
+//   shared memory across warps.
+// * No global __device__ state: two streams may run the kernel at once.
+//   The extents are clamped to [0, T] here and never read on the host.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 128;  // output columns per block, one per thread
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPanel = 256;  // columns of a work item
+constexpr int kBatch = 4;    // rows whose loads a thread issues together
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(kCols)
-spmv_tiles_kernel(const T* __restrict__ tiles, const T* __restrict__ xs,
-                  float* __restrict__ ys, int t) {
-  extern __shared__ float x_s[];
-  const long long b = blockIdx.x;
-  const T* xb = xs + b * t;
-  for (int r = threadIdx.x; r < t; r += blockDim.x) x_s[r] = to_f32(xb[r]);
-  __syncthreads();
-  const int c = blockIdx.y * kCols + threadIdx.x;
-  if (c >= t) return;
-  const T* a = tiles + b * (long long)t * t + c;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int r = 0; r < t; ++r) acc = fmaf(to_f32(a[(long long)r * t]), x_s[r], acc);
-  ys[b * t + c] = acc;
+// V adjacent tile elements: one load of type raw, unpacked to float32.
+template <typename T, int V> struct Elems {
+  static_assert(V == 1, "vector routes are specialised below");
+  using raw = T;
+  static __device__ __forceinline__ raw zero() { return raw(0.f); }
+  static __device__ __forceinline__ void unpack(const raw& v, float* f) { f[0] = to_f32(v); }
+};
+template <> struct Elems<float, 4> {
+  using raw = float4;
+  static __device__ __forceinline__ raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ void unpack(const raw& v, float* f) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+};
+template <> struct Elems<__nv_bfloat16, 8> {
+  using raw = uint4;
+  static __device__ __forceinline__ raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void unpack(const raw& v, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+};
+
+__device__ __forceinline__ int extent(const int* ext, long long b, int t) {
+  return ext ? min(max(ext[b], 0), t) : t;
 }
 
-template <typename T>
-cudaError_t launch(const void* tiles, const void* xs, float* ys, long long nd,
-                   int t, cudaStream_t stream) {
-  const size_t smem = (size_t)t * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(spmv_tiles_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
+// Lanes that own columns in a chunk of cols columns (at most kThreads), and
+// that count rounded up to a power of two: the width of a lane group.
+template <int V>
+__device__ __forceinline__ int lanes(int cols) { return min((cols + V - 1) / V, kThreads); }
+__device__ __forceinline__ int pow2(int w) { return w <= 1 ? 1 : 1 << (32 - __clz(w - 1)); }
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+spmv_tiles_kernel(const T* __restrict__ tiles, const T* __restrict__ xs,
+                  const int* __restrict__ ext_rows, const int* __restrict__ ext_cols,
+                  float* __restrict__ ys, long long nd, int t) {
+  using E = Elems<T, V>;
+  __shared__ float part[kThreads * V];   // the groups' partial sums of a chunk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // items panel-major: item = panel * nd + tile
+  const long long item = blockIdx.x, b = item % nd;
+  const int p0 = (int)(item / nd) * kPanel, p1 = min(p0 + kPanel, t);
+  const int n = extent(ext_rows, b, t);   // rows to walk
+  // columns to sum: the rectangle's inside this panel
+  const int width = n > 0 ? max(min(extent(ext_cols, b, t), p1) - p0, 0) : 0;
+  const T* a = tiles + b * t * (long long)t + p0;
+  const T* x = xs + b * t;
+  float* y = ys + b * t + p0;
+
+  for (int c0 = 0; c0 < width; c0 += kThreads * V) {
+    const int w = lanes<V>(width - c0), wp = pow2(w);
+    const int groups = kThreads / wp;
+    const int q = tid & (wp - 1), g = tid / wp;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    if (q < w) {
+      const T* p = a + c0 + q * V;
+      for (int r = g; r < n; r += groups * kBatch) {
+        typename E::raw v[kBatch];
+        float xv[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int rr = r + k * groups;
+          v[k] = rr < n ? __ldcs(reinterpret_cast<const typename E::raw*>(p + (long long)rr * t))
+                        : E::zero();
+          xv[k] = rr < n ? to_f32(x[rr]) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          float f[V];
+          E::unpack(v[k], f);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = fmaf(f[j], xv[k], acc[j]);
+        }
+      }
+    }
+    // fold the groups: inside a warp by shuffles (wp < 32), then across
+    // warps (or, for wp >= 32, across the groups) through shared memory
+    int slot = g;
+    bool writes = true;
+    if (wp < 32) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        for (int o = wp; o < 32; o <<= 1) acc[j] += __shfl_xor_sync(kAll, acc[j], o);
+      slot = warp;
+      writes = lane < wp;
+    }
+    const int parts = wp < 32 ? kWarps : groups, stride = wp * V;
+    if (writes) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) part[slot * stride + q * V + j] = acc[j];
+    }
+    __syncthreads();
+    for (int e = tid; e < w * V && c0 + e < width; e += kThreads) {
+      float s = 0.f;
+      for (int i = 0; i < parts; ++i) s += part[i * stride + e];
+      y[c0 + e] = s;
+    }
+    __syncthreads();
   }
-  dim3 grid((unsigned)nd, (unsigned)((t + kCols - 1) / kCols));
-  spmv_tiles_kernel<T><<<grid, kCols, smem, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const T*>(xs), ys, t);
+  for (int c = width + tid; c < p1 - p0; c += kThreads) y[c] = 0.f;   // past the rectangle
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* tiles, const void* xs, const int* rows, const int* cols,
+                   float* ys, long long nd, int t, cudaStream_t stream) {
+  const long long items = nd * ((t + kPanel - 1) / kPanel);   // one block each
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  spmv_tiles_kernel<T, V><<<(unsigned)items, kThreads, 0, stream>>>(
+      static_cast<const T*>(tiles), static_cast<const T*>(xs), rows, cols, ys, nd, t);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (tiles and xs share it); ys is float32.
+// dtype: 0 = float32, 1 = bfloat16 (tiles and xs share it); ys is float32,
+// (nd, T), and every element of it is written.  rows and cols are the (nd,)
+// int32 extents of the tiles, or both null for whole tiles.  vec = 1 takes
+// 16-byte loads: the caller promises a 16-byte aligned tiles pointer and
+// T * sizeof(element) a multiple of 16.
 extern "C" int spmv_tiles_launch(int device, const void* tiles, const void* xs,
-                                 void* ys, long long nd, int t, int dtype,
-                                 void* stream) {
+                                 const void* rows, const void* cols, void* ys,
+                                 long long nd, int t, int dtype, int vec, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* y = static_cast<float*>(ys);
-  switch (dtype) {
-    case 0: return launch<float>(tiles, xs, y, nd, t, s);
-    case 1: return launch<__nv_bfloat16>(tiles, xs, y, nd, t, s);
+  const int* er = static_cast<const int*>(rows);
+  const int* ec = static_cast<const int*>(cols);
+  switch (dtype * 2 + (vec ? 1 : 0)) {
+    case 0: return launch<float, 1>(tiles, xs, er, ec, y, nd, t, s);
+    case 1: return launch<float, 4>(tiles, xs, er, ec, y, nd, t, s);
+    case 2: return launch<__nv_bfloat16, 1>(tiles, xs, er, ec, y, nd, t, s);
+    case 3: return launch<__nv_bfloat16, 8>(tiles, xs, er, ec, y, nd, t, s);
     default: return cudaErrorInvalidValue;
   }
 }

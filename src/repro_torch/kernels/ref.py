@@ -30,8 +30,9 @@ __all__ = [
 ]
 
 
-def spmv_tiles_ref(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """y[b] = A[b]ᵀ · x[b] for a batch of dense blocks — (nd,T,T),(nd,T)→(nd,T) f32."""
+def spmv_tiles_ref(tiles: torch.Tensor, xs: torch.Tensor, extents=None) -> torch.Tensor:
+    """y[b] = A[b]ᵀ · x[b] for a batch of dense blocks — (nd,T,T),(nd,T)→(nd,T) f32.
+    ``extents`` is ignored: whole tiles are read."""
     out = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
     for s in range(0, tiles.shape[0], CHUNK):
         a = tiles[s:s + CHUNK].float()

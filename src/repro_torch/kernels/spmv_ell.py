@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel ``repro/kernels/spmv_ell.py::spmv_ell``.  No
 algorithm of either package calls it yet.  The CUDA kernel is
-``csrc/spmv_ell.cu``; the plain version is
+``csrc/spmv_ell.cu`` (a group of lanes per row: int4 index loads
+where K is a multiple of 4, scalar ones otherwise); the plain version is
 :func:`repro_torch.kernels.ref.spmv_ell_ref`.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ __all__ = ["spmv_ell", "spmv_ell_cuda"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_void_p)
 
 
 def spmv_ell(idx: torch.Tensor, valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -48,9 +49,11 @@ def spmv_ell_cuda(idx: torch.Tensor, valid: torch.Tensor, x: torch.Tensor) -> to
     y = torch.empty((b, r), dtype=x.dtype, device=dev)
     if y.numel() == 0:
         return y
+    # int4 index and 4-byte mask loads where each row's entries start aligned
+    vec = k % 4 == 0 and idx.data_ptr() % 16 == 0 and valid.data_ptr() % 4 == 0
     fn = _build.function("spmv_ell", "spmv_ell_launch", _ARGTYPES)
     err = fn(dev.index, idx.data_ptr(), valid.data_ptr(), x.data_ptr(), y.data_ptr(), b, r, k,
-             x.shape[1], _DTYPES[x.dtype], _build.stream_handle(dev))
+             x.shape[1], _DTYPES[x.dtype], int(vec), _build.stream_handle(dev))
     _build.raise_on_error("spmv_ell", err)
     spmv_ell_cuda.launches += 1
     return y

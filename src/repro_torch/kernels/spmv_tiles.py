@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel ``repro/kernels/spmv_tile.py::spmv_tiles``.
 The CUDA kernel is ``csrc/spmv_tiles.cu`` (its header says what bounds
-it and how it is laid out); the plain version is
+it and how it is laid out: a block per 256-column panel of each tile's
+block rectangle, no atomics, no memset); the plain version is
 :func:`repro_torch.kernels.ref.spmv_tiles_ref`.
 """
 from __future__ import annotations
@@ -17,21 +18,30 @@ __all__ = ["spmv_tiles", "spmv_tiles_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
-def spmv_tiles(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+def spmv_tiles(tiles: torch.Tensor, xs: torch.Tensor, extents=None) -> torch.Tensor:
     """(nd, T, T) 0/1 tiles × (nd, T) slices → (nd, T) float32.
+
+    ``extents=(rows, cols)``, two ``(nd,)`` int32 tensors, promises that
+    tile ``b`` is zero at rows ≥ ``rows[b]`` and at columns ≥
+    ``cols[b]``; the kernel does not read those entries (nor ``xs[b, r]``
+    for ``r ≥ rows[b]``), and ``ys[b, c]`` is exactly 0 for every
+    ``c ≥ cols[b]``.  ``None`` means whole tiles.  The plain version
+    ignores ``extents`` and reads whole tiles.
 
     Tensors on the CPU take the plain version; anything else launches
     the CUDA kernel, which raises for a tensor that is not on a card.
     """
+    _build.check_extents("spmv_tiles", extents, tiles)
     if tiles.device.type == "cpu" and xs.device.type == "cpu":
-        return ref.spmv_tiles_ref(tiles, xs)
-    return spmv_tiles_cuda(tiles, xs)
+        return ref.spmv_tiles_ref(tiles, xs, extents)
+    return spmv_tiles_cuda(tiles, xs, extents)
 
 
-def spmv_tiles_cuda(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+def spmv_tiles_cuda(tiles: torch.Tensor, xs: torch.Tensor, extents=None) -> torch.Tensor:
     """The CUDA kernel alone; counts its launches in ``.launches``."""
     dev = _build.require_cuda("spmv_tiles", tiles, xs)
     if tiles.dim() != 3 or tiles.shape[1] != tiles.shape[2]:
@@ -42,13 +52,20 @@ def spmv_tiles_cuda(tiles: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     if tiles.dtype not in _DTYPES or xs.dtype != tiles.dtype:
         raise TypeError(f"spmv_tiles: tiles and xs must share float32 or bfloat16; "
                         f"got {tiles.dtype} and {xs.dtype}")
-    _build.require_contiguous("spmv_tiles", tiles, xs)
+    rows, cols = _build.check_extents("spmv_tiles", extents, tiles)
+    _build.require_contiguous("spmv_tiles", tiles, xs,
+                              *(e for e in (rows, cols) if e is not None))
+    # every element is written: sums below cols[b], zeros past it
     ys = torch.empty((nd, t), dtype=torch.float32, device=dev)
     if nd == 0 or t == 0:
         return ys
+    # 16-byte loads where every row starts on a 16-byte boundary
+    vec = (t * tiles.element_size()) % 16 == 0 and tiles.data_ptr() % 16 == 0
     fn = _build.function("spmv_tiles", "spmv_tiles_launch", _ARGTYPES)
-    err = fn(dev.index, tiles.data_ptr(), xs.data_ptr(), ys.data_ptr(), nd, t,
-             _DTYPES[tiles.dtype], _build.stream_handle(dev))
+    err = fn(dev.index, tiles.data_ptr(), xs.data_ptr(),
+             None if rows is None else rows.data_ptr(),
+             None if cols is None else cols.data_ptr(), ys.data_ptr(), nd, t,
+             _DTYPES[tiles.dtype], int(vec), _build.stream_handle(dev))
     _build.raise_on_error("spmv_tiles", err)
     spmv_tiles_cuda.launches += 1
     return ys

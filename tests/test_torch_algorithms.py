@@ -8,6 +8,8 @@ iteration counts must be equal (both are reported when they are not).
 BFS parents, distances and direction decisions and TC counts are
 integers and must be identical.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from repro_torch.algorithms import (
     bfs, bfs_algorithm, pagerank, pagerank_algorithm, tc_algorithm, triangle_count,
 )
 from repro_torch.core import compile_plan, rmat
+from repro_torch.kernels.spmv_tiles import spmv_tiles
 
 GRAPHS = {
     "rmat": lambda: rc.degree_order(rc.rmat(9, 8, seed=3), ascending=False)[0],
@@ -51,6 +54,29 @@ def test_pagerank_matches_reference(name, seeds, mode):
                         mode=mode, **PLAN_KW)
     got = plan.run()
     assert plan.schedule.stats == want.schedule_stats
+    assert got.iterations == want.iterations, \
+        f"iterations: port {got.iterations}, reference {want.iterations}"
+    np.testing.assert_allclose(got.result, want.result, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_pagerank_dense_path_passes_the_store_extents(name, monkeypatch):
+    # the module, not the function the package re-exports under its name
+    port_pagerank = sys.modules["repro_torch.algorithms.pagerank"]
+    calls = []
+
+    def recording(tiles, xs, extents=None):
+        calls.append(extents)
+        return spmv_tiles(tiles, xs, extents)
+
+    monkeypatch.setattr(port_pagerank, "spmv_tiles", recording)
+    sr = rc.build_block_store(GRAPHS[name](), 4)
+    want = rc.compile_plan(r_pagerank(), sr, backend="reference", **PLAN_KW).run()
+    plan = compile_plan(pagerank_algorithm(), _carry(sr), device="cpu", **PLAN_KW)
+    got = plan.run()
+    ctx = plan.context
+    assert plan.schedule.stats["dense_tasks"] > 0 and len(calls) == got.iterations
+    assert all(rows is ctx.tile_rows and cols is ctx.tile_cols for rows, cols in calls)
     assert got.iterations == want.iterations, \
         f"iterations: port {got.iterations}, reference {want.iterations}"
     np.testing.assert_allclose(got.result, want.result, rtol=1e-5, atol=1e-8)

@@ -95,11 +95,20 @@ EXTENT_CASES = [(64, torch.float32), (192, torch.float32), (512, torch.float32),
                 (50, torch.float32), (36, torch.bfloat16), (37, torch.bfloat16)]
 
 
+#: extents of the ragged rectangles besides T (clamped to T): a width of each
+#: power-of-two lane group of spmv_tiles' routes (V = 1, 4 or 8 columns a lane,
+#: 1 to 256 lanes), and 300, a rectangle whose second 256-column panel is ragged
+EXTENT_CHOICES = (0, 1, 3, 7, 13, 30, 63, 65, 100, 200, 300)
+
+
 def _ragged(rng, nd, t, density, cuda, dtype):
-    """0/1 tiles zeroed outside random extents that include 0 and T."""
+    """0/1 tiles zeroed outside random extents that include 0 and T: rows
+    drawn from EXTENT_CHOICES and T, columns cycling through them from a
+    random start (2 + 12 k tiles take each width k times)."""
     tiles = _tiles(rng, nd, t, density)
-    rows, cols = (np.minimum(rng.choice([0, 1, 63, 65, t], nd), t).astype(np.int32)
-                  for _ in "rc")
+    choices = np.minimum([*EXTENT_CHOICES, t], t).astype(np.int32)
+    rows = rng.choice(choices, nd)
+    cols = choices[(np.arange(nd) + rng.integers(len(choices))) % len(choices)]
     rows[:2], cols[:2] = (0, t), (t, 0)
     for n in range(nd):
         tiles[n, rows[n]:] = 0
@@ -133,6 +142,39 @@ def test_frontier_tiles_cuda_with_extents_vs_plain(cuda, t, dtype, fdtype):
     assert torch.equal(frontier_tiles(tiles, f), want)
     empty = frontier_tiles(tiles, torch.zeros_like(f), extents)
     assert bool((empty == INT_MAX).all())
+
+
+@pytest.mark.parametrize("t", [64, 100, 192, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_tiles_cuda_with_extents_vs_plain(cuda, t, dtype):
+    rng = np.random.default_rng(t)
+    tiles, extents = _ragged(rng, 26, t, 0.2, cuda, dtype)     # every width twice
+    xs = torch.from_numpy(rng.random((26, t)).astype(np.float32)).to(cuda, dtype)
+    want = ref.spmv_tiles_ref(tiles, xs)
+    before = registry.launch_counts()["spmv_tiles"]
+    got = spmv_tiles(tiles, xs, extents)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    past = torch.arange(t, device=cuda)[None, :] >= extents[1][:, None]
+    assert bool((got[past] == 0).all())        # exact zeros past each rectangle's columns
+    torch.testing.assert_close(spmv_tiles(tiles, xs), want, rtol=1e-5, atol=1e-6)
+    assert registry.launch_counts()["spmv_tiles"] == before + 2
+
+
+def test_spmv_tiles_cuda_misaligned_tiles_take_the_scalar_route(cuda):
+    rng = np.random.default_rng(3)
+    tiles = torch.from_numpy(_tiles(rng, 3, 64, 0.2)).to(cuda)
+    buf = tiles.new_zeros(tiles.numel() + 1)
+    buf[1:] = tiles.reshape(-1)
+    view = buf[1:].view(3, 64, 64)             # one element in: rows not 16-byte aligned
+    assert view.data_ptr() % 16 != 0
+    xs = torch.from_numpy(rng.random((3, 64)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(spmv_tiles(view, xs), ref.spmv_tiles_ref(tiles, xs),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_spmv_tiles_cuda_empty_batch(cuda):
+    got = spmv_tiles(torch.zeros((0, 64, 64), device=cuda), torch.zeros((0, 64), device=cuda))
+    assert got.shape == (0, 64) and got.dtype == torch.float32
 
 
 def test_tc_tiles_cuda_checks_live_triples_only(cuda):
@@ -190,7 +232,14 @@ def test_flash_attention_cuda_rejects_a_misaligned_tensor(cuda):
         flash_attention(q, k, k)
 
 
-@pytest.mark.parametrize("b,r,k,n", [(1, 128, 8, 256), (3, 200, 7, 500), (2, 1000, 32, 4096)])
+#: (B, R, K, N): K a multiple of 4 takes the int4 route (K = 4: one lane a row;
+#: K = 32: 8; K = 100: 32 lanes, each over several chunks), any other K the
+#: scalar one (K = 7, 13, 33)
+ELL_CASES = [(1, 128, 8, 256), (3, 200, 7, 500), (2, 1000, 32, 4096), (2, 300, 13, 1000),
+             (1, 513, 32, 2048), (2, 100, 4, 64), (1, 50, 100, 300), (2, 77, 33, 999)]
+
+
+@pytest.mark.parametrize("b,r,k,n", ELL_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_spmv_ell_cuda_vs_plain(cuda, b, r, k, n, dtype):
     gen = torch.Generator(device=cuda).manual_seed(r)
@@ -202,6 +251,18 @@ def test_spmv_ell_cuda_vs_plain(cuda, b, r, k, n, dtype):
     assert registry.launch_counts()["spmv_ell"] == before + 1
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), ref.spmv_ell_ref(idx, valid, x).float(), **tol)
+
+
+def test_spmv_ell_cuda_misaligned_rows_take_the_scalar_route(cuda):
+    # K = 32 but idx starts one element into its storage: no int4 loads
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    idx = torch.randint(0, 100, (2 * 64 * 32 + 1,), generator=gen, device=cuda,
+                        dtype=torch.int32)[1:].view(2, 64, 32)
+    valid = torch.rand((2, 64, 32), generator=gen, device=cuda) < 0.5
+    x = torch.rand((2, 100), generator=gen, device=cuda)
+    assert idx.data_ptr() % 16 != 0
+    torch.testing.assert_close(spmv_ell(idx, valid, x), ref.spmv_ell_ref(idx, valid, x),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_spmv_ell_cuda_skips_masked_indices(cuda):

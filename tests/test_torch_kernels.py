@@ -102,7 +102,7 @@ def _bad_extents(nd):
 
 
 @pytest.mark.parametrize("case", range(5))
-@pytest.mark.parametrize("name", ["tc_tiles", "frontier_tiles"])
+@pytest.mark.parametrize("name", ["tc_tiles", "frontier_tiles", "spmv_tiles"])
 def test_tile_kernels_reject_wrong_shaped_extents(name, case):
     tiles, second = _cpu_args(name)
     with pytest.raises(ValueError, match="extents"):
@@ -120,6 +120,24 @@ def test_spmv_tiles_plain_vs_pallas(nb, t, dtype):
     assert got.dtype == torch.float32
     # both sum the same float32 products in a different order
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("nd,t", [(6, 128), (5, 256)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_spmv_tiles_plain_with_extents_vs_pallas(nd, t, dtype):
+    rng = np.random.default_rng(nd * 100 + t)
+    tiles, (rows, cols) = _ragged(rng, nd, t, 0.1)
+    rows[:2], cols[:2] = torch.tensor([0, t]), torch.tensor([t, 0])   # 0 x T and T x 0
+    tiles[0], tiles[1] = 0, 0
+    jt, tt = _both(tiles, dtype)
+    jx, tx = _both(rng.random((nd, t)).astype(np.float32), dtype)
+    want = np.float32(p_spmv(jt, jx, interpret=True))
+    got = spmv_tiles(tt, tx, (rows, cols))
+    assert got.dtype == torch.float32
+    # the same float32 products summed in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    past = torch.arange(t)[None, :] >= cols[:, None]
+    assert bool((got[past] == 0).all())         # columns past the rectangle are 0
 
 
 FRONTIER_CASES = [(1, 128, 128), (4, 128, 128), (2, 256, 128), (1, 512, 128),
