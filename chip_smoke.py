@@ -30,13 +30,28 @@ at full configuration: the graph engine through
    iteration of the same formula;
 3. BFS push, pull and auto on the same store from the vertex of highest
    degree, against ``scipy.sparse.csgraph`` distances;
-4. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
+4. Shiloach-Vishkin, Afforest, k-core (k=16) and HITS in-core on the
+   same store: components against ``scipy.sparse.csgraph`` (as
+   partitions), the k-core against numpy peeling, HITS against a float64
+   power iteration of the same formula (relative L1 ≤ 1e-3); the
+   pointer-jump sync rounds (one flag read each) are counted;
+5. the out-of-core streaming executor on the same store: PageRank, BFS
+   (``direction="auto"``) and CC under a ``memory_budget`` of a quarter
+   of their total task footprint (≥ 4 waves each), against their
+   in-core runs (BFS and CC bit for bit, PageRank also against float64);
+   every wave's staged bytes plus workspace within the budget, and
+   ``max_memory_allocated`` within ``resident_device_bytes + (depth + 1)
+   × budget``; the copies' rate on the copy stream beside one large
+   pinned copy's; then the triangle count below streamed under a third
+   of its footprint (≥ 2 waves).  Each tile kernel is also timed on a
+   wave slab;
+6. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
    tile_dim=512, dense_density=0.001, against an exact scipy count;
-5. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
+7. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
    float32, TF32 off: the prefill logits with the kernel equal those
    without it, cached decode reproduces them over 16 positions, and
    ``ServeEngine``'s greedy outputs in a batch equal the solo runs;
-6. LM at full size: granite-3-8b, 40 layers, bfloat16, seeded random
+8. LM at full size: granite-3-8b, 40 layers, bfloat16, seeded random
    weights on the card.  ``make_prefill_step(use_kernel=True)`` on
    2 × 4096 tokens (``prefill_32k`` cut from 32 × 32768) launches
    ``flash_attention`` once per layer and gives a loss near ln V; a
@@ -106,6 +121,17 @@ EXTENT_CHOICES = (0, 1, 3, 7, 13, 30, 63, 65, 100, 200, 300)
 #: three directions and count triangles)
 EXTENT_BATCH = (27, 601)
 PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
+#: phase algorithms: k-core's k; HITS hubs and authorities (float32) vs a
+#: float64 power iteration of the same formula over the same iterations,
+#: L1 distance relative to the float64 vector's L1 norm
+KCORE_K = 16
+HITS_REL_L1_TOL = 1e-3
+#: phase stream: budgets are the schedule's total task footprint over these
+#: (PageRank, BFS and CC pack at least 4 waves, TC at least 2)
+STREAM_SPLIT = 4
+TC_STREAM_SPLIT = 3
+#: one pinned host→device copy that measures the H2D rate
+H2D_PROBE_BYTES = 1 << 30
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
@@ -494,6 +520,18 @@ def tile_fill(store) -> float:
     return float((w[i] * w[j]).sum() / (store.tile_block_ids.size * store.tile_dim ** 2))
 
 
+def pagerank64(g, iterations):
+    """PageRank's formula in float64 over ``iterations`` iterations."""
+    at = csr_matrix(g).T.tocsr()
+    deg = g.degrees
+    inv = 1.0 / np.maximum(deg, 1)
+    dangling = deg == 0
+    x = np.full(g.n, 1.0 / g.n)
+    for _ in range(iterations):
+        x = 0.15 / g.n + 0.85 * (at @ (x * inv) + x[dangling].sum() / g.n)
+    return x
+
+
 def phase_pagerank(dev, store):
     import torch
     from repro_torch.algorithms import pagerank_algorithm
@@ -522,16 +560,8 @@ def phase_pagerank(dev, store):
         f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
         f"launches {launches}")
 
-    # the same formula in float64 for the same number of iterations
     g = store.graph
-    at = csr_matrix(g).T.tocsr()
-    deg = g.degrees
-    inv = 1.0 / np.maximum(deg, 1)
-    dangling = deg == 0
-    x = np.full(g.n, 1.0 / g.n)
-    for _ in range(res.iterations):
-        x = 0.15 / g.n + 0.85 * (at @ (x * inv) + x[dangling].sum() / g.n)
-    l1 = float(np.abs(res.result.astype(np.float64) - x).sum())
+    l1 = float(np.abs(res.result.astype(np.float64) - pagerank64(g, res.iterations)).sum())
     check(bool(np.isfinite(res.result).all()) and res.result.shape == (g.n,),
           "pagerank result shape/finite")
     check(l1 <= PAGERANK_L1_TOL, f"pagerank L1 distance to float64 {l1} > {PAGERANK_L1_TOL}")
@@ -573,7 +603,7 @@ def phase_pagerank(dev, store):
         f"correlation {corr:.3f}, largest rectangle {float((rows * cols).max()):.0f} elements; "
         f"whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents "
         f"{whole_ms:.4f} ms")
-    return plan, rec
+    return plan, rec, res
 
 
 def phase_bfs(dev, store, schedule):
@@ -657,7 +687,7 @@ def phase_bfs(dev, store, schedule):
         f"elements needed {new_needed:.0f} inside the rectangles, {old_needed:.0f} over whole "
         f"tiles; whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel "
         f"without extents {whole_ms:.4f} ms")
-    return rec
+    return rec, runs["auto"]
 
 
 def phase_tc(dev):
@@ -728,7 +758,264 @@ def phase_tc(dev):
         f"{float(nnz.sum()) / nd:.1f} entries per tile, rectangles {area * 4 / 1e9:.3f} GB, "
         f"{new_ops / 1e9:.2f} GFLOP; whole-tile bound "
         f"{old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents {whole_ms:.4f} ms")
-    return rec
+    return rec, store, plan.schedule, res
+
+
+def same_partition(a, b) -> bool:
+    """Two label vectors define the same partition of the vertices."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    pairs = np.unique(a * (int(b.max()) + 1) + b).size
+    return np.unique(a).size == np.unique(b).size == pairs
+
+
+def kcore64(g, k):
+    """Peeling oracle: drop vertices with fewer than ``k`` alive
+    neighbours until none is dropped."""
+    a = csr_matrix(g)
+    alive = np.ones(g.n, bool)
+    while True:
+        new = alive & (a @ alive.astype(np.float64) >= k)
+        if np.array_equal(new, alive):
+            return alive
+        alive = new
+
+
+def hits64(g, iterations):
+    """HITS' phase-split power iteration in float64 (even: authorities,
+    odd: hubs), as the algorithm runs it."""
+    a = csr_matrix(g)
+    at = a.T.tocsr()
+    hub = auth = np.full(g.n, 1.0 / np.sqrt(g.n))
+    for it in range(iterations):
+        if it % 2 == 0:
+            acc = at @ hub
+            auth = acc / max(np.linalg.norm(acc), 1e-12)
+        else:
+            acc = a @ auth
+            hub = acc / max(np.linalg.norm(acc), 1e-12)
+    return hub, auth
+
+
+def phase_algorithms(dev, store):
+    """SV, Afforest, k-core and HITS in-core on the PageRank store, each
+    against scipy or a float64 oracle.  Returns Afforest's labels (the
+    streamed CC run is held against them)."""
+    import scipy.sparse.csgraph as csgraph
+    from repro_torch import obs
+    from repro_torch.algorithms import (
+        afforest_algorithm, hits_algorithm, kcore_algorithm, sv_algorithm,
+    )
+    from repro_torch.core import compile_plan
+
+    g = store.graph
+    t0 = time.perf_counter()
+    ncomp, want = csgraph.connected_components(csr_matrix(g), directed=False)
+    say(f"phase algorithms: scipy {ncomp} components in {time.perf_counter() - t0:.1f} s")
+    rounds = obs.metrics.counter("pointer_jump.rounds")
+    labels = {}
+    for name, alg in (("sv", sv_algorithm()), ("afforest", afforest_algorithm())):
+        r0 = rounds.value
+        res = compile_plan(alg, store, device=dev).run()
+        check(same_partition(res.result, want), f"{name} components != scipy's")
+        labels[name] = res.result
+        cc_ms = res.seconds * 1e3 / res.iterations
+        say(f"phase algorithms: {name} {res.iterations} iterations in "
+            f"{res.seconds * 1e3:.1f} ms (host clock), {int(rounds.value - r0)} pointer-jump "
+            f"sync rounds, components equal scipy's ({ncomp})")
+    res = compile_plan(kcore_algorithm(KCORE_K), store, device=dev, mode="sparse_only").run()
+    core = kcore64(g, KCORE_K)
+    check(np.array_equal(res.result, core), f"{KCORE_K}-core != numpy peeling")
+    say(f"phase algorithms: {KCORE_K}-core {res.iterations} iterations in "
+        f"{res.seconds * 1e3:.1f} ms (host clock), {int(core.sum())} vertices, equal to "
+        f"numpy peeling")
+    res = compile_plan(hits_algorithm(), store, device=dev, mode="sparse_only").run()
+    hub, auth = hits64(g, res.iterations)
+    errs = [float(np.abs(res.result[k].astype(np.float64) - w).sum() / np.abs(w).sum())
+            for k, w in (("hub", hub), ("auth", auth))]
+    check(all(np.isfinite(res.result[k]).all() for k in ("hub", "auth")), "hits finite")
+    check(max(errs) <= HITS_REL_L1_TOL,
+          f"hits relative L1 to float64 {errs} > {HITS_REL_L1_TOL}")
+    say(f"phase algorithms: hits {res.iterations} iterations in {res.seconds * 1e3:.1f} ms "
+        f"(host clock), relative L1 to float64 scipy: hub {errs[0]:.2e}, auth {errs[1]:.2e} "
+        f"(limit {HITS_REL_L1_TOL})")
+    return labels["afforest"], cc_ms
+
+
+def pinned_h2d_rate(dev) -> float:
+    """Bytes per second of one large copy from pinned host memory."""
+    import torch
+
+    host = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    out = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: out.copy_(host, non_blocking=True), 5)
+    return H2D_PROBE_BYTES / (ms / 1e3)
+
+
+def quarter_budget(alg, store, schedule, split):
+    """The schedule's total task footprint (as the streamed plan prices
+    it) over ``split``."""
+    from repro_torch.core import task_footprints
+    from repro_torch.core.direction import workspace_kernels
+
+    fp = task_footprints(store, schedule,
+                         workspace_kernel=workspace_kernels(alg, "auto"),
+                         stage_csr=alg.metadata.get("csr") == "slice")
+    return int(fp.sum()) // split
+
+
+def wave_context(plan, w):
+    """Wave ``w``'s context on the card, staged as the run stages it."""
+    recipe = plan._slabs[w]
+    staged = plan._put_slab(plan._assemble_runtime(recipe, wave=w), wave=w)
+    return plan._wave_context(staged, recipe.nd)
+
+
+def stream_run(dev, name, alg, store, budget, rate, incore_ms, **kw):
+    """Compile and run one streamed plan; checks the budget and memory
+    invariants and prints the phase line.  Returns (plan, result, launches)."""
+    import torch
+    from repro_torch.core import compile_plan
+    from repro_torch.kernels import registry
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    plan = compile_plan(alg, store, device=dev, memory_budget=budget, **kw)
+    build_s = time.perf_counter() - t0
+    registry.reset_launch_counts()
+    res = plan.run()
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    st = res.schedule_stats["streaming"]
+    check(all(b + w <= budget for b, w in zip(st["bytes_per_wave"], st["workspace_per_wave"])),
+          f"stream {name}: a wave's staged bytes + workspace exceed the budget {budget}")
+    limit = plan.resident_device_bytes + (plan.pipeline_depth + 1) * budget
+    check(peak <= limit, f"stream {name}: max_memory_allocated {peak} > {limit}")
+    per_iter = sum(st["bytes_per_wave"])
+    steady = (st["overlapped_wall_seconds"] / st["overlapped_iterations"] * 1e3
+              if st["overlapped_iterations"] else float("nan"))
+    h2d_rate = st["h2d_bytes"] / st["h2d_seconds"] if st["h2d_seconds"] else float("nan")
+    say(f"phase stream {name}: budget {budget / 1e9:.3f} GB, {st['num_waves']} waves "
+        f"(planning {build_s:.1f} s), {per_iter / 1e9:.3f} GB staged per iteration, "
+        f"{res.iterations} iterations in {res.seconds:.2f} s: "
+        f"{res.seconds * 1e3 / res.iterations:.1f} ms per iteration (host clock; steady "
+        f"overlapped {steady:.1f} ms) vs in-core {incore_ms:.1f} ms; copies "
+        f"{st['h2d_bytes'] / 1e9:.2f} GB in {st['h2d_seconds'] * 1e3:.1f} ms on the copy stream "
+        f"({h2d_rate / 1e9:.1f} GB/s; one pinned {H2D_PROBE_BYTES >> 20} MiB copy "
+        f"{rate / 1e9:.1f} GB/s), bound {per_iter / rate * 1e3:.1f} ms per iteration; "
+        f"device_put host time {st['phase_seconds']['device_put'] * 1e3:.1f} ms; stall "
+        f"{st['stall_seconds'] * 1e3:.1f} ms, host_stage_overlap "
+        f"{st['host_stage_overlap']:.3f}, overlap_efficiency {st['overlap_efficiency']:.3f}; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB (limit {limit / 1e9:.2f}); arena "
+        f"{st['arena_bytes'] / 1e9:.2f} GB pinned; launches {launches}")
+    return plan, res, launches
+
+
+def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
+    """PageRank, BFS (auto) and CC streamed on the PageRank store under a
+    budget of a quarter of their total footprint, each held against its
+    in-core run; each tile kernel also timed on a wave slab."""
+    import torch
+    from repro_torch.algorithms import afforest_algorithm, bfs_algorithm, pagerank_algorithm
+    from repro_torch.core import build_schedule
+    from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
+    from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
+
+    cfg = PAGERANK
+    kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    rate = pinned_h2d_rate(dev)
+    out = {}
+
+    alg = pagerank_algorithm()
+    budget = quarter_budget(alg, store, schedule, STREAM_SPLIT)
+    plan, res, launches = stream_run(dev, "pagerank", alg, store, budget, rate,
+                                     pagerank.seconds * 1e3 / pagerank.iterations, **kw)
+    check(plan.num_waves >= 4, f"stream pagerank: {plan.num_waves} waves < 4")
+    check(launches["spmv_tiles"] > 0, "stream pagerank: spmv_tiles never launched")
+    g = store.graph
+    l1 = float(np.abs(res.result.astype(np.float64) - pagerank64(g, res.iterations)).sum())
+    check(l1 <= PAGERANK_L1_TOL, f"stream pagerank L1 to float64 {l1} > {PAGERANK_L1_TOL}")
+    say(f"phase stream pagerank: L1 distance to float64 scipy {l1:.3e} (limit "
+        f"{PAGERANK_L1_TOL}), to the in-core ranks "
+        f"{float(np.abs(res.result - pagerank.result).sum()):.3e}; iterations "
+        f"{res.iterations} (in-core {pagerank.iterations})")
+    w = max(range(plan.num_waves), key=lambda i: plan._slabs[i].nd)
+    ctx = wave_context(plan, w)
+    t = ctx.tile_dim
+    cols = torch.arange(t, device=dev)
+    contrib = res.state["rank"] * ctx.extras["inv_deg"]
+    xs = torch.cat([contrib, contrib.new_zeros(t)])[ctx.tile_row_start[:, None] + cols]
+    out["spmv_tiles"] = (launches["spmv_tiles"], cuda_ms(
+        lambda: spmv_tiles_cuda(ctx.tiles, xs, (ctx.tile_rows, ctx.tile_cols)), 20),
+        ctx.tiles.shape[0], plan._slabs[w].nd)
+    del plan, ctx, xs
+
+    # BFS routes the same tasks to the tiles as PageRank (same estimate,
+    # same cut-offs), so PageRank's schedule prices it
+    src = int(np.argmax(store.degrees))
+    alg = bfs_algorithm(src)
+    budget = quarter_budget(alg, store, schedule, STREAM_SPLIT)
+    plan, res, launches = stream_run(dev, "bfs", alg, store, budget, rate,
+                                     bfs.seconds * 1e3 / bfs.iterations, direction="auto", **kw)
+    check(plan.num_waves >= 4, f"stream bfs: {plan.num_waves} waves < 4")
+    for k in ("parent", "dist"):
+        check(np.array_equal(res.result[k], bfs.result[k]), f"stream bfs {k} != in-core")
+    decisions = res.schedule_stats["direction"]["decisions"]
+    check("pull" in decisions, "stream bfs took no pull level")
+    check(launches["frontier_tiles"] > 0, "stream bfs: frontier_tiles never launched")
+    say(f"phase stream bfs: parent and dist equal in-core, decisions {decisions}")
+    w = max(range(plan.num_waves), key=lambda i: plan._slabs[i].nd)
+    ctx = wave_context(plan, w)
+    dist = res.result["dist"]
+    level = max(range(res.iterations), key=lambda it: int((dist == it).sum()))
+    frontier = torch.from_numpy(dist == level).to(dev)
+    fcols = torch.cat([frontier, frontier.new_zeros(t)])[ctx.tile_col_start[:, None] + cols]
+    out["frontier_tiles"] = (launches["frontier_tiles"], cuda_ms(
+        lambda: frontier_tiles_cuda(ctx.tiles, fcols, (ctx.tile_rows, ctx.tile_cols)), 20),
+        ctx.tiles.shape[0], plan._slabs[w].nd)
+    del plan, ctx, fcols
+
+    alg = afforest_algorithm()
+    sched = build_schedule(alg, store)
+    budget = quarter_budget(alg, store, sched, STREAM_SPLIT)
+    plan, res, _ = stream_run(dev, "cc", alg, store, budget, rate, cc_ms)
+    check(plan.num_waves >= 4, f"stream cc: {plan.num_waves} waves < 4")
+    check(np.array_equal(res.result, cc), "stream cc labels != in-core")
+    say("phase stream cc: labels equal in-core")
+    del plan
+    return out, rate
+
+
+def phase_stream_tc(dev, store, schedule, incore, rate):
+    """TC streamed on the TC dag under a third of its total footprint."""
+    import torch
+    from repro_torch.algorithms import tc_algorithm
+    from repro_torch.kernels.tc_tiles import tc_tiles_cuda
+
+    cfg = TC
+    alg = tc_algorithm()
+    budget = quarter_budget(alg, store, schedule, TC_STREAM_SPLIT)
+    plan, res, launches = stream_run(dev, "tc", alg, store, budget, rate, incore.seconds * 1e3,
+                                     tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    check(plan.num_waves >= 2, f"stream tc: {plan.num_waves} waves < 2")
+    check(res.result == incore.result, f"stream tc count {res.result} != in-core {incore.result}")
+    check(launches["tc_tiles"] > 0, "stream tc: tc_tiles never launched")
+    say(f"phase stream tc: {res.result} triangles, equal to in-core")
+    w = max(range(plan.num_waves), key=lambda i: plan._slabs[i].nd)
+    ctx = wave_context(plan, w)
+    idx = ctx.extras["tc_tiles_idx"]
+    ms = cuda_ms(lambda: tc_tiles_cuda(ctx.tiles, idx, (ctx.tile_rows, ctx.tile_cols)), 5)
+    return launches["tc_tiles"], ms, ctx.tiles.shape[0], plan._slabs[w].nd
+
+
+def stream_kernel_report(per_kernel) -> None:
+    """Streamed launches per run and time per launch on the largest
+    wave slab, per tile kernel."""
+    for name, (launches, ms, tb, nd) in per_kernel.items():
+        say(f"phase stream kernels: {name} {launches} launches per streamed run, "
+            f"{ms:.4f} ms per launch on a wave slab of {nd} tiles (bucket {tb})")
 
 
 def lm_config(**changes):
@@ -927,7 +1214,7 @@ def phase_lm_full(dev, cfg):
 
 
 def run(dev) -> list[dict]:
-    """The six phases in order; returns the per-kernel records."""
+    """The phases in order; returns the per-kernel records."""
     import torch
     from repro_torch.core import build_block_store, degree_order, rmat
 
@@ -941,11 +1228,22 @@ def run(dev) -> list[dict]:
                         ascending=False)
     store = build_block_store(g, cfg["p"])
     say(f"phase pagerank: graph + store {time.perf_counter() - t0:.1f} s, n {g.n}, arcs {g.m}")
-    plan, spmv = phase_pagerank(dev, store)
-    frontier = phase_bfs(dev, store, plan.schedule)
-    del plan, store, g
+    plan, spmv, pr_res = phase_pagerank(dev, store)
+    frontier, bfs_res = phase_bfs(dev, store, plan.schedule)
+    schedule = plan.schedule
+    del plan
+    cc, cc_ms = phase_algorithms(dev, store)
+    store._device_cache.clear()     # the streamed plans hold no in-core copy
     torch.cuda.empty_cache()
-    tc = phase_tc(dev)
+    streamed, rate = phase_stream(dev, store, schedule, pr_res, bfs_res, cc, cc_ms)
+    del store, g, schedule
+    torch.cuda.empty_cache()
+    tc, tc_store, tc_schedule, tc_res = phase_tc(dev)
+    tc_store._device_cache.clear()
+    torch.cuda.empty_cache()
+    streamed["tc_tiles"] = phase_stream_tc(dev, tc_store, tc_schedule, tc_res, rate)
+    stream_kernel_report(streamed)
+    del tc_store, tc_schedule
     torch.cuda.empty_cache()
 
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))

@@ -154,7 +154,11 @@ def bfs_algorithm(source: int = 0, *, sources=None, max_iters: int = 10_000,
             parent=state["parent"].cpu().numpy(),
             dist=state["dist"].cpu().numpy(),
         ),
-        metadata=dict(workspace_kernel="frontier_tiles",
+        # combine: a level's parent min-scatter is judged on post-written
+        # dist, so the streaming executor min-folds any split of its
+        # edges; csr="none": no kernel reads the adjacency
+        metadata=dict(combine=dict(parent="min", dist="min"), csr="none",
+                      workspace_kernel="frontier_tiles",
                       workspace_kernel_pull="frontier_tiles",
                       direction=dict(frontier="nf", beta=float(beta))),
     )

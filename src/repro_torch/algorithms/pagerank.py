@@ -123,8 +123,10 @@ def pagerank_algorithm(*, damping: float = 0.85, tol: float = 1e-4,
         finalize=lambda store, state: state["rank"].cpu().numpy(),
         # seeds stay out of params: personalization is state content
         # (the restart leaf), so every seed set shares one step
-        metadata=dict(params=dict(damping=damping, tol=tol),
-                      workspace_kernel="spmv_tiles"),
+        # combine="add": the streaming executor folds each wave's acc
+        # partial; csr="none": no kernel reads the adjacency
+        metadata=dict(combine="add", params=dict(damping=damping, tol=tol),
+                      workspace_kernel="spmv_tiles", csr="none"),
     )
 
 

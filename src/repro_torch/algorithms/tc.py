@@ -104,31 +104,134 @@ def _sparse_items(store, bls, dense_mask):
     return tuple(np.concatenate(col) for col in cols)
 
 
-def _prepare(store, sched):
-    """Bucketed sparse items + tile triple indices (host side, one-time)."""
+def _bucket_ids(lg: np.ndarray) -> np.ndarray:
+    return np.ceil(np.log2(np.maximum(lg, 1))).astype(np.int64)
+
+
+def _steps(lb: np.ndarray) -> int:
+    """Binary-search rounds that settle every search over lengths ``lb``."""
+    return int(max(1, np.ceil(np.log2(float(lb.max()) + 1)))) + 1
+
+
+def _stage_plan(store, sched):
+    """The cross-wave bucket plan: one dp/steps ladder for the plan.
+
+    Computed once from the full store and schedule (the streaming
+    executor calls it before any per-wave ``prepare``): the union of
+    every sparse item's dp bucket, with ``steps`` the global max search
+    depth per bucket.  Every wave then emits exactly these buckets, so
+    the waves' extras share a handful of shapes.  Item lengths come from
+    differences of ``row_block_ptr`` rows, so they are invariant under
+    the per-wave CSR rebasing.
+    """
+    _, lg, _, lb = _sparse_items(store, sched.blocklists, sched.dense_task_mask)
+    if not lg.size:
+        return dict(dp_steps=())
+    ids = _bucket_ids(lg)
+    return dict(dp_steps=tuple((int(2 ** b), _steps(lb[ids == b]))
+                               for b in np.unique(ids)))
+
+
+def _prepare(store, sched, plan=None):
+    """Bucketed sparse items + tile triple indices (host side, one-time).
+
+    With a ``plan`` (the streaming executor passes the shared
+    :func:`_stage_plan` output), the emitted buckets follow the plan's
+    dp/steps ladder exactly: buckets this wave has no items for still
+    appear, and item counts pad up the power-of-two ladder with neutral
+    items (``lg = lb = 0`` — the mask and the lower-bound check both
+    reject them).  Dense triples pad with ``-1`` rows, which count
+    nothing.  The membership test's device scratch is declared under
+    ``__workspace_bytes__`` for the executor's budget (never a kernel
+    input).
+    """
+    from ..core.membudget import bucket_size
+    from ..kernels.registry import workspace_bytes
+
     bls = sched.blocklists
     dense_mask = sched.dense_task_mask
 
     # ---- sparse items: (edge, k) pairs from sparse tasks --------------
     sg, lg, sb, lb = _sparse_items(store, bls, dense_mask)
+    ids = _bucket_ids(lg) if lg.size else np.zeros(0, np.int64)
     buckets = []
-    if lg.size:
-        ids = np.ceil(np.log2(np.maximum(lg, 1))).astype(np.int64)
+    scratch = 0
+    if plan is not None:
+        for dp, steps in plan["dp_steps"]:
+            sel = ids == (int(dp).bit_length() - 1)
+            cnt = int(sel.sum())
+            padded = bucket_size(cnt, minimum=1)
+            # int32: positions index one wave's staged CSR slice
+            arrs = {}
+            for key, col in (("sg", sg), ("lg", lg), ("sb", sb), ("lb", lb)):
+                a = np.zeros(padded, np.int32)
+                a[:cnt] = col[sel]
+                arrs[key] = a
+            buckets.append(dict(dp=int(dp), steps=int(steps), **arrs))
+            scratch += workspace_bytes("csr_bucket_search", items=padded, depth=int(dp))
+    else:
         for b in np.unique(ids):
             sel = ids == b
-            buckets.append(dict(
-                dp=int(max(1, 2 ** b)),
-                steps=int(max(1, np.ceil(np.log2(float(lb[sel].max()) + 1)))) + 1,
-                sg=sg[sel], lg=lg[sel], sb=sb[sel], lb=lb[sel],
-            ))
-    extras = {"tc_buckets": buckets, "tc_tiles_idx": None}
+            dp = int(2 ** b)
+            buckets.append(dict(dp=dp, steps=_steps(lb[sel]),
+                                sg=sg[sel], lg=lg[sel], sb=sb[sel], lb=lb[sel]))
+            scratch += workspace_bytes("csr_bucket_search", items=int(sel.sum()), depth=dp)
+    extras = {"tc_buckets": buckets, "tc_tiles_idx": None, "__workspace_bytes__": scratch}
 
     # ---- dense triples: tile index per block ---------------------------
     if dense_mask.any():
         tid_of_block = np.full(store.p * store.p, -1, np.int64)
         tid_of_block[store.tile_block_ids] = np.arange(store.tile_block_ids.size)
-        extras["tc_tiles_idx"] = tid_of_block[bls[dense_mask]].astype(np.int32)
+        triples = tid_of_block[bls[dense_mask]].astype(np.int32)
+        if plan is not None:
+            full = np.full((bucket_size(triples.shape[0], minimum=1), 3), -1, np.int32)
+            full[: triples.shape[0]] = triples
+            triples = full
+        extras["tc_tiles_idx"] = triples
     return extras
+
+
+def _mesh_pack(extras_list):
+    """Unify per-wave ``_prepare`` outputs into one shape set, array
+    leaves gaining a leading axis (one row per wave).
+
+    The bucket ladders are data-dependent, so the union ladder is taken:
+    a bucket absent from an entry contributes zero items, and item
+    arrays pad to the per-bucket max with neutral items (``lg = lb =
+    0``); ``steps`` takes the per-bucket max.  Dense triples pad with
+    ``-1`` rows.  The returned tree re-declares ``__workspace_bytes__``
+    for the unified shapes: every entry now runs every bucket at the
+    padded count.
+    """
+    from ..kernels.registry import workspace_bytes
+
+    d = len(extras_list)
+    dps = sorted({int(b["dp"]) for e in extras_list for b in e["tc_buckets"]})
+    buckets = []
+    scratch = 0
+    for dp in dps:
+        per = [next((b for b in e["tc_buckets"] if int(b["dp"]) == dp), None)
+               for e in extras_list]
+        steps = max(int(b["steps"]) for b in per if b is not None)
+        cnt = max((int(b["sg"].shape[0]) for b in per if b is not None), default=0) or 1
+        arrs = {k: np.zeros((d, cnt), np.int64) for k in ("sg", "lg", "sb", "lb")}
+        for i, b in enumerate(per):
+            if b is None:
+                continue
+            for k in ("sg", "lg", "sb", "lb"):
+                arrs[k][i, : b[k].shape[0]] = b[k]
+        buckets.append(dict(dp=dp, steps=steps, **arrs))
+        scratch += workspace_bytes("csr_bucket_search", items=cnt, depth=dp)
+    out = {"tc_buckets": buckets, "__workspace_bytes__": scratch, "tc_tiles_idx": None}
+    idxs = [e.get("tc_tiles_idx") for e in extras_list]
+    if any(x is not None for x in idxs):
+        tmax = max((x.shape[0] for x in idxs if x is not None), default=0) or 1
+        stacked = np.full((d, tmax, 3), -1, np.int32)
+        for i, x in enumerate(idxs):
+            if x is not None:
+                stacked[i, : x.shape[0]] = x
+        out["tc_tiles_idx"] = stacked
+    return out
 
 
 def _bucket_count(indices: torch.Tensor, bucket: dict) -> torch.Tensor:
@@ -179,10 +282,16 @@ def tc_algorithm() -> BlockAlgorithm:
         kernel_sparse=_kernel_sparse,
         kernel_dense=_kernel_dense,
         prepare=_prepare,
+        stage_plan=_stage_plan,
+        mesh_pack=_mesh_pack,
         init_state=lambda store: dict(nt=np.int64(0)),
         max_iterations=1,
         finalize=lambda store, state: int(state["nt"]),
-        metadata=dict(workspace_kernel="tc_tiles"),
+        # csr="slice": the membership test reads ctx.indices, with every
+        # position computed by _prepare from the (per-wave rebased)
+        # row_block_ptr — so each streamed wave stages only the
+        # conformal CSR row ranges its triples touch
+        metadata=dict(combine="add", workspace_kernel="tc_tiles", csr="slice"),
     )
 
 

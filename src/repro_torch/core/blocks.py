@@ -31,7 +31,7 @@ import torch
 from .graph import Graph
 from .partition import Layout, make_layout
 
-__all__ = ["BlockStore", "build_block_store"]
+__all__ = ["BlockStore", "build_block_store", "segment_index"]
 
 _I32 = np.iinfo(np.int32)
 
@@ -148,6 +148,83 @@ class BlockStore:
         self._device_cache.clear()
 
     # ------------------------------------------------------------------
+    def edge_segments(self, block_ids: np.ndarray) -> list[tuple[int, int]]:
+        """Coalesced ``[start, end)`` edge ranges covering ``block_ids``.
+
+        Blocks are contiguous in the segmented COO, so a wave whose
+        blocks are consecutive ids collapses to a single slice — the
+        "one copy per block-list" staging property of the paper.  Input
+        order is ignored; ranges come back sorted and merged.
+        """
+        ids = np.unique(np.asarray(block_ids, dtype=np.int64))
+        starts, ends = self.block_ptr[ids], self.block_ptr[ids + 1]
+        keep = starts < ends
+        return _merge_ranges(starts[keep], ends[keep])
+
+    def csr_slices(
+        self, block_ids: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, list[tuple[int, int]]]:
+        """Conformal CSR row slices covering ``block_ids`` — the per-wave
+        CSR staging unit of the streaming executor.
+
+        Because the partition is conformal, the adjacency a block (i, j)
+        contributes is, for every row ``u`` in stripe ``i``, the
+        contiguous slice ``indices[row_block_ptr[u, j] :
+        row_block_ptr[u, j+1]]``.  This method concatenates exactly
+        those slices (rows ascending, stripes ascending within a row)
+        and returns
+
+        * ``indices_slice`` — the staged adjacency (int32), holding only
+          the selected blocks' entries;
+        * ``row_block_ptr`` — rebased ``(n, p+1)`` map: for a selected
+          ``(u, k)``, ``indices_slice[rbp[u, k] : rbp[u, k+1]]`` equals
+          the same slice of the global CSR.  Unselected ``(u, k)``
+          entries collapse to zero-length slices;
+        * ``indptr`` — rebased ``(n+1,)``: start of each row's *staged*
+          adjacency (``diff`` gives staged — not global — degrees);
+        * ``segments`` — the coalesced ``[start, end)`` *global* index
+          ranges gathered, for staging diagnostics.
+        """
+        p = self.p
+        n = self.n
+        rbp = self.row_block_ptr
+        ids = np.unique(np.asarray(block_ids, dtype=np.int64))
+        touched = np.zeros((p, p), dtype=bool)
+        if ids.size:
+            gi, gj = np.divmod(ids, p)
+            touched[gi, gj] = True
+        stripe_of_row = np.repeat(np.arange(p), np.diff(self.layout.cuts))
+        touched_row = touched[stripe_of_row]            # (n, p)
+        seg_len = rbp[:, 1:] - rbp[:, :-1]              # (n, p)
+        lens = np.where(touched_row, seg_len, 0).ravel()
+        csum = np.concatenate([[0], np.cumsum(lens)])   # (n*p + 1,)
+        new_rbp = np.empty_like(rbp)
+        new_rbp[:, :p] = csum[:-1].reshape(n, p)
+        new_rbp[:, p] = csum[p::p] if n else 0
+        new_indptr = np.concatenate([new_rbp[:, 0], csum[-1:]])
+        mask = lens > 0
+        starts_g = rbp[:, :-1].ravel()[mask]
+        segments = _merge_ranges(starts_g, starts_g + lens[mask])
+        sliced = (self.indices[segment_index(segments)] if segments
+                  else np.zeros(0, np.int32))
+        return sliced.astype(np.int32), new_rbp, new_indptr, segments
+
+    def tile_positions(self, block_ids: np.ndarray) -> np.ndarray:
+        """Positions of ``block_ids`` in the materialized tile set (int64).
+        All requested blocks must already be materialized."""
+        ids = np.asarray(block_ids, dtype=np.int64)
+        have = self.tile_block_ids.astype(np.int64)
+        if not ids.size:
+            return np.zeros(0, np.int64)
+        order = np.argsort(have, kind="stable")
+        at = np.searchsorted(have[order], ids).clip(max=max(have.size - 1, 0))
+        pos = order[at] if have.size else at
+        bad = ids != have[pos] if have.size else np.ones(ids.size, bool)
+        if bad.any():
+            raise ValueError(f"block {int(ids[bad][0])} has no materialized tile")
+        return pos
+
+    # ------------------------------------------------------------------
     def to_device(self, device) -> dict[str, torch.Tensor]:
         """Torch tensors of the store on ``device``, built once per device.
 
@@ -188,6 +265,26 @@ class BlockStore:
             )
         self._device_cache[key] = out
         return out
+
+
+def _merge_ranges(starts: np.ndarray, ends: np.ndarray) -> list[tuple[int, int]]:
+    """Sorted non-empty ``[start, end)`` ranges with touching ones merged."""
+    if not starts.size:
+        return []
+    brk = np.flatnonzero(starts[1:] != ends[:-1]) + 1
+    seg_s = starts[np.concatenate([[0], brk])]
+    seg_e = ends[np.concatenate([brk - 1, [starts.size - 1]])]
+    return list(zip(seg_s.tolist(), seg_e.tolist()))
+
+
+def segment_index(segments: list[tuple[int, int]]) -> np.ndarray:
+    """The int64 positions ``[s, e)`` of every segment, concatenated."""
+    if not segments:
+        return np.zeros(0, np.int64)
+    s, e = np.asarray(segments, dtype=np.int64).T
+    lens = e - s
+    offsets = np.cumsum(lens) - lens
+    return np.repeat(s - offsets, lens) + np.arange(int(lens.sum()), dtype=np.int64)
 
 
 def build_block_store(g: Graph, p: int, *, order: str = "row_major") -> BlockStore:

@@ -11,7 +11,7 @@
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
@@ -21,7 +21,8 @@ if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
     from .blocks import BlockStore
     from .scheduler import Schedule
 
-__all__ = ["Context", "HostCtx", "build_context", "build_host_ctx", "to_device"]
+__all__ = ["Context", "HostCtx", "build_context", "build_host_ctx", "to_device",
+           "with_arrays", "with_extras"]
 
 
 def to_device(tree: Any, device: torch.device) -> Any:
@@ -136,3 +137,33 @@ def build_host_ctx(store: "BlockStore", schedule: "Schedule",
         p=store.p,
         tile_dim=schedule.tile_dim,
     )
+
+
+#: the tensor fields of :class:`Context` a wave may swap in
+_ARRAY_FIELDS = tuple(f.name for f in fields(Context)
+                      if f.name not in ("extras", "n", "m", "p", "tile_dim", "device"))
+
+
+def with_arrays(ctx: Context, **arrays: Any) -> Context:
+    """A copy of ``ctx`` with the named tensor fields (and optionally
+    ``extras``) swapped out.
+
+    This is how the streaming executor turns the *resident* context
+    (vertex-level tensors, full-graph scalars) into a per-wave context:
+    the segmented-COO slab, routing masks, tile set with its extents
+    (``tile_rows``/``tile_cols``) and wave extras are replaced while
+    everything resident — ``indptr``, ``degrees``, ``row_block_ptr``,
+    the scalars — is shared by reference.
+    """
+    unknown = set(arrays) - set(_ARRAY_FIELDS) - {"extras"}
+    if unknown:
+        raise TypeError(f"unknown Context array fields: {sorted(unknown)}")
+    return replace(ctx, **arrays)
+
+
+def with_extras(ctx: Context, extras: dict[str, Any]) -> Context:
+    """A copy of ``ctx`` with ``extras`` merged in (container structure
+    preserved)."""
+    merged = dict(ctx.extras)
+    merged.update(extras)
+    return replace(ctx, extras=merged)

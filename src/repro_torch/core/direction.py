@@ -58,7 +58,7 @@ if TYPE_CHECKING:  # pragma: no cover — typing only, avoids an import cycle
 
 __all__ = [
     "DIRECTIONS", "BETA_DEFAULT", "HYSTERESIS_DEFAULT",
-    "direction_spec", "resolve_direction", "kernels_for",
+    "direction_spec", "resolve_direction", "kernels_for", "workspace_kernels",
     "DirectionController",
 ]
 
@@ -139,6 +139,28 @@ def kernels_for(alg: "BlockAlgorithm", direction: str):
     if direction == "pull":
         return alg.kernel_sparse_pull, alg.kernel_dense_pull
     return alg.kernel_sparse, alg.kernel_dense
+
+
+def workspace_kernels(alg: "BlockAlgorithm",
+                      direction: str | None) -> "str | tuple | None":
+    """Workspace-estimator name(s) to price a plan's dense scratch.
+
+    Fixed directions price their own variant
+    (``metadata["workspace_kernel"]`` for push,
+    ``metadata["workspace_kernel_pull"]`` for pull); ``"auto"`` prices
+    the max over both, so a mid-stream switch can never exceed a budget
+    the planner already verified.
+    """
+    push = alg.metadata.get("workspace_kernel")
+    if direction in (None, "push"):
+        return push
+    pull = alg.metadata.get("workspace_kernel_pull", push)
+    if direction == "pull":
+        return pull
+    names = tuple(dict.fromkeys(k for k in (push, pull) if k is not None))
+    if not names:
+        return None
+    return names[0] if len(names) == 1 else names
 
 
 def frontier_count(state, leaf: str, n: int) -> tuple[float, float]:

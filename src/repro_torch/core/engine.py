@@ -20,15 +20,16 @@ and :attr:`Plan.compile_count` counts the steps built.
 
 The plan runs on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no card present and no device named, :func:`compile_plan` raises.
-The streaming executor, the host lane, faults and checkpoints and the
-device mesh are not ported yet: their arguments raise
-:class:`NotImplementedError` naming the ROADMAP item.
+``memory_budget`` switches to the out-of-core streaming executor
+(:class:`~repro_torch.core.stream.StreamingPlan`).  The host lane,
+faults and checkpoints and the device mesh are not ported yet: their
+arguments raise :class:`NotImplementedError` naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
@@ -40,20 +41,32 @@ from .direction import DirectionController, kernels_for, resolve_direction
 from .functors import BlockAlgorithm
 from .scheduler import Schedule, build_schedule
 
-__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device"]
+if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
+    from .stream import StreamingPlan
+
+__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device", "reject_unported"]
 
 #: unported compile_plan arguments → the ROADMAP item that ports them
 _UNPORTED = {
-    "memory_budget": "A7 (out-of-core streaming executor)",
-    "rebalance_threshold": "A7 (out-of-core streaming executor)",
-    "pipeline_depth": "A7 (out-of-core streaming executor)",
-    "host_fraction": "A8 (heterogeneous host lane)",
+    "host_fraction": "A8 (heterogeneous host lane: stream._HostLane, "
+                     "membudget.peel_host_tasks)",
     "faults": "A9 (faults, resilience and run checkpoints)",
     "checkpoint_every": "A9 (faults, resilience and run checkpoints)",
     "checkpoint_dir": "A9 (faults, resilience and run checkpoints)",
     "retry_policy": "A9 (faults, resilience and run checkpoints)",
-    "mesh": "A10 (mesh composition)",
+    "mesh": "A10 (mesh composition: core/distributed.py, stream._MeshStreamStep)",
 }
+
+
+def reject_unported(**given) -> None:
+    """Raise :class:`NotImplementedError` naming the ROADMAP item for the
+    first unported argument that is set (not ``None``)."""
+    for name, value in given.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"unexpected argument {name!r}")
+        if value is not None:
+            raise NotImplementedError(
+                f"compile_plan({name}=...) is not ported yet: ROADMAP {_UNPORTED[name]}")
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -163,7 +176,11 @@ class Plan:
                 and (schedule is None or cached.schedule is schedule)):
             return cached
         sched = schedule or build_schedule(self.alg, store, **self._sched_kw)
+        # the in-core plan has one context, so prepare keeps its unpadded
+        # form (no staging plan); the scratch declaration is the
+        # streaming executor's budget input, not a kernel input
         extras = self.alg.run_prepare(store, sched, None)
+        extras.pop("__workspace_bytes__", None)
         binding = _Binding(
             store=store,
             schedule=sched,
@@ -268,15 +285,15 @@ def compile_plan(
     share: bool = True,
     direction: str | None = None,
     memory_budget=None,
-    rebalance_threshold=None,
+    rebalance_threshold="auto",
     pipeline_depth=None,
     mesh=None,
-    host_fraction=None,
+    host_fraction="auto",
     faults=None,
     checkpoint_every=None,
     checkpoint_dir=None,
     retry_policy=None,
-) -> Plan:
+) -> "Plan | StreamingPlan":
     """Build: schedule, dense tiles, prepare, contexts on ``device``.
 
     ``device`` defaults to the current CUDA device and raises when no
@@ -290,17 +307,45 @@ def compile_plan(
     with no controller.  ``share=False`` opts out of the process-wide
     step cache (for ad-hoc algorithms that reuse a registered name with
     different kernels).
+
+    ``memory_budget`` (bytes, or a string like ``"64MB"``) switches to
+    the out-of-core streaming executor: the result is a
+    :class:`~repro_torch.core.stream.StreamingPlan` whose ``run`` streams
+    budget-sized waves of tasks to the device instead of shipping the
+    whole edge set up front; the schedule is built budget-aware.
+    ``rebalance_threshold`` (``"auto"``, a float, or ``None`` for off)
+    and ``pipeline_depth`` (waves the staging worker assembles ahead,
+    default 2; ``0`` stages synchronously) apply to it only.
+    ``host_fraction`` ``"auto"`` or ``None`` runs device-only; a
+    positive share needs the host lane (ROADMAP A8).
     """
-    given = dict(memory_budget=memory_budget,
-                 rebalance_threshold=rebalance_threshold,
-                 pipeline_depth=pipeline_depth, mesh=mesh,
-                 host_fraction=host_fraction, faults=faults,
-                 checkpoint_every=checkpoint_every,
-                 checkpoint_dir=checkpoint_dir, retry_policy=retry_policy)
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"compile_plan({name}=...) is not ported yet: ROADMAP {_UNPORTED[name]}")
+    if rebalance_threshold not in (None, "auto") and memory_budget is None:
+        raise ValueError(
+            "rebalance_threshold only applies to the streaming executor; "
+            "pass memory_budget=... as well (the in-core Plan has no waves "
+            "to rebalance)")
+    if pipeline_depth is not None and memory_budget is None:
+        raise ValueError(
+            "pipeline_depth only applies to the streaming executor; pass "
+            "memory_budget=... as well (the in-core Plan stages no waves)")
+    if host_fraction not in (None, "auto") and memory_budget is None:
+        raise ValueError(
+            "host_fraction only applies to the streaming executor; pass "
+            "memory_budget=... as well (the in-core Plan has no waves to "
+            "split across host and device)")
+    reject_unported(mesh=mesh, faults=faults, checkpoint_every=checkpoint_every,
+                    checkpoint_dir=checkpoint_dir, retry_policy=retry_policy)
+    if memory_budget is not None:
+        from .membudget import PIPELINE_DEPTH
+        from .stream import StreamingPlan
+
+        return StreamingPlan(
+            alg, store, schedule, memory_budget=memory_budget,
+            device=resolve_device(device), num_devices=num_devices, mode=mode,
+            tile_dim=tile_dim, dense_frac=dense_frac, dense_density=dense_density,
+            share=share, direction=direction, rebalance_threshold=rebalance_threshold,
+            pipeline_depth=PIPELINE_DEPTH if pipeline_depth is None else pipeline_depth,
+            host_fraction=host_fraction)
     return Plan(
         alg, store, schedule,
         device=resolve_device(device), num_devices=num_devices, mode=mode,

@@ -44,9 +44,23 @@ loop continues while it returns ``True``, bounded by
     twins enables ``compile_plan(..., direction="pull" | "auto")`` —
     per-iteration direction optimization (:mod:`repro_torch.core.direction`).
 
-The remaining keys (``combine``, ``csr``, ``mesh``, ``host``, ...) are
-kept for parity with the reference package; the executors that read
-them are not ported yet (see ``ROADMAP.md``).
+``metadata`` keys the streaming executor (:mod:`repro_torch.core.stream`)
+reads:
+
+``combine``
+    how per-wave partials of each state leaf fold: ``"add"``, ``"min"``
+    or ``"max"`` (one string for every leaf, or a dict per leaf).
+``csr``
+    what a wave stages of the adjacency: ``"slice"`` (the conformal row
+    ranges of its blocks), ``"none"`` (kernels never read it) or
+    ``"resident"`` (the default: the whole CSR stays on the device).
+``edge_free_iterations``
+    leading iterations whose kernels read no slab field, only the first
+    k neighbours of each vertex (Afforest's sampling rounds).
+
+The remaining keys (``mesh``, ``host``, ``batch``, ...) are kept for
+parity with the reference package; the executors that read them are not
+ported yet (see ``ROADMAP.md``).
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ __all__ = [
     "grid_road",
     "star_skew",
     "degree_order",
+    "csr_prefix",
 ]
 
 
@@ -149,6 +150,36 @@ def load_binary(path: str, name: str = "graph") -> Graph:
     z = np.load(path)
     return Graph(indptr=z["indptr"], indices=z["indices"], n=int(z["n"]),
                  directed=bool(z["directed"]), name=name)
+
+
+def csr_prefix(indptr: np.ndarray, indices: np.ndarray,
+               k: int) -> tuple[np.ndarray, np.ndarray]:
+    """First-``k``-neighbors CSR: a vertex-proportional adjacency sample.
+
+    Returns ``(prefix_indptr, prefix_indices)`` where
+    ``prefix_indptr[u] = u * k`` and ``prefix_indices[u*k + r]`` is the
+    ``r``-th neighbor of ``u`` for ``r < degree(u)`` (zero-filled past
+    the degree — callers must keep the ``r < degree`` guard they already
+    need for the global CSR).  The streaming executor substitutes this
+    for the full adjacency during ``edge_free_iterations`` (e.g.
+    Afforest's neighbor-sampling rounds), so those rounds cost
+    ``n * k`` staged entries instead of keeping all ``m`` device-resident.
+    """
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = indptr.shape[0] - 1
+    k = int(k)
+    if k <= 0 or n <= 0:
+        return np.zeros(max(n + 1, 1), np.int64), np.zeros(0, np.int32)
+    prefix_indptr = np.arange(n + 1, dtype=np.int64) * k
+    m = int(indices.shape[0])
+    pos = indptr[:-1, None] + np.arange(k, dtype=np.int64)[None, :]
+    valid = np.arange(k, dtype=np.int64)[None, :] < np.diff(indptr)[:, None]
+    if m:
+        vals = np.asarray(indices)[np.clip(pos, 0, m - 1)]
+    else:
+        vals = np.zeros((n, k), np.int32)
+    prefix_indices = np.where(valid, vals, 0).astype(np.int32).ravel()
+    return prefix_indptr, prefix_indices
 
 
 # ---------------------------------------------------------------------------

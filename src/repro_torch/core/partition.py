@@ -30,7 +30,7 @@ import numpy as np
 from .graph import Graph
 
 __all__ = ["Layout", "partition_1d", "partition_symmetric_2d", "make_layout",
-           "layout_from_cuts"]
+           "layout_from_cuts", "choose_p"]
 
 
 @dataclass(frozen=True)
@@ -162,6 +162,43 @@ def partition_symmetric_2d(g: Graph, p: int, *, refine_iters: int = 8) -> np.nda
         if not moved:
             break
     return cuts.astype(np.int64)
+
+
+def choose_p(g: Graph, memory_budget, *, safety: int = 2,
+             p_max: int = 256, devices: int = 1) -> int:
+    """Budget-aware partitioner grain: the smallest power-of-two ``p``
+    whose heaviest row stripe fits ``1/safety`` of the memory budget.
+
+    A single-block task can never stage more edges than its row stripe
+    holds, so bounding the stripe bounds every task footprint the wave
+    packer will see — the partition is made budget-aware up front
+    instead of relying on ``build_waves`` to reject oversized tasks
+    after the fact.  ``safety`` leaves headroom for bucket padding,
+    per-edge routing masks, CSR slices and kernel workspace.
+
+    ``memory_budget`` is the *per-device* budget; ``devices`` > 1
+    (mesh-cooperative streaming) additionally requires ``p² ≥ devices``
+    so one wave can carry at least one single-block task per mesh
+    device.  Tasks stay atomic per device, so the stripe cap itself
+    does not relax with mesh size.
+    """
+    from .membudget import COO_EDGE_BYTES, CSR_INDEX_BYTES, MemoryBudget
+
+    per_edge = COO_EDGE_BYTES + CSR_INDEX_BYTES
+    cap = MemoryBudget.of(memory_budget).total_bytes // (safety * per_edge)
+    pre = _edge_prefix(g)
+    p = 1
+    while True:
+        # probe with the cuts the layout will actually use
+        cuts = partition_symmetric_2d(g, p) if p > 1 else np.array([0, g.n])
+        heaviest = _heaviest_stripe(pre, cuts)
+        fits = heaviest <= cap and p * p >= max(int(devices), 1)
+        if fits or p >= p_max:
+            # p_max is returned even unverified — a hub row can make the
+            # cap unreachable by any contiguous partition; build_waves
+            # still rejects genuinely oversized tasks downstream
+            return p
+        p *= 2
 
 
 def make_layout(g: Graph, p: int, *, order: str = "row_major") -> Layout:

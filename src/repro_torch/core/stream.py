@@ -1,0 +1,1361 @@
+"""Out-of-core streaming executor: memory-budgeted, pipelined waves.
+
+This makes any :class:`~repro_torch.core.engine.Plan`-compatible
+algorithm runnable under an explicit device-memory budget — the paper's
+headline regime ("graphs that fit host DRAM but not device memory",
+§4.3/§4.4).  Five parts, as in the reference package:
+
+1. **Footprint model** (:mod:`repro_torch.core.membudget`) prices each
+   schedule task's COO slice, dense tiles, conformal CSR row slices
+   (``metadata["csr"] == "slice"``) and kernel workspace in bytes; the
+   schedule itself is built budget-aware.
+2. **Wave builder** packs the LPT-ordered tasks into budget-sized
+   *waves*; every wave's slab is padded to a power-of-two bucket ladder,
+   so a handful of slab shapes (and of pooled host buffers) serves every
+   wave.
+3. **Three-stage host→device pipeline**: after a one-time *planning
+   pass* (assemble every wave once: verify bytes against the budget,
+   split overflows, hoist wave-invariant extras, cache each wave's
+   ``prepare`` outputs), each iteration runs
+
+   * **stage 1 — background assembly** (:class:`_StagePipeline`, a
+     worker thread behind a bounded queue of depth ``pipeline_depth``):
+     numpy gathers of wave ``k+2``'s slab into pooled host buffers;
+   * **stage 2 — host→device copy** on a copy ``torch.cuda.Stream`` of
+     its own, from pinned buffers with ``non_blocking=True``: an event
+     recorded on the copy stream is what the compute stream waits on,
+     and what gates a buffer's return to the pool;
+   * **stage 3 — compute**: the wave step, folding partials.
+
+   The first executed iteration runs synchronously to calibrate
+   per-phase times (wave times from CUDA events on the card); every
+   later iteration overlaps.
+4. **Staging arena** (:class:`_HostArena`): one pool of pinned buffers
+   per (shape, dtype).  A buffer re-enters the pool only once the copy
+   that read it has landed (``event.query()``); handing it back earlier
+   would let the worker's next gather overwrite bytes still in flight.
+5. **Partial-result combination**: each wave's kernels run against the
+   *iteration-start* state and their per-leaf updates fold with the
+   algorithm's ``metadata["combine"]`` op (``add``/``min``/``max``), so
+   streamed results equal the in-core step: exactly for integer/bool
+   attributes, up to float summation order otherwise.  ``post`` and the
+   host hooks run once per iteration on the combined state, against a
+   *resident* context that holds only vertex-level tensors.
+
+Device memory: the resident tensors plus at most two staged slabs
+(current and next), each ≤ the budget.  Before the next slab is
+allocated the host waits for the wave before the current one to finish,
+so the caching allocator can hand its memory out again.
+
+A wave's tile kernels read only the block rectangle of each tile: the
+rectangles' extents are computed on the device from the staged tile
+origins and a resident per-stripe width table, so the staged bytes stay
+those of the reference's footprint model.
+
+Not ported yet, each raising :class:`NotImplementedError` naming its
+ROADMAP item: the host compute lane and a numeric ``host_fraction > 0``
+(A8); the retry ladder, fault injection and checkpoints (A9); the
+device mesh (A10).  ``host_fraction="auto"`` and ``None`` run
+device-only, as the reference's ``"auto"`` does until calibration.
+
+Entry point: ``compile_plan(alg, store, memory_budget=...)`` returns a
+:class:`StreamingPlan` instead of a :class:`~repro_torch.core.engine.Plan`.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, replace as dc_replace
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import obs
+from .blocks import BlockStore, _to_int32, segment_index
+from .compilecache import alg_cache_key, shared_entry
+from .context import Context, build_host_ctx, to_device, with_arrays
+from .direction import (
+    DirectionController, kernels_for, resolve_direction, workspace_kernels,
+)
+from .functors import BlockAlgorithm
+from .graph import csr_prefix
+from .membudget import (
+    MemoryBudget, PIPELINE_DEPTH, Wave, arena_model_bytes, bucket_size,
+    build_waves, repack_waves, resident_bytes, split_wave, task_footprints,
+    tree_array_bytes, tree_leaves as _leaves,
+)
+from .scheduler import Schedule, build_schedule
+from .engine import RunResult, reject_unported
+
+__all__ = ["StreamingPlan", "compile_streaming_plan", "PHASES"]
+
+#: Per-wave pipeline phases, in execution order — also the
+#: ``stream.phase_seconds.<phase>`` metric-name suffixes.  ``collective``
+#: and ``host_compute`` stay 0 until the mesh (A10) and the host lane
+#: (A8) are ported.
+PHASES = ("assemble", "prepare", "device_put", "compute", "collective",
+          "host_compute")
+
+_COMBINE_KINDS = ("add", "min", "max")
+_CSR_MODES = ("resident", "slice", "none")
+
+# Auto-rebalancing: fire when the observed wave-compute skew (max/mean)
+# exceeds the skew the schedule's estimates predicted by _REBALANCE_HI;
+# re-arm below _REBALANCE_LO.  Below the noise floor the trigger stands
+# down, so small runs keep reproducible staged-byte accounting.
+_REBALANCE_HI = 2.0
+_REBALANCE_LO = 1.5
+_REBALANCE_NOISE_FLOOR_S = 10e-3
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+                 np.dtype(np.bool_): torch.bool, np.dtype(np.float32): torch.float32}
+
+
+def _combine_spec(alg: BlockAlgorithm):
+    """metadata['combine'] → leaf-name → kind (or None when undeclared)."""
+    c = alg.metadata.get("combine")
+    if isinstance(c, str):
+        return lambda key: c
+    if isinstance(c, dict):
+        return lambda key: c.get(key)
+    return lambda key: None
+
+
+def _combine_leaf(kind: str | None, key: str, acc, s0, new):
+    if kind == "add":
+        return acc + (new - s0)
+    if kind == "min":
+        return torch.minimum(acc, new)
+    if kind == "max":
+        return torch.maximum(acc, new)
+    raise ValueError(
+        f"state leaf {key!r} is modified by the kernels but declares no "
+        f"combine kind in metadata['combine'] (one of {_COMBINE_KINDS}); "
+        f"streaming cannot fold its per-wave partial results")
+
+
+class _StreamStep:
+    """The per-wave step: kernels from iteration-start state, partials
+    folded into the running accumulator via the combine spec.
+
+    A kernel that returns ``dict(state, acc=...)`` leaves the other
+    values as the *same* tensor objects, which is the contract "this
+    wave did not touch that attribute": those leaves pass through."""
+
+    def __init__(self, alg: BlockAlgorithm, direction: str = "push") -> None:
+        self.builds = 1
+        obs.metrics.counter("compile.traces").inc()
+        self.name = alg.name
+        self.spec = _combine_spec(alg)
+        self.kernel_sparse, self.kernel_dense = kernels_for(alg, direction)
+
+    def __call__(self, ctx: Context, state0: dict, acc: dict, it: int,
+                 run_dense: bool) -> dict:
+        if not isinstance(state0, dict):
+            raise TypeError(f"{self.name}: streaming requires a dict state")
+        new = state0
+        if self.kernel_sparse is not None:
+            new = self.kernel_sparse(ctx, new, it)
+        if self.kernel_dense is not None and run_dense:
+            new = self.kernel_dense(ctx, new, it)
+        added = set(new) - set(state0)
+        if added:
+            raise ValueError(
+                f"{self.name}: kernels added state leaves {sorted(added)}; "
+                f"streaming requires kernels to write only leaves present in "
+                f"init_state (declare scratch attributes there)")
+        return {key: acc[key] if new[key] is state0[key]
+                else _combine_leaf(self.spec(key), key, acc[key], state0[key], new[key])
+                for key in state0}
+
+
+_STREAM_STEP_CACHE: dict[tuple, _StreamStep] = {}
+
+
+def _stream_step_for(alg: BlockAlgorithm, device: torch.device, *,
+                     share: bool = True, direction: str = "push") -> _StreamStep:
+    return shared_entry(_STREAM_STEP_CACHE, alg_cache_key(alg, device.type, direction),
+                        lambda: _StreamStep(alg, direction), share=share)
+
+
+# ----------------------------------------------------------------------
+def _is_array_leaf(leaf: Any) -> bool:
+    return isinstance(leaf, (np.ndarray, torch.Tensor))
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _to_host(tree: Any) -> Any:
+    """``tree`` with every tensor leaf as a numpy array."""
+    return _tree_map(lambda l: l.cpu().numpy() if isinstance(l, torch.Tensor) else l, tree)
+
+
+def _trees_equal(a: Any, b: Any) -> bool:
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and list(a) == list(b)
+                and all(_trees_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_trees_equal(x, y) for x, y in zip(a, b)))
+    if _is_array_leaf(a) or _is_array_leaf(b):
+        return (_is_array_leaf(a) and _is_array_leaf(b)
+                and np.asarray(a).dtype == np.asarray(b).dtype
+                and np.array_equal(np.asarray(a), np.asarray(b)))
+    return a == b
+
+
+def _gather(source: np.ndarray, idx: np.ndarray, out: np.ndarray) -> None:
+    """``out[:k] = source[idx]`` without a temporary, ``out[k:] = 0``."""
+    k = idx.shape[0]
+    if k:
+        np.take(source, idx, axis=0, out=out[:k], mode="clip")
+    out[k:] = 0
+
+
+_ABSENT = object()
+
+
+# ----------------------------------------------------------------------
+class _HostArena:
+    """Pooled host staging buffers, one free-list per (shape, dtype).
+
+    Every wave slab is padded to the power-of-two bucket ladder, so a
+    handful of buffer shapes serves the whole plan.  For a plan on the
+    card the buffers are pinned (page-locked) tensors, allocated once
+    per buffer and reused, handed out as their numpy views so that the
+    worker gathers straight into pinned memory.  A taken buffer's
+    contents are undefined: the assembler writes every element.
+    Thread-safe (the background worker takes while the main loop
+    gives)."""
+
+    def __init__(self, pin: bool) -> None:
+        self._pin = pin
+        self._free: dict[tuple, list[np.ndarray]] = {}
+        self._lock = threading.Lock()
+        self.bytes = 0          # high-water: total bytes ever pooled
+        self.reuses = 0
+
+    def take(self, shape, dtype) -> np.ndarray:
+        shape = (int(shape),) if np.isscalar(shape) else tuple(int(s) for s in shape)
+        dtype = np.dtype(dtype)
+        key = (shape, dtype.str)
+        with self._lock:
+            pool = self._free.get(key)
+            buf = pool.pop() if pool else None
+            if buf is not None:
+                self.reuses += 1
+                return buf
+        if self._pin:
+            buf = torch.empty(shape, dtype=_TORCH_DTYPES[dtype], pin_memory=True).numpy()
+        else:
+            buf = np.empty(shape, dtype)
+        with self._lock:
+            self.bytes += buf.nbytes
+        return buf
+
+    def give(self, *arrays: np.ndarray) -> None:
+        with self._lock:
+            for a in arrays:
+                if a is not None:
+                    self._free.setdefault((tuple(a.shape), a.dtype.str), []).append(a)
+
+
+class _StagePipeline:
+    """Stage 1: a persistent background worker that assembles wave slabs
+    ahead of the compute loop, behind a bounded queue.
+
+    With depth ``d`` the worker runs at most ``d`` waves ahead.  It lives
+    across iterations: the main loop *requests* each iteration's wave
+    epoch, and requests the next one as soon as the current epoch's last
+    slab is drained.  ``assemble_s`` is the worker's busy time,
+    ``stall_s`` the main loop's time blocked on the queue.  The worker
+    only gathers numpy arrays; it never touches the card.  If it dies,
+    :meth:`get` raises its exception."""
+
+    def __init__(self, plan: "StreamingPlan", depth: int) -> None:
+        self._q: queue.Queue = queue.Queue(maxsize=max(int(depth), 1))
+        self._cmd: queue.Queue = queue.Queue()
+        self.assemble_s = 0.0
+        self.stall_s = 0.0
+        self._err: BaseException | None = None
+        self._t = threading.Thread(target=self._work, args=(plan,),
+                                   name="repro-staging", daemon=True)
+        self._t.start()
+
+    def _work(self, plan: "StreamingPlan") -> None:
+        try:
+            while True:
+                indices = self._cmd.get()
+                if indices is None:
+                    return
+                for w in indices:
+                    t0 = time.perf_counter()
+                    slab = plan._assemble_runtime(plan._slabs[w], wave=w)
+                    self.assemble_s += time.perf_counter() - t0
+                    self._q.put(slab)
+        except BaseException as e:  # re-raised on the consumer side
+            self._err = e
+            self._q.put(None)
+
+    def request(self, indices) -> None:
+        """Enqueue one epoch (an iteration's wave order) for assembly."""
+        self._cmd.put(list(indices))
+
+    def get(self) -> "_WaveSlab":
+        t0 = time.perf_counter()
+        slab = self._q.get()
+        self.stall_s += time.perf_counter() - t0
+        if slab is None:
+            raise self._err
+        return slab
+
+    def close(self, arena: _HostArena) -> None:
+        """Stop the worker; speculatively assembled slabs hand their
+        buffers straight back to the arena (they were never staged).
+        Keeps draining while the worker finishes its in-flight epoch,
+        then joins the thread."""
+        self._cmd.put(None)
+        while self._t.is_alive() or not self._q.empty():
+            try:
+                slab = self._q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if slab is not None:
+                arena.give(*slab.arena_arrays)
+        self._t.join(timeout=5.0)
+
+
+# ----------------------------------------------------------------------
+@dataclass
+class _WaveSlab:
+    """Host-side staged form of one wave: padded numpy arrays ready for
+    one host→device copy.  ``arena_arrays`` names the buffers drawn from
+    the staging arena (runtime assembly only)."""
+
+    wave: Wave
+    src: np.ndarray
+    dst: np.ndarray
+    edge_block: np.ndarray
+    sparse_mask: np.ndarray
+    dense_mask: np.ndarray
+    tiles: np.ndarray | None
+    tile_row_start: np.ndarray | None
+    tile_col_start: np.ndarray | None
+    csr: np.ndarray | None         # bucket-padded conformal CSR slice
+    extras: Any                    # host tree, or None once hoisted resident
+    run_dense: bool
+    staged_bytes: int
+    workspace_bytes: int           # kernel scratch estimate (not staged)
+    edges: int
+    segments: int                  # coalesced COO slices gathered
+    csr_entries: int               # unpadded CSR slice length
+    csr_segments: int              # coalesced CSR row-range gathers
+    nd: int = 0                    # live tiles (the rest is bucket padding)
+    arena_arrays: tuple = ()       # arena-owned buffers to recycle
+    prep_ws: int = 0               # prepare-declared share of workspace
+
+
+@dataclass
+class _WaveRecipe:
+    """The retained, array-free description of one planned wave (plus
+    the cached post-hoist ``prepare`` outputs): the gathers are
+    reproduced per iteration by the staging pipeline."""
+
+    wave: Wave
+    run_dense: bool
+    staged_bytes: int
+    workspace_bytes: int
+    edges: int
+    segments: int
+    csr_entries: int
+    csr_segments: int
+    csr_bytes: int                 # padded CSR slab bytes (0 when none)
+    src_bucket: int                # padded edge-slab width
+    tile_bucket: int               # padded tile count (0 without tiles)
+    nd: int
+    extras: Any = None
+
+
+@dataclass
+class _PlanUnit:
+    """One wave mid-planning: the assembled slab plus its *raw* prepare
+    outputs, so :meth:`StreamingPlan._fit_unified` can re-derive the
+    shared extras shapes after any split without re-running prepare."""
+
+    slab: _WaveSlab
+    raw_extras: Any = None
+    base_staged: int = 0             # staged bytes excluding extras
+    base_ws: int = 0
+    prep_ws: int = 0                 # prepare-declared share of base_ws
+
+    @classmethod
+    def of(cls, slab: _WaveSlab) -> "_PlanUnit":
+        return cls(slab=slab, raw_extras=slab.extras,
+                   base_staged=slab.staged_bytes - tree_array_bytes(slab.extras),
+                   base_ws=slab.workspace_bytes, prep_ws=slab.prep_ws)
+
+
+@dataclass
+class _Staged:
+    """One wave's slab on the device: its tensors, extras, and the event
+    that marks the end of its copy (``None`` on the CPU)."""
+
+    arrays: dict
+    extras: Any
+    copied: "torch.cuda.Event | None"
+
+
+# ----------------------------------------------------------------------
+class StreamingPlan:
+    """A plan whose execution streams budget-sized waves.
+
+    Produced by ``compile_plan(alg, store, memory_budget=...)``.  Same
+    ``run()`` contract as :class:`~repro_torch.core.engine.Plan` (hooks,
+    post, iteration control, RunResult), but the per-iteration step is
+    the three-stage pipelined wave loop described in the module
+    docstring, and ``schedule_stats`` additionally carries a
+    ``"streaming"`` dict: wave count, bytes staged per wave (each ≤
+    budget), resident bytes, per-phase wall clock, arena bytes, copy
+    time and the measured overlap.
+    """
+
+    def __init__(self, alg: BlockAlgorithm, store: BlockStore,
+                 schedule: Schedule | None = None, *,
+                 memory_budget: "int | str | MemoryBudget",
+                 device: torch.device, num_devices: int = 1,
+                 mode: str = "hybrid", tile_dim: int = 512,
+                 dense_frac: float = 0.5, dense_density: float = 0.005,
+                 rebalance_threshold: "float | str | None" = "auto",
+                 pipeline_depth: int = PIPELINE_DEPTH,
+                 share: bool = True, host_fraction: "float | str | None" = "auto",
+                 direction: str | None = None, **unported) -> None:
+        reject_unported(**unported)
+        self.alg = alg
+        self.store = store
+        self.device = torch.device(device)
+        self.direction = resolve_direction(alg, direction)
+        # None keeps the pre-direction contract (plain push, no controller)
+        self._direction_requested = direction is not None
+        self._direction_now = "push"
+        self.budget = MemoryBudget.of(memory_budget)
+        self._csr_mode = str(alg.metadata.get("csr", "resident"))
+        if self._csr_mode not in _CSR_MODES:
+            raise ValueError(f"{alg.name}: metadata['csr'] must be one of "
+                             f"{_CSR_MODES}, got {self._csr_mode!r}")
+        if not (rebalance_threshold is None or rebalance_threshold == "auto"
+                or isinstance(rebalance_threshold, (int, float))):
+            raise ValueError(
+                "rebalance_threshold must be 'auto' (estimate-vs-observed "
+                "divergence trigger), a float (compute-skew threshold), or "
+                f"None (off); got {rebalance_threshold!r}")
+        self.rebalance_threshold = rebalance_threshold
+        if not (host_fraction is None or host_fraction == "auto"
+                or isinstance(host_fraction, (int, float))):
+            raise ValueError("host_fraction must be 'auto', a float in [0, 1], "
+                             f"or None; got {host_fraction!r}")
+        if isinstance(host_fraction, (int, float)):
+            if not 0.0 <= float(host_fraction) <= 1.0:
+                raise ValueError(f"host_fraction must lie in [0, 1]; got {host_fraction!r}")
+            if float(host_fraction) > 0.0:
+                reject_unported(host_fraction=host_fraction)
+        self._host_frac_req = host_fraction
+        self.pipeline_depth = max(int(pipeline_depth), 0)
+        self.schedule = schedule or build_schedule(
+            alg, store, num_devices=num_devices, mode=mode, tile_dim=tile_dim,
+            dense_frac=dense_frac, dense_density=dense_density,
+            memory_budget=self.budget, direction=self.direction)
+        self.host = build_host_ctx(store, self.schedule, self.device)
+        # shape-driving prepare decisions (TC's bucket ladder) made once
+        # against the FULL schedule
+        self._plan_state = (alg.stage_plan(store, self.schedule)
+                            if alg.stage_plan is not None else None)
+        self._phase = {p: 0.0 for p in PHASES}
+        on_card = self.device.type == "cuda"
+        self._arena = _HostArena(pin=on_card)
+        self._arena_deferred: list[tuple] = []
+        self._pipe: _StagePipeline | None = None
+        self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        self._copies: list[tuple] = []      # (start, end, bytes) not yet read
+        self._h2d_s = 0.0                   # copy time, CUDA events on the card
+        self._h2d_bytes = 0
+        # "auto" prices the max over the push/pull dense variants
+        self._workspace_decl = workspace_kernels(alg, self.direction)
+        self._footprints = task_footprints(
+            store, self.schedule, workspace_kernel=self._workspace_decl,
+            stage_csr=self._csr_mode == "slice")
+        waves = build_waves(store, self.schedule, self.budget, self._footprints)
+        self._apply_waves(waves, initial=True)
+        # the one-time planning pass's host cost (per-wave prepare)
+        self._planning_phase = dict(self._phase)
+        self._resident = self._build_resident_context()
+        self._step = _stream_step_for(alg, self.device, share=share)
+        self._step_pull = (
+            _stream_step_for(alg, self.device, share=share, direction="pull")
+            if self.direction in ("pull", "auto") else None)
+        self._calibration: dict | None = None
+        self._bytes_staged = 0          # actual H2D traffic, all passes
+        self._stall_s = 0.0             # main loop blocked on the queue
+        self._assemble_overlapped_s = 0.0
+        self._edge_free = int(alg.metadata.get("edge_free_iterations", 0))
+        self._edge_free_bufs: _Staged | None = None
+        # first-k-neighbors CSR for the edge-free sampling phase
+        self._prefix_host = (csr_prefix(store.indptr, store.indices, self._edge_free)
+                             if self._edge_free > 0 else None)
+        self._prefix_dev: dict | None = None
+        self._rebalanced = False
+        self._reb_armed = True
+        self._last_skew: float | None = None
+        self._last_divergence: float | None = None
+
+    # -- build side (planning pass) ------------------------------------
+    def _apply_waves(self, waves: list[Wave], *, initial: bool = False) -> None:
+        """Install a packed wave list (empty waves vanish)."""
+        self._slabs = self._plan_recipes([w for w in waves if w.task_ids.size],
+                                         initial=initial)
+        self.schedule.stats["waves"] = len(self._slabs)
+
+    def _plan_recipes(self, waves: list[Wave], *,
+                      initial: bool = False) -> list[_WaveRecipe]:
+        """Assemble each wave once, decide hoisting (first build only),
+        unify extras shapes across waves, verify/split against the
+        budget, and retain only the recipes.  Wave-invariant extras are
+        hoisted resident *before* the budget check: they are staged
+        once, not per wave."""
+        slabs = [self._assemble(w) for w in waves]
+        if initial:
+            self._decide_hoist(slabs)
+        else:
+            # a re-pack keeps the hoist decision (the resident context
+            # already carries the hoisted extras)
+            for s in slabs:
+                self._strip_hoisted(s)
+        if self._hoisted or self.alg.mesh_pack is None:
+            slabs = self._fit_slabs(slabs)
+        else:
+            slabs = self._fit_unified([_PlanUnit.of(s) for s in slabs])
+        return [self._recipe(s) for s in slabs]
+
+    def _make_unit(self, wave: Wave) -> _PlanUnit:
+        """Assemble one wave into a planning unit (raw extras kept)."""
+        slab = self._assemble(wave)
+        self._strip_hoisted(slab)
+        return _PlanUnit.of(slab)
+
+    def _fit_unified(self, units: list[_PlanUnit]) -> list[_WaveSlab]:
+        """Cross-wave shape unification + budget fit, to fixpoint.
+
+        Every wave's ``prepare`` outputs are padded to one shared shape
+        set by the algorithm's ``mesh_pack`` (the waves are its leading
+        axis), so the waves' extras share shapes.  Because padding can
+        push a unified slab over the budget, the loop verifies the
+        *unified* bytes, splits any offender and re-unifies until every
+        wave fits.  When even a single-task wave cannot afford the
+        shared caps, unification is abandoned for the whole plan."""
+        if not units:
+            return []
+        while True:
+            slabs = [u.slab for u in units]
+            packed = _to_host(self.alg.mesh_pack([u.raw_extras for u in units]))
+            ws_decl = packed.pop("__workspace_bytes__", None) if isinstance(packed, dict) else None
+            if ws_decl is not None:
+                ws = max(u.base_ws - u.prep_ws for u in units) + int(ws_decl)
+            else:
+                ws = max(u.base_ws for u in units)
+            for w, u in enumerate(units):
+                u.slab.extras = _tree_map(
+                    lambda leaf: leaf[w] if _is_array_leaf(leaf) else leaf, packed)
+                u.slab.staged_bytes = u.base_staged + tree_array_bytes(u.slab.extras)
+                u.slab.workspace_bytes = ws
+            over = {w for w, u in enumerate(units)
+                    if self._budget_load(u.slab) > self.budget.total_bytes}
+            if not over:
+                return slabs
+            try:
+                rebuilt: list[_PlanUnit] = []
+                for w, u in enumerate(units):
+                    if w in over:
+                        a, b = split_wave(u.slab.wave, self.schedule, self._footprints)
+                        rebuilt += [self._make_unit(a), self._make_unit(b)]
+                    else:
+                        rebuilt.append(u)
+                units = rebuilt
+            except ValueError:
+                # a single-task wave cannot afford the shared caps: raw
+                # per-wave shapes for the whole plan
+                return self._fit_slabs([self._restore_raw(u) for u in units])
+
+    @staticmethod
+    def _restore_raw(u: _PlanUnit) -> _WaveSlab:
+        """Undo shape unification on one planning unit."""
+        slab = u.slab
+        slab.workspace_bytes = u.base_ws
+        slab.extras = u.raw_extras
+        slab.staged_bytes = u.base_staged + tree_array_bytes(u.raw_extras)
+        return slab
+
+    @staticmethod
+    def _recipe(slab: _WaveSlab) -> _WaveRecipe:
+        return _WaveRecipe(
+            wave=slab.wave, run_dense=slab.run_dense,
+            staged_bytes=slab.staged_bytes, workspace_bytes=slab.workspace_bytes,
+            edges=slab.edges, segments=slab.segments,
+            csr_entries=slab.csr_entries, csr_segments=slab.csr_segments,
+            csr_bytes=slab.csr.nbytes if slab.csr is not None else 0,
+            src_bucket=int(slab.src.shape[-1]),
+            tile_bucket=int(slab.tiles.shape[0]) if slab.tiles is not None else 0,
+            nd=slab.nd, extras=slab.extras)
+
+    def _reassemble(self, wave: Wave) -> _WaveSlab:
+        """One wave → finished slab, honoring the standing hoist decision."""
+        slab = self._assemble(wave)
+        self._strip_hoisted(slab)
+        return slab
+
+    def _budget_load(self, slab) -> int:
+        """The bytes the budget must bound: staged slab + kernel scratch."""
+        return slab.staged_bytes + slab.workspace_bytes
+
+    def _fit_slabs(self, slabs: list[_WaveSlab]) -> list[_WaveSlab]:
+        out: list[_WaveSlab] = []
+        pending = list(slabs)
+        while pending:
+            slab = pending.pop(0)
+            if self._budget_load(slab) > self.budget.total_bytes:
+                # split_wave raises for size-1 waves: the ≤ budget
+                # invariant is never silently violated
+                a, b = split_wave(slab.wave, self.schedule, self._footprints)
+                pending[:0] = [self._reassemble(a), self._reassemble(b)]
+                continue
+            out.append(slab)
+        return out
+
+    def _assemble_runtime(self, recipe: _WaveRecipe, *, wave: int = -1) -> _WaveSlab:
+        """Stage-1 body: reproduce one wave's slab into arena buffers.
+        Pure gathers — ``prepare`` ran in the planning pass and its
+        outputs are cached on the recipe; byte accounting is pinned to
+        the recipe's planned numbers."""
+        with obs.span("assemble", lane="staging", wave=wave, bytes=recipe.staged_bytes):
+            slab = self._assemble(recipe.wave, extras=recipe.extras, alloc=self._arena.take)
+        slab.staged_bytes = recipe.staged_bytes
+        slab.workspace_bytes = recipe.workspace_bytes
+        return slab
+
+    def _assemble(self, wave: Wave, *, extras: Any = _ABSENT, alloc=None) -> _WaveSlab:
+        """Assemble one wave's padded host slab.
+
+        Planning mode (``extras`` absent): build the wave-local store
+        view, run the algorithm's ``prepare`` against it (timed into the
+        ``prepare`` phase), and measure the staged bytes.  Runtime mode
+        (``extras`` given): gathers only, into buffers from ``alloc``
+        (the staging arena).  Every element of every buffer is written.
+        """
+        store, sched = self.store, self.schedule
+        alloc = alloc or np.empty
+        planning = extras is _ABSENT
+        wsched = sched.restrict(wave.task_ids)
+        blocks = np.unique(wsched.blocklists)
+        segments = store.edge_segments(blocks)
+        idx = segment_index(segments)
+        ne = int(idx.size)
+        eb = bucket_size(ne)
+        src, dst, edge_block = (alloc(eb, np.int32) for _ in range(3))
+        sparse_mask, dense_mask = alloc(eb, np.bool_), alloc(eb, np.bool_)
+        arena_arrays = [src, dst, edge_block, sparse_mask, dense_mask]
+        _gather(store.src, idx, src)
+        _gather(store.dst, idx, dst)
+        _gather(store.edge_block, idx, edge_block)
+        dense_blocks = np.zeros(store.layout.num_blocks, bool)
+        if wsched.dense_block_ids.size:
+            dense_blocks[wsched.dense_block_ids] = True
+        edense = dense_blocks[edge_block[:ne]]
+        np.logical_not(edense, out=sparse_mask[:ne])
+        dense_mask[:ne] = edense
+        sparse_mask[ne:] = False
+        dense_mask[ne:] = False
+
+        # -- dense tiles (already materialized by build_schedule) ------
+        tiles = trs = tcs = None
+        nd = 0
+        run_dense = (self.alg.kernel_dense is not None
+                     and bool(wsched.dense_task_mask.any()))
+        wstore = store
+        if run_dense:
+            ids = wsched.dense_block_ids
+            pos = store.tile_positions(ids)
+            nd = int(pos.size)
+            tb = bucket_size(nd, minimum=1)
+            t = sched.tile_dim
+            tiles = alloc((tb, t, t), np.float32)
+            trs, tcs = alloc(tb, np.int64), alloc(tb, np.int64)
+            _gather(store.tiles, pos, tiles)
+            _gather(store.tile_row_start, pos, trs)
+            _gather(store.tile_col_start, pos, tcs)
+            arena_arrays += [tiles, trs, tcs]
+            if planning and self.alg.prepare is not None:
+                rows, cols = store.tile_extents(ids)
+                wstore = dc_replace(
+                    store, tile_dim=t, tile_block_ids=ids.astype(np.int32),
+                    tiles=tiles[:nd], tile_row_start=trs[:nd], tile_col_start=tcs[:nd],
+                    tile_rows=rows, tile_cols=cols, _device_cache={})
+        elif planning and self.alg.prepare is not None:
+            # prepare must not see tiles the wave does not stage
+            wstore = dc_replace(
+                store, tile_dim=0, tile_block_ids=np.zeros(0, np.int32),
+                tiles=np.zeros((0, 0, 0), np.float32),
+                tile_row_start=np.zeros(0, np.int64), tile_col_start=np.zeros(0, np.int64),
+                tile_rows=np.zeros(0, np.int32), tile_cols=np.zeros(0, np.int32),
+                _device_cache={})
+
+        # -- conformal CSR row slices (metadata["csr"] == "slice") -----
+        csr = None
+        csr_entries = csr_segments = 0
+        if self._csr_mode == "slice":
+            sl_idx, rbp_r, indptr_r, csr_segs = store.csr_slices(blocks)
+            csr_entries = int(sl_idx.size)
+            csr_segments = len(csr_segs)
+            csr = alloc(bucket_size(csr_entries), np.int32)
+            csr[:csr_entries] = sl_idx
+            csr[csr_entries:] = 0
+            arena_arrays.append(csr)
+            if planning and self.alg.prepare is not None:
+                # prepare sees the wave-local CSR view: positions it
+                # computes from row_block_ptr index the staged slice
+                wstore = dc_replace(wstore, indices=sl_idx, row_block_ptr=rbp_r,
+                                    indptr=indptr_r, _device_cache={})
+
+        ws = prep_ws = 0
+        if planning:
+            t0 = time.perf_counter()
+            extras = _to_host(self.alg.run_prepare(wstore, wsched, self._plan_state))
+            self._phase["prepare"] += time.perf_counter() - t0
+            # prepare may declare device scratch under the reserved key:
+            # a budget input, not a kernel input
+            ws = prep_ws = int(extras.pop("__workspace_bytes__", 0))
+
+        staged = (src.nbytes + dst.nbytes + edge_block.nbytes + sparse_mask.nbytes
+                  + dense_mask.nbytes + tree_array_bytes(extras))
+        if csr is not None:
+            staged += csr.nbytes
+        if tiles is not None:
+            staged += tiles.nbytes + trs.nbytes + tcs.nbytes
+            if planning:
+                from ..kernels.registry import max_workspace_bytes, workspace_bytes
+
+                wk = self._workspace_decl
+                hints = dict(nd=int(tiles.shape[0]), tile_dim=sched.tile_dim)
+                ws += (workspace_bytes(wk, **hints) if wk is not None
+                       else max_workspace_bytes(**hints))
+        return _WaveSlab(
+            wave=wave, src=src, dst=dst, edge_block=edge_block,
+            sparse_mask=sparse_mask, dense_mask=dense_mask,
+            tiles=tiles, tile_row_start=trs, tile_col_start=tcs,
+            csr=csr, extras=extras, run_dense=run_dense,
+            staged_bytes=int(staged), workspace_bytes=int(ws),
+            edges=ne, segments=len(segments),
+            csr_entries=csr_entries, csr_segments=csr_segments, nd=nd,
+            arena_arrays=tuple(arena_arrays) if alloc is not np.empty else (),
+            prep_ws=int(prep_ws))
+
+    def _decide_hoist(self, slabs: list[_WaveSlab]) -> None:
+        """Wave-invariant ``prepare`` outputs (vertex-level arrays like
+        PageRank's ``inv_deg``) are staged once as resident instead of
+        once per wave per iteration."""
+        self._resident_extras: dict = {}
+        self._hoisted = False
+        if not slabs:
+            return
+        first = slabs[0].extras
+        if all(_trees_equal(s.extras, first) for s in slabs[1:]):
+            self._resident_extras = first
+            self._hoisted = True
+            for s in slabs:
+                self._strip_hoisted(s)
+
+    def _strip_hoisted(self, slab: _WaveSlab) -> None:
+        """Drop a slab's extras (and their byte cost) when they match the
+        hoisted resident tree."""
+        if (self._hoisted and slab.extras is not None
+                and _trees_equal(slab.extras, self._resident_extras)):
+            slab.staged_bytes -= tree_array_bytes(slab.extras)
+            slab.extras = None
+
+    def _put_resident(self, name: str, a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            a = _to_int32(name, a)
+        return torch.from_numpy(a).to(self.device)
+
+    def _build_resident_context(self) -> Context:
+        """Vertex-level tensors only — the per-wave slab fields start
+        empty and are swapped in by :func:`with_arrays` each wave.
+        ``indices`` is the full CSR only in ``"resident"`` csr mode; in
+        ``"slice"`` mode each wave swaps in its staged slice, and in
+        ``"none"`` mode a minimal placeholder holds no ``m``-proportional
+        memory.  The per-stripe width table from which each wave's tile
+        extents are gathered is built here too."""
+        store = self.store
+        indices = (store.indices if self._csr_mode == "resident"
+                   else np.zeros(bucket_size(0), np.int32))
+        empty32 = torch.zeros(0, dtype=torch.int32, device=self.device)
+        nomask = torch.zeros(0, dtype=torch.bool, device=self.device)
+        cuts = store.layout.cuts
+        self._cuts64 = torch.from_numpy(np.asarray(cuts, np.int64)).to(self.device)
+        self._stripe_width = self._put_resident("stripe_width", np.diff(cuts))
+        return Context(
+            src=empty32, dst=empty32, edge_block=empty32,
+            indptr=self._put_resident("indptr", store.indptr),
+            indices=self._put_resident("indices", indices),
+            degrees=self._put_resident("degrees", store.degrees),
+            row_block_ptr=self._put_resident("row_block_ptr", store.row_block_ptr),
+            cuts=self._put_resident("cuts", cuts),
+            sparse_edge_mask=nomask, dense_edge_mask=nomask,
+            extras=to_device(dict(self._resident_extras), self.device),
+            n=store.n, m=store.m, p=store.p, tile_dim=self.schedule.tile_dim,
+            device=self.device)
+
+    # -- execute side --------------------------------------------------
+    @property
+    def num_waves(self) -> int:
+        return len(self._slabs)
+
+    @property
+    def resident_device_bytes(self) -> int:
+        """Device bytes of holding this streamed plan hot, state
+        excluded: the resident vertex-level arrays (as host bytes; the
+        card holds int64 arrays as int32), hoisted extras, and the
+        double-buffered worst-case wave — two staged slabs and the
+        kernel workspace."""
+        worst = max((s.staged_bytes + s.workspace_bytes for s in self._slabs), default=0)
+        return int(resident_bytes(self.store, include_csr=self._csr_mode == "resident")
+                   + tree_array_bytes(self._resident_extras) + 2 * worst)
+
+    @property
+    def compile_count(self) -> int:
+        """Wave steps built: 1 for a push plan, 2 with pull/auto."""
+        return sum(s.builds for s in (self._step, self._step_pull) if s is not None)
+
+    def _estimate_shares(self) -> np.ndarray:
+        """Each wave's share of the schedule's total weight — the
+        estimate the auto-rebalance trigger diverges against."""
+        w = np.asarray([float(self.schedule.weights[s.wave.task_ids].sum())
+                        for s in self._slabs])
+        tot = w.sum()
+        return w / tot if tot > 0 else np.full(w.shape, 1.0 / max(w.size, 1))
+
+    def rebalance(self, wave_compute_s) -> bool:
+        """Re-pack the wave queue against observed per-wave compute times.
+
+        Evaluated automatically after the calibration pass.  Triggers
+        (``rebalance_threshold``): ``"auto"`` — each wave's observed
+        compute share against its estimated share, firing when the worst
+        ratio reaches 2.0 and re-arming below 1.5, never below the noise
+        floor (mean wave < 10 ms); a float — fire when max/mean of the
+        times exceeds it (one-shot); ``None`` — off.
+
+        On fire, each wave's time is attributed to its tasks in
+        proportion to their weights and the queue is re-packed LPT
+        against those times (:func:`repro_torch.core.membudget.repack_waves`),
+        still under the byte budget.  Results are unchanged: per-wave
+        folding is partition-invariant.  Returns True on a re-pack.
+        """
+        times = np.asarray(wave_compute_s, dtype=np.float64)
+        if times.size != len(self._slabs) or len(self._slabs) < 2:
+            return False
+        mean = float(times.mean())
+        if mean <= 0.0:
+            return False
+        self._last_skew = float(times.max() / mean)
+        thr = self.rebalance_threshold
+        if thr is None:
+            return False
+        if thr == "auto":
+            est = self._estimate_shares()
+            est_skew = float(est.max() * est.size) if est.size else 1.0
+            self._last_divergence = self._last_skew / max(est_skew, 1.0)
+            if mean < _REBALANCE_NOISE_FLOOR_S:
+                return False            # noise-dominated: stand down
+            # hysteresis latch: a fire disarms; only an evaluation under
+            # the low watermark re-arms
+            if self._last_divergence < _REBALANCE_LO:
+                self._reb_armed = True
+                return False
+            if not self._reb_armed or self._last_divergence < _REBALANCE_HI:
+                return False
+            self._reb_armed = False
+        else:
+            if self._rebalanced or self._last_skew <= float(thr):
+                return False
+        task_t = np.zeros(self.schedule.num_tasks, dtype=np.float64)
+        for t_w, slab in zip(times, self._slabs):
+            ids = slab.wave.task_ids
+            wts = self.schedule.weights[ids].astype(np.float64)
+            tot = float(wts.sum())
+            task_t[ids] = (t_w * wts / tot) if tot > 0 else t_w / ids.size
+        self._apply_waves(repack_waves(self.schedule, self.budget,
+                                       self._footprints, task_t))
+        self._edge_free_bufs = None     # stale slab-0 reference
+        self._rebalanced = True
+        obs.metrics.counter("stream.rebalances").inc()
+        obs.instant("rebalance", lane="main", skew=self._last_skew,
+                    waves=len(self._slabs))
+        return True
+
+    def _active_step(self) -> _StreamStep:
+        """The wave step for the direction picked for this iteration."""
+        return self._step_pull if self._direction_now == "pull" else self._step
+
+    # -- clocks ----------------------------------------------------------
+    def _mark(self):
+        """A point on the device's timeline: a CUDA event recorded on the
+        compute stream on the card, the host clock on the CPU."""
+        if self._copy_stream is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _since(self, mark) -> float:
+        """Seconds from ``mark`` to now on the same clock (waits for the
+        device on the card)."""
+        if self._copy_stream is None:
+            return time.perf_counter() - mark
+        end = self._mark()
+        end.synchronize()
+        return mark.elapsed_time(end) / 1e3
+
+    def _sync(self) -> None:
+        if self._copy_stream is not None:
+            torch.cuda.synchronize(self.device)
+            for start, end, nbytes in self._copies:
+                self._h2d_s += start.elapsed_time(end) / 1e3
+                self._h2d_bytes += nbytes
+            self._copies.clear()
+
+    # -- arena recycling -------------------------------------------------
+    # A slab's arena buffers go back to the pool once the copy that read
+    # them has landed (its event on the copy stream); on the CPU the
+    # step that read them has returned by the time the slab is parked.
+    def _park_for_recycle(self, slab: _WaveSlab, staged: _Staged) -> None:
+        if slab.arena_arrays:
+            self._arena_deferred.append((staged.copied, slab.arena_arrays))
+
+    def _drain_recycle(self, *, force: bool = False) -> None:
+        while self._arena_deferred:
+            copied, arrays = self._arena_deferred[0]
+            if copied is not None:
+                if force:
+                    copied.synchronize()
+                elif not copied.query():
+                    return
+            self._arena.give(*arrays)
+            self._arena_deferred.pop(0)
+
+    def _to_device(self, tree: Any) -> Any:
+        """``tree``'s numpy leaves as tensors on the plan's device: shared
+        memory on the CPU; on the card, copies issued on the copy stream
+        from the (pinned) host buffers."""
+        if self._copy_stream is None:
+            return _tree_map(lambda l: torch.from_numpy(l) if isinstance(l, np.ndarray)
+                             else l, tree)
+        return _tree_map(lambda l: torch.from_numpy(l).to(self.device, non_blocking=True)
+                         if isinstance(l, np.ndarray) else l, tree)
+
+    def _put_slab(self, slab: _WaveSlab, *, wave: int = -1) -> _Staged:
+        """Stage 2: one host→device copy of an assembled wave slab."""
+        self._bytes_staged += slab.staged_bytes
+        arrays = dict(src=slab.src, dst=slab.dst, edge_block=slab.edge_block,
+                      sparse_edge_mask=slab.sparse_mask, dense_edge_mask=slab.dense_mask)
+        if slab.tiles is not None:
+            arrays.update(tiles=slab.tiles, tile_row_start=slab.tile_row_start,
+                          tile_col_start=slab.tile_col_start)
+        if slab.csr is not None:
+            arrays["indices"] = slab.csr
+        t0 = time.perf_counter()
+        with obs.span("device_put", lane="device", wave=wave, bytes=slab.staged_bytes):
+            if self._copy_stream is None:
+                staged = _Staged(self._to_device(arrays), self._to_device(slab.extras), None)
+            else:
+                compute = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                copied = torch.cuda.Event(enable_timing=True)
+                with torch.cuda.stream(self._copy_stream):
+                    start.record()
+                    staged = _Staged(self._to_device(arrays),
+                                     self._to_device(slab.extras), copied)
+                    copied.record()
+                # allocated on the copy stream, used on the compute stream:
+                # the allocator must not hand this memory out before the
+                # compute stream is done with it
+                for t in list(staged.arrays.values()) + [
+                        x for x in _leaves(staged.extras) if isinstance(x, torch.Tensor)]:
+                    t.record_stream(compute)
+                compute.wait_event(copied)
+                self._copies.append((start, copied, slab.staged_bytes))
+        self._phase["device_put"] += time.perf_counter() - t0
+        return staged
+
+    def _wave_context(self, staged: _Staged, nd: int) -> Context:
+        """The resident context with one wave's tensors swapped in; the
+        tiles' extents are gathered from the resident stripe widths at
+        each staged tile's origin (zero for the bucket's padding)."""
+        arrays = dict(staged.arrays)
+        if "tiles" in arrays:
+            live = torch.arange(arrays["tiles"].shape[0], device=self.device) < nd
+            for origin, extent in (("tile_row_start", "tile_rows"),
+                                   ("tile_col_start", "tile_cols")):
+                start = arrays[origin]
+                stripe = torch.searchsorted(self._cuts64, start, right=True) - 1
+                arrays[extent] = torch.where(live, self._stripe_width[stripe], 0).to(torch.int32)
+                arrays[origin] = start.to(torch.int32)
+        if staged.extras is not None:
+            return with_arrays(self._resident, extras=staged.extras, **arrays)
+        return with_arrays(self._resident, **arrays)
+
+    def _step_wave(self, w: int, staged: _Staged, state0, acc, it: int):
+        """Stage 3: run one staged wave's step."""
+        recipe = self._slabs[w]
+        with obs.span("compute", lane="device", wave=w):
+            return self._active_step()(self._wave_context(staged, recipe.nd),
+                                       state0, acc, it, recipe.run_dense)
+
+    def _calibrate(self, state0, acc, it: int):
+        """The synchronous first iteration: a warm-up pass over every
+        wave (result discarded), then each phase — assemble / copy /
+        compute — timed per wave, so the overlap and rebalance inputs
+        measure steady state.  Wave compute times come from CUDA events
+        on the card."""
+        nw = len(self._slabs)
+        warm = state0
+        for w in range(nw):
+            t0 = time.perf_counter()
+            slab = self._assemble_runtime(self._slabs[w], wave=w)
+            self._phase["assemble"] += time.perf_counter() - t0
+            staged = self._put_slab(slab, wave=w)
+            warm = self._step_wave(w, staged, state0, warm, it)
+            self._park_for_recycle(slab, staged)
+            self._drain_recycle()
+        del warm
+        self._sync()
+        self._drain_recycle(force=True)
+        assemble_s = put_s = compute_s = 0.0
+        wave_s: list[float] = []
+        for w in range(nw):
+            t0 = time.perf_counter()
+            slab = self._assemble_runtime(self._slabs[w], wave=w)
+            assemble_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            staged = self._put_slab(slab, wave=w)
+            if staged.copied is not None:
+                staged.copied.synchronize()
+            put_s += time.perf_counter() - t0
+            mark = self._mark()
+            acc = self._step_wave(w, staged, state0, acc, it)
+            dt = self._since(mark)
+            compute_s += dt
+            wave_s.append(dt)
+            self._arena.give(*slab.arena_arrays)   # the copy has landed
+        self._sync()
+        self._phase["assemble"] += assemble_s
+        self._phase["compute"] += compute_s
+        self._calibration = dict(stage_s=assemble_s + put_s, compute_s=compute_s,
+                                 assemble_s=assemble_s, put_s=put_s,
+                                 wave_compute_s=wave_s)
+        # a re-pack only pays off if another iteration will run it
+        if (self.rebalance_threshold is not None
+                and it + 1 < self.alg.max_iterations and self.rebalance(wave_s)):
+            # re-time the re-packed waves on the next iteration
+            self._calibration = None
+        return acc
+
+    def _run_edge_free(self, state0, it: int):
+        """An iteration the algorithm declared edge-free (its kernels
+        read no slab field and at most the prefix CSR — Afforest's
+        sampling rounds): one representative wave, staged once and
+        cached across the phase, gives the identical combined result."""
+        if self._prefix_dev is None and self._prefix_host is not None:
+            pptr, pidx = self._prefix_host
+            self._prefix_dev = dict(indptr=self._put_resident("prefix_indptr", pptr),
+                                    indices=self._put_resident("prefix_indices", pidx))
+            self._bytes_staged += pptr.nbytes + pidx.nbytes
+        if not self._slabs:
+            ctx, run_dense = self._resident, False
+        else:
+            if self._edge_free_bufs is None:
+                # cached across the phase: these buffers never re-enter
+                # the arena
+                self._edge_free_bufs = self._put_slab(
+                    self._assemble_runtime(self._slabs[0], wave=0), wave=0)
+            ctx = self._wave_context(self._edge_free_bufs, self._slabs[0].nd)
+            run_dense = self._slabs[0].run_dense
+        if self._prefix_dev is not None:
+            ctx = with_arrays(ctx, **self._prefix_dev)
+        return self._active_step()(ctx, state0, state0, it, run_dense)
+
+    def _run_waves(self, state0, it: int):
+        """One iteration's kernel work: the three-stage pipeline over every
+        wave, folding partials; calibration (synchronous, timed) on the
+        first executed iteration, pipelined overlap afterwards.  Returns
+        ``(state, wall seconds of an overlapped iteration or 0)``."""
+        nw = len(self._slabs)
+        if it < self._edge_free:
+            return self._run_edge_free(state0, it), 0.0
+        self._edge_free_bufs = None     # released once edge work begins
+        self._prefix_dev = None
+        if nw == 0:
+            return state0, 0.0
+        if self._calibration is None:
+            return self._calibrate(state0, state0, it), 0.0
+        t0 = time.perf_counter()
+        put0 = self._phase["device_put"]
+        pipe = self._pipe
+        if pipe is None and self.pipeline_depth > 0:
+            # persistent worker, created at the first overlapped iteration
+            pipe = self._pipe = _StagePipeline(self, self.pipeline_depth)
+            pipe.request(range(nw))
+        a0 = pipe.assemble_s if pipe is not None else 0.0
+        s0 = pipe.stall_s if pipe is not None else 0.0
+        fetched = 0
+
+        def next_slab(i: int) -> _WaveSlab:
+            nonlocal fetched
+            if pipe is None:
+                # synchronous baseline (pipeline_depth=0)
+                ta = time.perf_counter()
+                s = self._assemble_runtime(self._slabs[i], wave=i)
+                self._phase["assemble"] += time.perf_counter() - ta
+                return s
+            s = pipe.get()
+            fetched += 1
+            if fetched == nw and it + 1 < self.alg.max_iterations:
+                # epoch drained: queue the next iteration's waves so they
+                # assemble during post and the host hooks
+                pipe.request(range(nw))
+            return s
+
+        acc = state0
+        slab = next_slab(0)
+        staged = self._put_slab(slab, wave=0)
+        before = None           # wave w-1's end on the compute stream
+        for w in range(nw):
+            acc = self._step_wave(w, staged, state0, acc, it)
+            done = self._mark() if self._copy_stream is not None else None
+            self._park_for_recycle(slab, staged)
+            self._drain_recycle()
+            if w + 1 < nw:
+                slab = next_slab(w + 1)
+                if before is not None:
+                    # wave w-1's slab is free for the allocator only once
+                    # its step has run: at most two slabs on the device
+                    before.synchronize()
+                staged = self._put_slab(slab, wave=w + 1)
+            before = done
+        del staged
+        self._sync()
+        self._drain_recycle(force=True)
+        wall = time.perf_counter() - t0
+        put_d = self._phase["device_put"] - put0
+        stall = 0.0
+        if pipe is not None:
+            asm = pipe.assemble_s - a0
+            stall = pipe.stall_s - s0
+            self._assemble_overlapped_s += asm
+            self._stall_s += stall
+            self._phase["assemble"] += asm
+        self._phase["compute"] += max(wall - put_d - stall, 0.0)
+        return acc, wall
+
+    def _run_waves_resilient(self, state0, it: int):
+        """One iteration's wave work.  The reference wraps it in a retry
+        ladder (OOM re-pack, worker fail-over, demotion); until ROADMAP
+        A9 ports it, a failure propagates."""
+        return self._run_waves(state0, it)
+
+    def run(self, store: BlockStore | None = None, state: Any | None = None) -> RunResult:
+        """Execute the streamed iteration loop (same contract as
+        :meth:`repro_torch.core.engine.Plan.run`)."""
+        if store is not None and store is not self.store:
+            raise TypeError("StreamingPlan is bound to the store it was compiled "
+                            "against; compile a new plan for a different graph")
+        alg = self.alg
+        if state is None:
+            if alg.init_state is None:
+                raise ValueError(f"{alg.name}: init_state required")
+            state = alg.init_state(self.store)
+        state = to_device(state, self.device)
+        ctrl = (DirectionController(alg, self.direction, self.store.n)
+                if self._direction_requested else None)
+        self._direction_now = "push"
+        t0 = time.perf_counter()
+        it = 0
+        cont = True
+        overlapped_wall = 0.0
+        overlapped_iters = 0
+        staged_before = self._bytes_staged
+        h2d_before = (self._h2d_s, self._h2d_bytes)
+        phase_before = dict(self._phase)
+        asm_before = self._assemble_overlapped_s
+        stall_before = self._stall_s
+        try:
+            while cont and it < alg.max_iterations:
+                with obs.span("iteration", lane="main", it=it, alg=alg.name):
+                    if alg.before is not None:
+                        state = alg.before(self.host, state, it)
+                    if ctrl is not None:
+                        # one direction per iteration, across every wave
+                        self._direction_now = ctrl.decide(state, it)
+                    state, wall = self._run_waves_resilient(state, it)
+                    if wall > 0.0:
+                        overlapped_wall += wall
+                        overlapped_iters += 1
+                    if alg.post is not None:
+                        state = alg.post(self._resident, state, it)
+                    if alg.after is not None:
+                        state, cont = alg.after(self.host, state, it)
+                it += 1
+        finally:
+            if self._pipe is not None:
+                self._pipe.close(self._arena)
+                self._pipe = None
+        self._sync()
+        dt = time.perf_counter() - t0
+        result = alg.finalize(self.store, state) if alg.finalize else state
+        phase_delta = {k: self._phase[k] - phase_before[k] for k in self._phase}
+        staged_delta = self._bytes_staged - staged_before
+        self._publish_metrics(iterations=it, seconds=dt, staged_delta=staged_delta,
+                              phase_delta=phase_delta)
+        stats = dict(
+            self.schedule.stats,
+            streaming=self._streaming_stats(
+                state, overlapped_wall, overlapped_iters, staged_delta=staged_delta,
+                phase_delta=phase_delta,
+                asm_delta=self._assemble_overlapped_s - asm_before,
+                stall_delta=self._stall_s - stall_before,
+                h2d_s=self._h2d_s - h2d_before[0],
+                h2d_bytes=self._h2d_bytes - h2d_before[1]),
+            hetero=dict(enabled=False, host_fraction=self._host_frac_req,
+                        resolved_split=0.0, host_tasks=0,
+                        device_tasks=int(self.schedule.num_tasks),
+                        note="device-only: the host lane waits for ROADMAP A8"),
+        )
+        if ctrl is not None:
+            stats["direction"] = ctrl.stats()
+        return RunResult(result=result, state=state, iterations=it, seconds=dt,
+                         schedule_stats=stats)
+
+    def close(self) -> None:
+        """Stop the staging worker (joined, not leaked) and recycle the
+        parked arena buffers.  Idempotent; ``run()`` starts the worker
+        again lazily, so a closed plan can run again."""
+        if self._pipe is not None:
+            self._pipe.close(self._arena)
+            self._pipe = None
+        self._drain_recycle(force=True)
+
+    def __enter__(self) -> "StreamingPlan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def _publish_metrics(self, *, iterations: int, seconds: float,
+                         staged_delta: int, phase_delta: dict) -> None:
+        """Publish one run's deltas into the process-wide registry."""
+        m = obs.metrics
+        m.counter("stream.runs").inc()
+        m.counter("stream.iterations").inc(iterations)
+        m.histogram("stream.run_seconds").observe(seconds)
+        for k, v in phase_delta.items():
+            m.counter(f"stream.phase_seconds.{k}").inc(max(v, 0.0))
+        m.counter("stream.bytes_staged").inc(max(int(staged_delta), 0))
+        m.gauge("stream.arena_bytes").set_max(self._arena.bytes)
+        m.gauge("stream.waves").set(len(self._slabs))
+        m.gauge("stream.budget_bytes").set(self.budget.total_bytes)
+        if self._slabs:
+            m.gauge("stream.budget_high_water_bytes").set_max(
+                max(self._budget_load(r) for r in self._slabs))
+
+    def _streaming_stats(self, state, overlapped_wall: float, overlapped_iters: int, *,
+                         staged_delta: int, phase_delta: dict, asm_delta: float,
+                         stall_delta: float, h2d_s: float, h2d_bytes: int) -> dict:
+        bytes_per_wave = [s.staged_bytes for s in self._slabs]
+        calib = self._calibration or dict(stage_s=0.0, compute_s=0.0)
+        eff = 0.0
+        denom = min(calib["stage_s"], calib["compute_s"])
+        if overlapped_iters and denom > 0:
+            serial = calib["stage_s"] + calib["compute_s"]
+            mean_wall = overlapped_wall / overlapped_iters
+            eff = max(0.0, min(1.0, (serial - mean_wall) / denom))
+        # how much of the background assembly the pipeline hid this run
+        host_overlap = 0.0
+        if asm_delta > 0:
+            host_overlap = max(0.0, min(1.0, (asm_delta - stall_delta) / asm_delta))
+        prefix_bytes = 0
+        if self._prefix_host is not None:
+            pptr, pidx = self._prefix_host
+            prefix_bytes = pptr.nbytes + pidx.nbytes
+        return dict(
+            num_waves=len(self._slabs),
+            budget_bytes=self.budget.total_bytes,
+            bytes_per_wave=bytes_per_wave,
+            workspace_per_wave=[s.workspace_bytes for s in self._slabs],
+            mesh_devices=1,
+            csr_mode=self._csr_mode,
+            csr_bytes_per_wave=[s.csr_bytes for s in self._slabs],
+            csr_segments=[s.csr_segments for s in self._slabs],
+            # H2D traffic this run, counting the calibration warm-up pass
+            # and edge-free single-wave iterations
+            bytes_staged_total=int(staged_delta),
+            # the copies' own time (CUDA events on the copy stream on the
+            # card; on the CPU nothing is copied)
+            h2d_seconds=float(h2d_s),
+            h2d_bytes=int(h2d_bytes),
+            resident_bytes=(resident_bytes(self.store, state,
+                                           include_csr=self._csr_mode == "resident")
+                            + tree_array_bytes(self._resident_extras)
+                            + tree_array_bytes(state)),     # the accumulator copy
+            edge_free_prefix_bytes=int(prefix_bytes),
+            edge_buckets=sorted({s.src_bucket for s in self._slabs}),
+            slab_shapes=len({_shape_key(s) for s in self._slabs}),
+            coalesced_segments=[s.segments for s in self._slabs],
+            overlap_efficiency=eff,
+            pipeline_depth=self.pipeline_depth,
+            host_stage_overlap=host_overlap,
+            stall_seconds=float(stall_delta),
+            trace_count=int(self.compile_count),
+            arena_bytes=int(self._arena.bytes),
+            arena_model_bytes=arena_model_bytes(bytes_per_wave,
+                                                depth=max(self.pipeline_depth, 1)),
+            arena_reuses=int(self._arena.reuses),
+            phase_seconds={k: float(v) for k, v in phase_delta.items()},
+            planning_phase_seconds={k: float(v) for k, v in self._planning_phase.items()},
+            calibration=dict(calib),
+            overlapped_iterations=overlapped_iters,
+            # wave work of the overlapped iterations (post and hooks excluded)
+            overlapped_wall_seconds=float(overlapped_wall),
+            rebalanced=self._rebalanced,
+            rebalance_mode=("off" if self.rebalance_threshold is None
+                            else "auto" if self.rebalance_threshold == "auto" else "skew"),
+            rebalance_skew=self._last_skew,
+            rebalance_divergence=self._last_divergence,
+        )
+
+
+def _shape_key(recipe: _WaveRecipe) -> tuple:
+    """A wave's slab shape: padded edge, CSR and tile widths, dense
+    routing, and the shapes of its extras' array leaves."""
+    ex = tuple(tuple(leaf.shape) for leaf in _leaves(recipe.extras) if _is_array_leaf(leaf))
+    return (recipe.src_bucket, recipe.csr_bytes, recipe.tile_bucket, recipe.run_dense, ex)
+
+
+def compile_streaming_plan(alg: BlockAlgorithm, store: BlockStore,
+                           schedule: Schedule | None = None, **kw) -> StreamingPlan:
+    """Explicit spelling of ``compile_plan(..., memory_budget=...)``."""
+    return StreamingPlan(alg, store, schedule, **kw)

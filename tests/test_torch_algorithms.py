@@ -156,12 +156,14 @@ def road_store():
     return _carry(rc.build_block_store(rc.grid_road(8), 2))
 
 
-@pytest.mark.parametrize("arg", ["memory_budget", "rebalance_threshold", "pipeline_depth",
-                                 "mesh", "host_fraction", "faults", "checkpoint_every",
-                                 "checkpoint_dir", "retry_policy"])
-def test_unported_arguments_raise(road_store, arg):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        compile_plan(pagerank_algorithm(), road_store, device="cpu", **{arg: 1})
+@pytest.mark.parametrize("arg,value,item", [
+    ("host_fraction", 0.5, "A8"), ("faults", "wave.compute:raise", "A9"),
+    ("checkpoint_every", 1, "A9"), ("checkpoint_dir", "ckpt", "A9"),
+    ("retry_policy", object(), "A9"), ("mesh", object(), "A10")])
+def test_unported_arguments_raise(road_store, arg, value, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        compile_plan(pagerank_algorithm(), road_store, device="cpu",
+                     memory_budget="64KB", **{arg: value})
 
 
 def test_batched_states_raise(road_store):

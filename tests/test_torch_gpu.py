@@ -15,9 +15,14 @@ import torch
 
 from dataclasses import replace
 
-from repro_torch.algorithms import bfs_algorithm, pagerank_algorithm, tc_algorithm
+from repro_torch.algorithms import (
+    afforest_algorithm, bfs_algorithm, hits_algorithm, kcore_algorithm,
+    pagerank_algorithm, sv_algorithm, tc_algorithm,
+)
 from repro_torch.algorithms.tc import orient_dag
-from repro_torch.core import build_block_store, compile_plan, degree_order, rmat
+from repro_torch.core import (
+    build_block_store, build_schedule, compile_plan, degree_order, rmat, task_footprints,
+)
 from repro_torch.kernels import ref, registry
 from repro_torch.configs import get_smoke
 from repro_torch.kernels.flash_attention import flash_attention
@@ -357,4 +362,92 @@ def test_tc_cuda_vs_cpu(cuda):
     got = plan.run()
     assert plan.schedule.stats["dense_tasks"] > 0
     assert registry.launch_counts()["tc_tiles"] == 1
+    assert got.result == cpu.result
+
+
+# ---------------------------------------------------------------- A6
+@pytest.mark.parametrize("make,kw", [
+    (sv_algorithm, {}), (afforest_algorithm, {}),
+    (lambda: kcore_algorithm(16), dict(mode="sparse_only"))])
+@pytest.mark.parametrize("direction", ["push", "auto"])
+def test_exact_algorithms_cuda_vs_cpu(cuda, small_store, make, kw, direction):
+    cpu = compile_plan(make(), small_store, device="cpu", direction=direction, **kw).run()
+    got = compile_plan(make(), small_store, device=cuda, direction=direction, **kw).run()
+    assert got.iterations == cpu.iterations
+    np.testing.assert_array_equal(got.result, cpu.result)
+    assert (got.schedule_stats["direction"]["decisions"]
+            == cpu.schedule_stats["direction"]["decisions"])
+
+
+def test_hits_cuda_vs_cpu(cuda, small_store):
+    # a negative tol runs both to max_iters (the stopping test sits at the
+    # float32 noise floor)
+    kw = dict(mode="sparse_only")
+    cpu = compile_plan(hits_algorithm(tol=-1.0, max_iters=30), small_store, device="cpu",
+                       **kw).run()
+    got = compile_plan(hits_algorithm(tol=-1.0, max_iters=30), small_store, device=cuda,
+                       **kw).run()
+    assert got.iterations == cpu.iterations
+    for k in ("hub", "auth"):
+        np.testing.assert_allclose(got.result[k], cpu.result[k], rtol=1e-4, atol=1e-7)
+
+
+# ---------------------------------------------------------------- A7
+def _quarter_budget(alg, store, **kw):
+    """A budget near a quarter of the schedule's total footprint."""
+    sched = build_schedule(alg, store, **kw)
+    return int(task_footprints(store, sched,
+                               workspace_kernel=alg.metadata.get("workspace_kernel")).sum()) // 4
+
+
+def _streamed(alg, store, cuda, budget, **kw):
+    """(plan, result, peak bytes above the allocation before compile)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    registry.reset_launch_counts()
+    plan = compile_plan(alg, store, device=cuda, memory_budget=budget, **kw)
+    res = plan.run()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    st = res.schedule_stats["streaming"]
+    assert all(b + w <= budget for b, w in zip(st["bytes_per_wave"], st["workspace_per_wave"]))
+    assert peak <= plan.resident_device_bytes + (plan.pipeline_depth + 1) * budget
+    return plan, res
+
+
+def test_streamed_pagerank_cuda_vs_cpu(cuda, small_store):
+    budget = _quarter_budget(pagerank_algorithm(), small_store, **_PLAN_KW)
+    cpu = compile_plan(pagerank_algorithm(), small_store, device="cpu", **_PLAN_KW).run()
+    plan, got = _streamed(pagerank_algorithm(), small_store, cuda, budget,
+                          rebalance_threshold=None, **_PLAN_KW)
+    dense_waves = sum(r.run_dense for r in plan._slabs)
+    assert plan.num_waves >= 4 and dense_waves > 0
+    # warm-up + timed pass in the first iteration, one pass after
+    assert registry.launch_counts()["spmv_tiles"] == (got.iterations + 1) * dense_waves
+    assert abs(got.iterations - cpu.iterations) <= 1
+    np.testing.assert_allclose(got.result, cpu.result, rtol=1e-4, atol=1e-7)
+    assert got.schedule_stats["streaming"]["h2d_bytes"] > 0
+
+
+def test_streamed_bfs_cuda_vs_cpu(cuda, small_store):
+    src = int(np.argmax(small_store.degrees))
+    budget = _quarter_budget(bfs_algorithm(src), small_store, **_PLAN_KW)
+    cpu = compile_plan(bfs_algorithm(src), small_store, device="cpu", direction="auto",
+                       **_PLAN_KW).run()
+    plan, got = _streamed(bfs_algorithm(src), small_store, cuda, budget, direction="auto",
+                          **_PLAN_KW)
+    assert plan.num_waves >= 4
+    for k in ("parent", "dist"):
+        np.testing.assert_array_equal(got.result[k], cpu.result[k])
+    if "pull" in got.schedule_stats["direction"]["decisions"]:
+        assert registry.launch_counts()["frontier_tiles"] > 0
+
+
+def test_streamed_tc_cuda_vs_cpu(cuda):
+    store = build_block_store(orient_dag(rmat(11, 16, seed=5)), 8)
+    budget = _quarter_budget(tc_algorithm(), store, **_PLAN_KW)
+    cpu = compile_plan(tc_algorithm(), store, device="cpu", **_PLAN_KW).run()
+    plan, got = _streamed(tc_algorithm(), store, cuda, budget, **_PLAN_KW)
+    assert plan.num_waves >= 2
+    assert registry.launch_counts()["tc_tiles"] > 0
     assert got.result == cpu.result
