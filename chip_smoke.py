@@ -44,7 +44,23 @@ at full configuration: the graph engine through
    × budget``; the copies' rate on the copy stream beside one large
    pinned copy's; then the triangle count below streamed under a third
    of its footprint (≥ 2 waves).  Each tile kernel is also timed on a
-   wave slab;
+   wave slab.  Each streamed run prints what ``host_fraction="auto"``
+   resolved to (``schedule_stats["hetero"]``);
+   ``phase hetero``: the host lane beside the card's waves, on the same
+   store and budgets, ``host_fraction=0.3``: CC (Afforest, sparse) and
+   BFS auto bit for bit against in-core (labels; parent, dist and the
+   per-level decisions), PageRank (hybrid, 5 iterations) within rtol
+   1e-5 of an in-core run of 5 iterations, with ``spmv_tiles`` launched
+   on the device waves; per run the split, host units and tasks, staged
+   bytes and ms per iteration beside the device-only run's, the device
+   and host makespans, the stall and ``host_stage_overlap``;
+   ``phase resilience``: streamed CC with ``host_fraction=0.3`` and four
+   injected faults (assembly, an OOM at a copy, a wave, a host unit)
+   recovered to the fault-free labels; streamed and in-core BFS auto
+   checkpointed every level and resumed from level 3 bit for bit; a real
+   ``torch.cuda.OutOfMemoryError`` classified as ``oom`` and a normal
+   allocation after it.  Every fault-free plan must have detected no
+   failure, demoted nothing and kept its host lane;
 6. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
    tile_dim=512, dense_density=0.001, against an exact scipy count;
 7. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
@@ -132,6 +148,15 @@ STREAM_SPLIT = 4
 TC_STREAM_SPLIT = 3
 #: one pinned host→device copy that measures the H2D rate
 H2D_PROBE_BYTES = 1 << 30
+#: phase hetero: the host lane's fixed share; PageRank's depth (iterations)
+HOST_FRACTION = 0.3
+HETERO_PR_ITERS = 5
+HETERO_PR_RTOL = 1e-5
+#: phase resilience: one fault at each seam, recovered in one iteration
+FAULTS = ("stage.assemble:raise:at(1);stage.device_put:oom:at(2);"
+          "wave.compute:raise:at(1);host.task:raise:once")
+FAULT_RETRIES = 6               # four faults in one iteration, beyond the default 3
+RESUME_STEP = 3
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
@@ -575,6 +600,16 @@ def phase_pagerank(dev, store):
             f"{1 - busy / wall:.3f}); busiest kernels {top}")
     except Exception as e:  # a measurement only; the checks above decide the phase
         say(f"phase pagerank: device time not measured ({type(e).__name__}: {e})")
+    no_recovery(plan, "pagerank")
+    # phase hetero's reference: in-core, cut to HETERO_PR_ITERS iterations
+    short = compile_plan(pagerank_algorithm(max_iters=HETERO_PR_ITERS), store, plan.schedule,
+                         device=dev, tile_dim=cfg["tile_dim"],
+                         dense_density=cfg["dense_density"])
+    pr_short = short.run()
+    no_recovery(short, "pagerank short")
+    check(pr_short.iterations == HETERO_PR_ITERS,
+          f"pagerank short: {pr_short.iterations} iterations != {HETERO_PR_ITERS}")
+    del short
 
     # time the kernel on the inputs the last iteration gave it
     ctx = plan.context
@@ -603,7 +638,7 @@ def phase_pagerank(dev, store):
         f"correlation {corr:.3f}, largest rectangle {float((rows * cols).max()):.0f} elements; "
         f"whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents "
         f"{whole_ms:.4f} ms")
-    return plan, rec, res
+    return plan, rec, res, pr_short.result
 
 
 def phase_bfs(dev, store, schedule):
@@ -621,6 +656,8 @@ def phase_bfs(dev, store, schedule):
              for d in ("push", "pull", "auto")}
     runs = {d: plan.run() for d, plan in plans.items()}
     launches = registry.launch_counts()
+    for d, plan in plans.items():
+        no_recovery(plan, f"bfs {d}")
     for d, r in runs.items():
         say(f"phase bfs: {d} {r.iterations} levels in {r.seconds * 1e3:.1f} ms, "
             f"decisions {r.schedule_stats['direction']['decisions']}")
@@ -713,6 +750,7 @@ def phase_tc(dev):
     registry.reset_launch_counts()
     res = plan.run()
     launches = registry.launch_counts()
+    no_recovery(plan, "tc")
     check(launches["tc_tiles"] > 0, "tc_tiles never launched on the TC path")
     a = sp.csr_matrix((np.ones(dag.m, np.int64), dag.indices, dag.indptr), shape=(dag.n, dag.n))
     want = int((a @ a).multiply(a).sum())
@@ -815,7 +853,9 @@ def phase_algorithms(dev, store):
     labels = {}
     for name, alg in (("sv", sv_algorithm()), ("afforest", afforest_algorithm())):
         r0 = rounds.value
-        res = compile_plan(alg, store, device=dev).run()
+        plan = compile_plan(alg, store, device=dev)
+        res = plan.run()
+        no_recovery(plan, name)
         check(same_partition(res.result, want), f"{name} components != scipy's")
         labels[name] = res.result
         cc_ms = res.seconds * 1e3 / res.iterations
@@ -863,6 +903,24 @@ def quarter_budget(alg, store, schedule, split):
     return int(fp.sum()) // split
 
 
+def no_recovery(plan, what: str) -> None:
+    """A fault-free plan detected no failure, demoted no wave and kept its
+    host lane: nothing fell back to the host's plain kernels."""
+    r = plan._resil
+    check(r.detected == 0 and r.demotions == 0 and r.host_failovers == 0
+          and not any(a["action"] == "host_disable" for a in r.actions),
+          f"{what}: a fault-free run recovered from a failure: {r.snapshot()}")
+
+
+def hetero_line(het) -> str:
+    return (f"host_fraction {het['host_fraction']!r} resolved to split "
+            f"{het['resolved_split']:.4f}: {het['host_tasks']} host tasks in "
+            f"{het['host_units']} units ({het['host_tasks_executed']} executed), "
+            f"{het['device_tasks']} device tasks, refreshes {het['refreshes']}, host ratio "
+            f"{het['host_ratio']:.4g} (measured {het['host_ratio_measured']}), makespan "
+            f"device {het['makespan']['device_s']:.3f} s, host {het['makespan']['host_s']:.3f} s")
+
+
 def wave_context(plan, w):
     """Wave ``w``'s context on the card, staged as the run stages it."""
     recipe = plan._slabs[w]
@@ -872,7 +930,9 @@ def wave_context(plan, w):
 
 def stream_run(dev, name, alg, store, budget, rate, incore_ms, **kw):
     """Compile and run one streamed plan; checks the budget and memory
-    invariants and prints the phase line.  Returns (plan, result, launches)."""
+    invariants and that nothing was recovered, and prints the phase line
+    and what the host lane resolved to.  Returns (plan, result, launches,
+    summary)."""
     import torch
     from repro_torch.core import compile_plan
     from repro_torch.kernels import registry
@@ -893,6 +953,7 @@ def stream_run(dev, name, alg, store, budget, rate, incore_ms, **kw):
           f"stream {name}: a wave's staged bytes + workspace exceed the budget {budget}")
     limit = plan.resident_device_bytes + (plan.pipeline_depth + 1) * budget
     check(peak <= limit, f"stream {name}: max_memory_allocated {peak} > {limit}")
+    no_recovery(plan, f"stream {name}")
     per_iter = sum(st["bytes_per_wave"])
     steady = (st["overlapped_wall_seconds"] / st["overlapped_iterations"] * 1e3
               if st["overlapped_iterations"] else float("nan"))
@@ -910,7 +971,11 @@ def stream_run(dev, name, alg, store, budget, rate, incore_ms, **kw):
         f"{st['host_stage_overlap']:.3f}, overlap_efficiency {st['overlap_efficiency']:.3f}; "
         f"max_memory_allocated {peak / 1e9:.2f} GB (limit {limit / 1e9:.2f}); arena "
         f"{st['arena_bytes'] / 1e9:.2f} GB pinned; launches {launches}")
-    return plan, res, launches
+    say(f"phase stream {name}: {hetero_line(res.schedule_stats['hetero'])}")
+    summary = dict(budget=budget, per_iter=per_iter, steady=steady, stall=st["stall_seconds"],
+                   ms=res.seconds * 1e3 / res.iterations,
+                   overlap=st["host_stage_overlap"], waves=st["num_waves"])
+    return plan, res, launches, summary
 
 
 def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
@@ -927,11 +992,13 @@ def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
     kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
     rate = pinned_h2d_rate(dev)
     out = {}
+    runs = {}
 
     alg = pagerank_algorithm()
     budget = quarter_budget(alg, store, schedule, STREAM_SPLIT)
-    plan, res, launches = stream_run(dev, "pagerank", alg, store, budget, rate,
-                                     pagerank.seconds * 1e3 / pagerank.iterations, **kw)
+    plan, res, launches, runs["pagerank"] = stream_run(
+        dev, "pagerank", alg, store, budget, rate,
+        pagerank.seconds * 1e3 / pagerank.iterations, **kw)
     check(plan.num_waves >= 4, f"stream pagerank: {plan.num_waves} waves < 4")
     check(launches["spmv_tiles"] > 0, "stream pagerank: spmv_tiles never launched")
     g = store.graph
@@ -957,8 +1024,9 @@ def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
     src = int(np.argmax(store.degrees))
     alg = bfs_algorithm(src)
     budget = quarter_budget(alg, store, schedule, STREAM_SPLIT)
-    plan, res, launches = stream_run(dev, "bfs", alg, store, budget, rate,
-                                     bfs.seconds * 1e3 / bfs.iterations, direction="auto", **kw)
+    plan, res, launches, runs["bfs"] = stream_run(
+        dev, "bfs", alg, store, budget, rate, bfs.seconds * 1e3 / bfs.iterations,
+        direction="auto", **kw)
     check(plan.num_waves >= 4, f"stream bfs: {plan.num_waves} waves < 4")
     for k in ("parent", "dist"):
         check(np.array_equal(res.result[k], bfs.result[k]), f"stream bfs {k} != in-core")
@@ -980,12 +1048,157 @@ def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
     alg = afforest_algorithm()
     sched = build_schedule(alg, store)
     budget = quarter_budget(alg, store, sched, STREAM_SPLIT)
-    plan, res, _ = stream_run(dev, "cc", alg, store, budget, rate, cc_ms)
+    plan, res, _, runs["cc"] = stream_run(dev, "cc", alg, store, budget, rate, cc_ms)
     check(plan.num_waves >= 4, f"stream cc: {plan.num_waves} waves < 4")
     check(np.array_equal(res.result, cc), "stream cc labels != in-core")
     say("phase stream cc: labels equal in-core")
     del plan
-    return out, rate
+    return out, rate, runs
+
+
+def hetero_run(dev, name, alg, store, base, rate, incore_ms, **kw):
+    """One streamed run with the host lane at HOST_FRACTION on a phase
+    stream budget: stream_run's checks, then the split, staged bytes and
+    times printed beside the device-only run's.  Returns (result, launches)."""
+    import torch
+
+    plan, res, launches, info = stream_run(dev, f"hetero {name}", alg, store, base["budget"],
+                                           rate, incore_ms, host_fraction=HOST_FRACTION, **kw)
+    het = res.schedule_stats["hetero"]
+    check(het["enabled"] and het["host_tasks"] > 0 and het["host_tasks_executed"] > 0,
+          f"hetero {name}: the host lane ran no task: {het}")
+    check(het["resolved_split"] > 0.0, f"hetero {name}: resolved split 0")
+    say(f"phase hetero {name}: {info['waves']} device waves, {het['host_units']} host units, "
+        f"{het['host_tasks']} host tasks, resolved_split {het['resolved_split']:.4f}; staged "
+        f"{info['per_iter'] / 1e9:.3f} GB per iteration (device-only {base['per_iter'] / 1e9:.3f}); "
+        f"{info['ms']:.1f} ms per iteration, steady {info['steady']:.1f} (device-only "
+        f"{base['ms']:.1f}, steady {base['steady']:.1f}); makespan device "
+        f"{het['makespan']['device_s']:.3f} s, host {het['makespan']['host_s']:.3f} s "
+        f"(host busy {het['host_seconds']:.3f} s in all); stall {info['stall'] * 1e3:.1f} ms "
+        f"(device-only {base['stall'] * 1e3:.1f}), host_stage_overlap {info['overlap']:.3f} "
+        f"(device-only {base['overlap']:.3f}); os.cpu_count() {os.cpu_count()}, "
+        f"torch.get_num_threads() {torch.get_num_threads()}, host pool "
+        f"{plan._host_lane._pool._max_workers if plan._host_lane else 0} threads")
+    plan.close()
+    return res, launches
+
+
+def phase_hetero(dev, store, runs, rate, bfs, cc, cc_ms, pagerank, pr_short):
+    """The host lane at HOST_FRACTION beside the card's streamed waves,
+    on phase stream's budgets: CC and BFS auto bit for bit against
+    in-core, PageRank (cut to HETERO_PR_ITERS iterations) within
+    HETERO_PR_RTOL of in-core.  Returns the hetero CC labels."""
+    from repro_torch.algorithms import afforest_algorithm, bfs_algorithm, pagerank_algorithm
+
+    cfg = PAGERANK
+    kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    res, _ = hetero_run(dev, "cc", afforest_algorithm(), store, runs["cc"], rate, cc_ms,
+                        mode="sparse_only")
+    check(np.array_equal(res.result, cc), "hetero cc labels != in-core")
+    labels = res.result
+    say("phase hetero cc: labels equal in-core")
+
+    src = int(np.argmax(store.degrees))
+    res, launches = hetero_run(dev, "bfs", bfs_algorithm(src), store, runs["bfs"], rate,
+                               bfs.seconds * 1e3 / bfs.iterations, direction="auto", **kw)
+    for k in ("parent", "dist"):
+        check(np.array_equal(res.result[k], bfs.result[k]), f"hetero bfs {k} != in-core")
+    decisions = res.schedule_stats["direction"]["decisions"]
+    check(decisions == bfs.schedule_stats["direction"]["decisions"],
+          f"hetero bfs decisions {decisions} != in-core")
+    say(f"phase hetero bfs: parent, dist and decisions equal in-core ({decisions}); "
+        f"frontier_tiles launches {launches['frontier_tiles']}")
+
+    res, launches = hetero_run(dev, "pagerank", pagerank_algorithm(max_iters=HETERO_PR_ITERS),
+                               store, runs["pagerank"], rate,
+                               pagerank.seconds * 1e3 / pagerank.iterations, **kw)
+    check(res.iterations == HETERO_PR_ITERS,
+          f"hetero pagerank: {res.iterations} iterations != {HETERO_PR_ITERS}")
+    check(launches["spmv_tiles"] > 0, "hetero pagerank: spmv_tiles never launched")
+    n = store.n
+    err = np.abs(res.result.astype(np.float64) - pr_short)
+    rel = float((err / np.maximum(np.abs(pr_short), 1e-30)).max())
+    check(bool(np.allclose(res.result, pr_short, rtol=HETERO_PR_RTOL, atol=HETERO_PR_RTOL / n)),
+          f"hetero pagerank vs in-core ({HETERO_PR_ITERS} iterations): largest relative "
+          f"difference {rel}")
+    say(f"phase hetero pagerank: {HETERO_PR_ITERS} iterations within rtol {HETERO_PR_RTOL} "
+        f"(atol {HETERO_PR_RTOL}/n) of in-core: largest relative difference {rel:.2e}, L1 "
+        f"{float(err.sum()):.3e}; spmv_tiles launches on the device waves "
+        f"{launches['spmv_tiles']}")
+    return labels
+
+
+def phase_resilience(dev, store, schedule, runs, bfs, hetero_cc):
+    """Faults injected at every seam of a streamed CC run with the host
+    lane, recovered to the fault-free labels; BFS auto checkpointed and
+    resumed, streamed and in-core; a real OOM classified."""
+    import tempfile
+
+    import torch
+    from repro_torch.algorithms import afforest_algorithm, bfs_algorithm
+    from repro_torch.core import RetryPolicy, compile_plan
+    from repro_torch.core.resilience import classify
+
+    cfg = PAGERANK
+    kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    t0 = time.perf_counter()
+    plan = compile_plan(afforest_algorithm(), store, device=dev, mode="sparse_only",
+                        memory_budget=runs["cc"]["budget"], host_fraction=HOST_FRACTION,
+                        faults=FAULTS, retry_policy=RetryPolicy(max_retries=FAULT_RETRIES))
+    res = plan.run()
+    r = res.schedule_stats["resilience"]
+    check(np.array_equal(res.result, hetero_cc), "resilience cc labels != fault-free hetero cc")
+    check(r["injected"] == 4 and r["retries"] >= 4 and r["oom_repacks"] >= 1,
+          f"resilience cc counters: {r}")
+    say(f"phase resilience cc: faults {FAULTS!r} recovered in {time.perf_counter() - t0:.1f} s "
+        f"(planning included): labels equal the fault-free run; injected {r['injected']}, "
+        f"detected {r['detected']}, retries {r['retries']}, oom_repacks {r['oom_repacks']}, "
+        f"demotions {r['demotions']}, actions {[a['action'] for a in r['actions']]}; "
+        f"{plan.num_waves} waves after the re-pack")
+    plan.close()
+    del plan
+
+    src = int(np.argmax(store.degrees))
+    want = bfs.schedule_stats["direction"]["decisions"]
+    for where in ("streamed", "in-core"):
+        extra = (dict(memory_budget=runs["bfs"]["budget"]) if where == "streamed"
+                 else dict(schedule=schedule))
+        with tempfile.TemporaryDirectory(prefix="repro-ckpt-") as d:
+            t0 = time.perf_counter()
+            plan = compile_plan(bfs_algorithm(src), store, device=dev, direction="auto",
+                                checkpoint_every=1, checkpoint_dir=d, **kw, **extra)
+            full = plan.run()
+            no_recovery(plan, f"resilience bfs {where}")
+            check(full.schedule_stats["resilience"]["checkpoints"] == full.iterations,
+                  f"resilience bfs {where}: checkpoints != levels")
+            res = plan.resume(step=RESUME_STEP)
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            for k in ("parent", "dist"):
+                check(np.array_equal(res.result[k], full.result[k])
+                      and np.array_equal(res.result[k], bfs.result[k]),
+                      f"resilience bfs {where}: resumed {k} != uninterrupted")
+            got = res.schedule_stats["direction"]["decisions"]
+            check(got == want and res.iterations == full.iterations,
+                  f"resilience bfs {where}: resumed decisions {got} != {want}")
+            say(f"phase resilience bfs {where}: {full.iterations} levels checkpointed "
+                f"({size / 1e6:.1f} MB on disk), resumed from level {RESUME_STEP}: parent, "
+                f"dist and decisions equal ({time.perf_counter() - t0:.1f} s with planning)")
+            del plan
+        torch.cuda.empty_cache()
+    store._device_cache.clear()
+    torch.cuda.empty_cache()
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+        check(False, "allocating twice the card's memory succeeded")
+    except torch.cuda.OutOfMemoryError as e:
+        kind = classify(e)
+    check(kind == "oom", f"a real OutOfMemoryError classified as {kind!r}")
+    x = torch.ones(1 << 24, device=dev)
+    check(float(x.sum()) == float(1 << 24), "an allocation after the OOM failed")
+    say(f"phase resilience oom: allocating {2 * total / 1e9:.0f} GB raised OutOfMemoryError, "
+        f"classified {kind!r}; a 64 MiB allocation after it works")
 
 
 def phase_stream_tc(dev, store, schedule, incore, rate):
@@ -997,8 +1210,9 @@ def phase_stream_tc(dev, store, schedule, incore, rate):
     cfg = TC
     alg = tc_algorithm()
     budget = quarter_budget(alg, store, schedule, TC_STREAM_SPLIT)
-    plan, res, launches = stream_run(dev, "tc", alg, store, budget, rate, incore.seconds * 1e3,
-                                     tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    plan, res, launches, _ = stream_run(
+        dev, "tc", alg, store, budget, rate, incore.seconds * 1e3,
+        tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
     check(plan.num_waves >= 2, f"stream tc: {plan.num_waves} waves < 2")
     check(res.result == incore.result, f"stream tc count {res.result} != in-core {incore.result}")
     check(launches["tc_tiles"] > 0, "stream tc: tc_tiles never launched")
@@ -1228,14 +1442,16 @@ def run(dev) -> list[dict]:
                         ascending=False)
     store = build_block_store(g, cfg["p"])
     say(f"phase pagerank: graph + store {time.perf_counter() - t0:.1f} s, n {g.n}, arcs {g.m}")
-    plan, spmv, pr_res = phase_pagerank(dev, store)
+    plan, spmv, pr_res, pr_short = phase_pagerank(dev, store)
     frontier, bfs_res = phase_bfs(dev, store, plan.schedule)
     schedule = plan.schedule
     del plan
     cc, cc_ms = phase_algorithms(dev, store)
     store._device_cache.clear()     # the streamed plans hold no in-core copy
     torch.cuda.empty_cache()
-    streamed, rate = phase_stream(dev, store, schedule, pr_res, bfs_res, cc, cc_ms)
+    streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, bfs_res, cc, cc_ms)
+    hetero_cc = phase_hetero(dev, store, runs, rate, bfs_res, cc, cc_ms, pr_res, pr_short)
+    phase_resilience(dev, store, schedule, runs, bfs_res, hetero_cc)
     del store, g, schedule
     torch.cuda.empty_cache()
     tc, tc_store, tc_schedule, tc_res = phase_tc(dev)

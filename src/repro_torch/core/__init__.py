@@ -1,5 +1,6 @@
 """Core of the port: graph, partition, block store, scheduler, engine,
-and the out-of-core streaming executor."""
+the out-of-core streaming executor with its host lane, and the
+fault-tolerant runtime."""
 from .graph import (
     Graph, degree_order, erdos_renyi, from_edges, grid_road, load_binary,
     read_edge_list, rmat, save_binary, star_skew, csr_prefix,
@@ -25,6 +26,10 @@ from .membudget import (
     task_footprints,
 )
 from .stream import StreamingPlan, compile_streaming_plan
+from .faults import FaultPlan, InjectedFault, InjectedOOM
+from .resilience import (
+    HostTaskError, ResilienceStats, RetryPolicy, WorkerDeath,
+)
 from .knobs import env_flag, env_float, env_int, env_str
 
 __all__ = [
@@ -44,5 +49,7 @@ __all__ = [
     "task_footprints", "task_csr_edge_counts",
     "build_waves", "repack_waves", "TenantLedger", "batch_state_bytes",
     "StreamingPlan", "compile_streaming_plan",
+    "FaultPlan", "InjectedFault", "InjectedOOM",
+    "HostTaskError", "ResilienceStats", "RetryPolicy", "WorkerDeath",
     "env_flag", "env_float", "env_int", "env_str",
 ]

@@ -21,9 +21,14 @@ and :attr:`Plan.compile_count` counts the steps built.
 The plan runs on ``cuda`` unless the caller asks for ``device="cpu"``;
 with no card present and no device named, :func:`compile_plan` raises.
 ``memory_budget`` switches to the out-of-core streaming executor
-(:class:`~repro_torch.core.stream.StreamingPlan`).  The host lane,
-faults and checkpoints and the device mesh are not ported yet: their
-arguments raise :class:`NotImplementedError` naming the ROADMAP item.
+(:class:`~repro_torch.core.stream.StreamingPlan`), whose
+``host_fraction`` co-schedules the host CPU as a compute lane.  Both
+executors take the fault-tolerant runtime: ``faults`` (seeded
+injection, :mod:`repro_torch.core.faults`), ``retry_policy`` (the
+recovery ladder, :mod:`repro_torch.core.resilience`) and
+``checkpoint_every``/``checkpoint_dir`` with :meth:`Plan.resume`
+(:mod:`repro_torch.checkpoint`).  The device mesh is not ported yet:
+``mesh`` raises :class:`NotImplementedError` naming ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -38,22 +43,20 @@ from .blocks import BlockStore
 from .compilecache import alg_cache_key, shared_entry
 from .context import Context, HostCtx, build_context, build_host_ctx, to_device
 from .direction import DirectionController, kernels_for, resolve_direction
+from .faults import FaultPlan
 from .functors import BlockAlgorithm
+from .knobs import env_str
+from .resilience import ResilienceStats, RetryPolicy, classify
 from .scheduler import Schedule, build_schedule
 
 if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
     from .stream import StreamingPlan
 
-__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device", "reject_unported"]
+__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device", "reject_unported",
+           "resilience_config"]
 
 #: unported compile_plan arguments → the ROADMAP item that ports them
 _UNPORTED = {
-    "host_fraction": "A8 (heterogeneous host lane: stream._HostLane, "
-                     "membudget.peel_host_tasks)",
-    "faults": "A9 (faults, resilience and run checkpoints)",
-    "checkpoint_every": "A9 (faults, resilience and run checkpoints)",
-    "checkpoint_dir": "A9 (faults, resilience and run checkpoints)",
-    "retry_policy": "A9 (faults, resilience and run checkpoints)",
     "mesh": "A10 (mesh composition: core/distributed.py, stream._MeshStreamStep)",
 }
 
@@ -67,6 +70,27 @@ def reject_unported(**given) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"compile_plan({name}=...) is not ported yet: ROADMAP {_UNPORTED[name]}")
+
+
+def resilience_config(faults, retry_policy, checkpoint_every, checkpoint_dir):
+    """Validate the fault-tolerance arguments shared by both executors:
+    ``(fault plan or None, retry policy, checkpoint period (0 = off),
+    checkpoint directory)``.  ``REPRO_FAULTS`` is the environment's
+    spelling of ``faults``; an explicit argument wins.  A directory
+    alone means "checkpoint every iteration"."""
+    plan = FaultPlan.parse(faults if faults is not None else env_str("REPRO_FAULTS"))
+    if retry_policy is not None and not isinstance(retry_policy, RetryPolicy):
+        raise TypeError(
+            f"retry_policy must be a repro_torch.core.resilience.RetryPolicy; "
+            f"got {type(retry_policy).__name__}")
+    if checkpoint_every is not None and int(checkpoint_every) < 1:
+        raise ValueError(f"checkpoint_every must be >= 1; got {checkpoint_every!r}")
+    if checkpoint_every is not None and checkpoint_dir is None:
+        raise ValueError(
+            "checkpoint_every requires checkpoint_dir (where the "
+            "per-iteration snapshots persist)")
+    every = int(checkpoint_every) if checkpoint_every else (1 if checkpoint_dir else 0)
+    return plan, retry_policy or RetryPolicy(), every, checkpoint_dir
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -150,7 +174,20 @@ class Plan:
                  schedule: Schedule | None, *, device: torch.device,
                  num_devices: int, mode: str, tile_dim: int,
                  dense_frac: float, dense_density: float,
-                 share: bool = True, direction: str | None = None) -> None:
+                 share: bool = True, direction: str | None = None,
+                 faults: "str | FaultPlan | None" = None,
+                 checkpoint_every: int | None = None,
+                 checkpoint_dir: str | None = None,
+                 retry_policy: RetryPolicy | None = None) -> None:
+        # the in-core step is the "wave.compute" seam; an iteration maps
+        # its start state to the next state, so a failed attempt is
+        # retried from the same state, and checkpoints land on
+        # iteration boundaries
+        (self._faults, self._policy, self._ckpt_every,
+         self._ckpt_dir) = resilience_config(faults, retry_policy,
+                                             checkpoint_every, checkpoint_dir)
+        self._resil = ResilienceStats()
+        self._injected_pub = 0
         self.alg = alg
         self.device = device
         self.direction = resolve_direction(alg, direction)
@@ -225,13 +262,17 @@ class Plan:
         return sum(step.builds for step in self._steps.values())
 
     def run(self, store: BlockStore | None = None,
-            state: Any | None = None) -> RunResult:
+            state: Any | None = None, *,
+            _start_it: int = 0, _start_cont: bool = True,
+            _ctrl_restore: dict | None = None) -> RunResult:
         """Execute the iteration loop; see module docstring for the contract.
 
         With ``alg.after`` present, iterate while it returns True (up to
         ``max_iterations``); without it, run exactly ``max_iterations``
         steps.  ``state`` (a dict of arrays or tensors) is moved to the
-        plan's device; the default is ``alg.init_state(store)``.
+        plan's device; the default is ``alg.init_state(store)``.  The
+        underscored keywords are :meth:`resume`'s continuation protocol,
+        not public surface.
         """
         alg = self.alg
         b = self._default if store is None else self.bind(store)
@@ -242,20 +283,23 @@ class Plan:
         state = to_device(state, self.device)
         ctrl = (DirectionController(alg, self.direction, b.store.n)
                 if self._direction_requested else None)
+        if ctrl is not None and _ctrl_restore is not None:
+            restore_controller(ctrl, _ctrl_restore)
         t0 = time.perf_counter()
-        it = 0
-        cont = True
+        it = int(_start_it)
+        cont = bool(_start_cont)
         while cont and it < alg.max_iterations:
             with obs.span("iteration", lane="main", it=it, alg=alg.name):
                 if alg.before is not None:
                     state = alg.before(b.host, state, it)
                 step = (self._steps[ctrl.decide(state, it)]
                         if ctrl is not None else self._steps["push"])
-                with obs.span("compute", lane="device", it=it):
-                    state = step(b.context, state, it, b.run_dense)
+                state = self._step_resilient(step, b, state, it)
                 if alg.after is not None:
                     state, cont = alg.after(b.host, state, it)
             it += 1
+            if self._ckpt_every and (it % self._ckpt_every == 0 or not cont):
+                self._save_checkpoint(state, it, cont, ctrl)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -263,12 +307,105 @@ class Plan:
         m.counter("engine.runs").inc()
         m.counter("engine.iterations").inc(it)
         m.histogram("engine.run_seconds").observe(dt)
+        if self._faults is not None:
+            new = self._faults.injected - self._injected_pub
+            if new > 0:
+                m.counter("stream.fault_injected").inc(new)
+                self._injected_pub = self._faults.injected
         result = alg.finalize(b.store, state) if alg.finalize else state
         stats = b.schedule.stats
         if ctrl is not None:
             stats = dict(stats, direction=ctrl.stats())
+        # only runs that opted into fault tolerance (or actually
+        # recovered) grow the stats dict
+        if self._faults is not None or self._ckpt_every or self._resil.fired:
+            stats = dict(stats, resilience=self._resil.snapshot(self._faults))
         return RunResult(result=result, state=state, iterations=it,
                          seconds=dt, schedule_stats=stats)
+
+    def _step_resilient(self, step: _Step, b: _Binding, state, it: int):
+        """One step with the ``wave.compute`` fault seam and bounded
+        retry.  The step maps the iteration-start state to the next
+        state without changing its input, so a failed attempt is
+        discarded and retried from the same ``state``.
+        ``KeyboardInterrupt``/``SystemExit`` always propagate."""
+        faults, policy, res = self._faults, self._policy, self._resil
+        attempts = 0
+        while True:
+            try:
+                with obs.span("compute", lane="device", it=it):
+                    out = step(b.context, state, it, b.run_dense)
+                    if faults is not None:
+                        out = faults.fire("wave.compute", out, it=it)
+                return out
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                kind = classify(e)
+                res.detected += 1
+                attempts += 1
+                obs.instant("failure", lane="resilience", it=it, kind=kind,
+                            error=type(e).__name__)
+                if attempts > policy.max_retries:
+                    res.record("exhausted", it=it, kind=kind, attempts=attempts)
+                    raise
+                res.record("retry", it=it, kind=kind, attempts=attempts)
+                res.retries += 1
+                obs.metrics.counter("stream.fault_retries").inc()
+                obs.instant("recovery", lane="resilience", it=it, action="retry")
+
+    def _save_checkpoint(self, state, it: int, cont: bool, ctrl) -> None:
+        save_run_checkpoint(self._ckpt_dir, self._resil, state, it, cont, ctrl)
+
+    def resume(self, ckpt_dir: str | None = None, *,
+               step: int | None = None) -> RunResult:
+        """Continue from the newest (or ``step``'s) snapshot in
+        ``ckpt_dir`` (defaults to this plan's ``checkpoint_dir``).
+
+        Bit-identical for integer/boolean attributes: the loop restarts
+        at the stored iteration boundary with the stored continue flag
+        and direction-controller history.  ``RunResult.iterations``
+        stays the absolute iteration count."""
+        snap = load_run_checkpoint(self.alg, self.store,
+                                   ckpt_dir if ckpt_dir is not None else self._ckpt_dir, step)
+        return self.run(state=snap.state, _start_it=snap.it,
+                        _start_cont=snap.cont, _ctrl_restore=snap.ctrl)
+
+
+def restore_controller(ctrl: DirectionController, saved: dict) -> None:
+    """Put a snapshot's latch state and decision history back into a
+    fresh controller: its hysteresis depends on both."""
+    ctrl.current = str(saved["current"])
+    ctrl.switches = int(saved["switches"])
+    ctrl.decisions = list(saved["decisions"])
+    ctrl.densities = list(saved["densities"])
+
+
+def save_run_checkpoint(ckpt_dir: str, res: ResilienceStats, state, it: int,
+                        cont: bool, ctrl) -> None:
+    """Atomically persist ``(state, it, cont, controller state)`` after
+    iteration ``it - 1`` (:func:`repro_torch.checkpoint.save_runstate`)."""
+    from ..checkpoint.runstate import save_runstate
+
+    with obs.span("checkpoint", lane="resilience", it=it):
+        save_runstate(ckpt_dir, state, it=it, cont=cont, ctrl=ctrl)
+    res.checkpoints += 1
+    obs.metrics.counter("stream.checkpoints").inc()
+
+
+def load_run_checkpoint(alg: BlockAlgorithm, store: BlockStore, ckpt_dir: str | None,
+                        step: int | None):
+    """The snapshot a ``resume()`` continues from, in ``alg.init_state``'s
+    structure and dtypes (host arrays; ``run`` moves them)."""
+    from ..checkpoint.runstate import load_runstate
+
+    if ckpt_dir is None:
+        raise ValueError(
+            "resume() needs a checkpoint directory: pass ckpt_dir or "
+            "build the plan with checkpoint_dir=...")
+    if alg.init_state is None:
+        raise ValueError(f"{alg.name}: init_state required")
+    return load_runstate(ckpt_dir, alg.init_state(store), step=step)
 
 
 def compile_plan(
@@ -316,8 +453,30 @@ def compile_plan(
     ``rebalance_threshold`` (``"auto"``, a float, or ``None`` for off)
     and ``pipeline_depth`` (waves the staging worker assembles ahead,
     default 2; ``0`` stages synchronously) apply to it only.
-    ``host_fraction`` ``"auto"`` or ``None`` runs device-only; a
-    positive share needs the host lane (ROADMAP A8).
+
+    ``host_fraction`` (streaming only) co-schedules the host CPU as a
+    compute resource: each wave splits into a device partition and a
+    host partition, whose tasks run the algorithm's sparse kernel on CPU
+    tensors in a ``repro-host`` thread pool while the card computes its
+    waves; their partials fold through ``metadata["combine"]``, so
+    integer/bool results equal a device-only run.  ``"auto"`` (the
+    default) starts device-only and peels the light tail of each wave
+    once calibration shows the host can hide behind the device; a float
+    in ``[0, 1]`` pins the host share; ``None`` disables the lane.
+    ``schedule_stats["hetero"]`` reports the split and the makespans.
+
+    ``faults`` / ``retry_policy`` / ``checkpoint_every`` /
+    ``checkpoint_dir`` (both executors) opt into the fault-tolerant
+    runtime: ``faults`` is a seeded injection spec
+    (``"site:action[:trigger]"``, ``;``-joined, see
+    :mod:`repro_torch.core.faults`; defaults to ``REPRO_FAULTS``),
+    ``retry_policy`` a :class:`~repro_torch.core.resilience.RetryPolicy`
+    bounding the retry / shrink / demote ladder, and ``checkpoint_dir``
+    persists atomic per-iteration run snapshots every
+    ``checkpoint_every`` iterations (default every one) that
+    ``plan.resume()`` continues bit-identically for integer/bool
+    attributes.  Recoveries surface in ``schedule_stats["resilience"]``.
+    ``mesh`` is not ported yet (ROADMAP A10).
     """
     if rebalance_threshold not in (None, "auto") and memory_budget is None:
         raise ValueError(
@@ -333,8 +492,9 @@ def compile_plan(
             "host_fraction only applies to the streaming executor; pass "
             "memory_budget=... as well (the in-core Plan has no waves to "
             "split across host and device)")
-    reject_unported(mesh=mesh, faults=faults, checkpoint_every=checkpoint_every,
-                    checkpoint_dir=checkpoint_dir, retry_policy=retry_policy)
+    reject_unported(mesh=mesh)
+    resilience = dict(faults=faults, checkpoint_every=checkpoint_every,
+                      checkpoint_dir=checkpoint_dir, retry_policy=retry_policy)
     if memory_budget is not None:
         from .membudget import PIPELINE_DEPTH
         from .stream import StreamingPlan
@@ -345,10 +505,10 @@ def compile_plan(
             tile_dim=tile_dim, dense_frac=dense_frac, dense_density=dense_density,
             share=share, direction=direction, rebalance_threshold=rebalance_threshold,
             pipeline_depth=PIPELINE_DEPTH if pipeline_depth is None else pipeline_depth,
-            host_fraction=host_fraction)
+            host_fraction=host_fraction, **resilience)
     return Plan(
         alg, store, schedule,
         device=resolve_device(device), num_devices=num_devices, mode=mode,
         tile_dim=tile_dim, dense_frac=dense_frac,
         dense_density=dense_density, share=share, direction=direction,
-    )
+        **resilience)

@@ -82,6 +82,16 @@ class Schedule:
                        num_tasks=int(ids.size)),
         )
 
+    def weight_share(self, task_ids) -> float:
+        """Fraction of the schedule's total E-estimate weight carried by
+        ``task_ids`` — how the heterogeneous executor reports its
+        resolved host/device split ratio in ``schedule_stats``."""
+        total = float(self.weights.sum())
+        if total <= 0.0:
+            return 0.0
+        ids = np.asarray(task_ids, dtype=np.int64)
+        return float(self.weights[ids].sum()) / total
+
     def makespan_ratio(self) -> float:
         """LPT makespan / ideal (mean) load — straggler headroom metric."""
         loads = np.zeros(self.num_devices)

@@ -52,17 +52,52 @@ rectangles' extents are computed on the device from the staged tile
 origins and a resident per-stripe width table, so the staged bytes stay
 those of the reference's footprint model.
 
-Not ported yet, each raising :class:`NotImplementedError` naming its
-ROADMAP item: the host compute lane and a numeric ``host_fraction > 0``
-(A8); the retry ladder, fault injection and checkpoints (A9); the
-device mesh (A10).  ``host_fraction="auto"`` and ``None`` run
-device-only, as the reference's ``"auto"`` does until calibration.
+Heterogeneous co-scheduling — ``host_fraction``
+-----------------------------------------------
+The host CPU is a compute resource, not only a staging engine: each
+wave splits into a *device partition* (the streamed pipeline above)
+and a *host partition* — the lightest/sparsest tasks peeled off by
+:func:`repro_torch.core.membudget.peel_host_tasks` into host execution
+units that run the algorithm's sparse kernel on CPU tensors
+(:class:`_HostLane`, a ``concurrent.futures`` pool of ``repro-host``
+threads) while the card computes its waves.  The kernels' wrappers
+dispatch the units' CPU tensors to their plain versions
+(:data:`repro_torch.kernels.ref.HOST_EXECUTABLE`).  Host tasks are
+never copied to the card, so they do not touch the memory budget;
+their partials go to the card once per iteration and fold through the
+same ``metadata["combine"]`` contract as device waves, so integer/bool
+results equal a device-only run.  ``host_fraction`` is ``"auto"`` by
+default — zero split until the calibration pass measures device waves
+above a noise floor (``REPRO_HETERO_NOISE_FLOOR_S``, 10 ms), then a
+hide-behind-the-device split with a probe-measured host rate and
+hysteresis — or a fixed float in [0, 1]; ``None`` disables the lane.
+``schedule_stats["hetero"]`` carries the split, the host/device task
+counts and the per-resource makespans.
+
+Fault tolerance — ``faults``, ``retry_policy``, ``checkpoint_*``
+---------------------------------------------------------------
+Seeded fault injection (:mod:`repro_torch.core.faults`) fires at the
+seams ``stage.assemble``, ``stage.device_put``, ``wave.compute`` and
+``host.task``.  A failed iteration re-runs from its start state under
+the recovery ladder of :mod:`repro_torch.core.resilience`: a plain
+retry; on an OOM a re-pack under a shrunk effective budget, then the
+offending wave demoted to the host lane; on a dead staging worker,
+synchronous assembly; on repeated host failures, device-only.  Before
+a retry every in-flight resource is quiesced: the staging worker
+stopped, the host futures waited out, both streams synchronised, the
+pinned buffers returned only after their copies landed, and after a
+real ``torch.cuda.OutOfMemoryError`` the allocator's cache emptied.
+``checkpoint_dir`` writes a run snapshot at iteration boundaries that
+:meth:`StreamingPlan.resume` continues.  The device mesh
+(``mesh.collective``) waits for ROADMAP A10.
 
 Entry point: ``compile_plan(alg, store, memory_budget=...)`` returns a
 :class:`StreamingPlan` instead of a :class:`~repro_torch.core.engine.Plan`.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import os
 import queue
 import threading
 import time
@@ -79,22 +114,28 @@ from .context import Context, build_host_ctx, to_device, with_arrays
 from .direction import (
     DirectionController, kernels_for, resolve_direction, workspace_kernels,
 )
+from .faults import FaultPlan
 from .functors import BlockAlgorithm
 from .graph import csr_prefix
+from .knobs import env_float
 from .membudget import (
-    MemoryBudget, PIPELINE_DEPTH, Wave, arena_model_bytes, bucket_size,
-    build_waves, repack_waves, resident_bytes, split_wave, task_footprints,
-    tree_array_bytes, tree_leaves as _leaves,
+    HOST_RATIO_DEFAULT, MemoryBudget, PIPELINE_DEPTH, Wave, arena_model_bytes,
+    bucket_size, build_waves, hetero_split_diverged, peel_host_tasks, repack_waves,
+    resident_bytes, split_wave, task_footprints, tree_array_bytes,
+    tree_leaves as _leaves,
 )
+from .resilience import HostTaskError, ResilienceStats, RetryPolicy, WorkerDeath, classify
 from .scheduler import Schedule, build_schedule
-from .engine import RunResult, reject_unported
+from .engine import (
+    RunResult, load_run_checkpoint, reject_unported, resilience_config,
+    restore_controller, save_run_checkpoint,
+)
 
 __all__ = ["StreamingPlan", "compile_streaming_plan", "PHASES"]
 
 #: Per-wave pipeline phases, in execution order — also the
 #: ``stream.phase_seconds.<phase>`` metric-name suffixes.  ``collective``
-#: and ``host_compute`` stay 0 until the mesh (A10) and the host lane
-#: (A8) are ported.
+#: stays 0 until the mesh (ROADMAP A10) is ported.
 PHASES = ("assemble", "prepare", "device_put", "compute", "collective",
           "host_compute")
 
@@ -108,6 +149,21 @@ _CSR_MODES = ("resident", "slice", "none")
 _REBALANCE_HI = 2.0
 _REBALANCE_LO = 1.5
 _REBALANCE_NOISE_FLOOR_S = 10e-3
+
+
+
+def _hetero_noise_floor_s() -> float:
+    """Below this mean device-wave time the ``"auto"`` host split stays
+    at zero: dispatch jitter dominates, so peeling would be decided by
+    noise.  ``REPRO_HETERO_NOISE_FLOOR_S`` overrides."""
+    return env_float("REPRO_HETERO_NOISE_FLOOR_S", _REBALANCE_NOISE_FLOOR_S)
+
+
+def _hetero_host_ratio_default() -> float:
+    """Assumed host-vs-device slowdown before the host lane has been
+    measured; ``REPRO_HETERO_HOST_RATIO`` overrides."""
+    return env_float("REPRO_HETERO_HOST_RATIO", HOST_RATIO_DEFAULT)
+
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
                  np.dtype(np.bool_): torch.bool, np.dtype(np.float32): torch.float32}
@@ -278,13 +334,16 @@ class _StagePipeline:
     slab is drained.  ``assemble_s`` is the worker's busy time,
     ``stall_s`` the main loop's time blocked on the queue.  The worker
     only gathers numpy arrays; it never touches the card.  If it dies,
-    :meth:`get` raises its exception."""
+    :meth:`get` raises :class:`~repro_torch.core.resilience.WorkerDeath`
+    carrying its exception, and the retry ladder fails over to
+    synchronous assembly."""
 
     def __init__(self, plan: "StreamingPlan", depth: int) -> None:
         self._q: queue.Queue = queue.Queue(maxsize=max(int(depth), 1))
         self._cmd: queue.Queue = queue.Queue()
         self.assemble_s = 0.0
         self.stall_s = 0.0
+        self.dead = False
         self._err: BaseException | None = None
         self._t = threading.Thread(target=self._work, args=(plan,),
                                    name="repro-staging", daemon=True)
@@ -314,7 +373,8 @@ class _StagePipeline:
         slab = self._q.get()
         self.stall_s += time.perf_counter() - t0
         if slab is None:
-            raise self._err
+            self.dead = True
+            raise WorkerDeath(self._err)
         return slab
 
     def close(self, arena: _HostArena) -> None:
@@ -331,6 +391,176 @@ class _StagePipeline:
             if slab is not None:
                 arena.give(*slab.arena_arrays)
         self._t.join(timeout=5.0)
+
+
+# ----------------------------------------------------------------------
+def _cpu_tensor(name: str, a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor (shared memory), integers as int32
+    like the card's copy of the store."""
+    a = np.ascontiguousarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        a = _to_int32(name, a)
+    return torch.from_numpy(a)
+
+
+def _host_value(t) -> np.ndarray:
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class _HostLane:
+    """The host-CPU compute lane of heterogeneous co-scheduling.
+
+    Each execution *unit* is one wave's peeled ``host_task_ids``
+    (:func:`repro_torch.core.membudget.peel_host_tasks`).  A unit's
+    context is built once — the unit's COO slice gathered from the host
+    store, the global CSR views shared across every unit, and the
+    algorithm's ``prepare`` outputs for the unit's restricted
+    sub-schedule — with every tensor on the CPU, and the sparse kernel
+    runs on them in a ``concurrent.futures`` pool of ``repro-host``
+    threads while the card streams its own waves.  Nothing here is ever
+    copied to the card but the folded partials: host units never touch
+    the memory budget.
+
+    Peeled dense tasks run the sparse formulation on the host — each
+    unit's sub-schedule clears its dense routing masks, and the two
+    paths agree per block-list, so results stay bit-identical for
+    integer/bool attributes.  Per-unit updates fold through the same
+    ``metadata["combine"]`` contract as device waves (``add`` folds the
+    delta from iteration-start state, ``min``/``max`` fold elementwise;
+    a leaf the kernel returns as the same tensor object is passed
+    through).
+
+    ``prepare`` runs against the *global* store view (``plan=None``), so
+    host-computed positions index the global CSR the host already
+    holds; nothing is sliced or rebased for the host lane.  The pool
+    holds ``min(units, cpu_count - 1)`` threads.
+    """
+
+    def __init__(self, plan: "StreamingPlan", units: list[np.ndarray]) -> None:
+        self.plan = plan
+        self.units = [np.asarray(u, np.int64) for u in units]
+        self._spec = _combine_spec(plan.alg)
+        store = plan.store
+        t0 = time.perf_counter()
+        # the global CSR views, shared by every unit context
+        self._globals = {k: _cpu_tensor(k, v) for k, v in dict(
+            indptr=store.indptr, indices=store.indices, degrees=store.degrees,
+            row_block_ptr=store.row_block_ptr, cuts=store.layout.cuts).items()}
+        self._ctxs = [self._unit_context(ids) for ids in self.units]
+        plan._phase["prepare"] += time.perf_counter() - t0
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(len(self.units), max(1, (os.cpu_count() or 2) - 1)),
+            thread_name_prefix="repro-host")
+
+    def _unit_context(self, ids: np.ndarray) -> Context:
+        plan = self.plan
+        store, sched = plan.store, plan.schedule
+        hsched = sched.restrict(ids)
+        # peeled dense tasks run the sparse formulation on the host:
+        # clearing the routing masks sends every edge down the sparse
+        # path and keeps prepare from bucketing dense-path work
+        hsched.dense_task_mask = np.zeros(hsched.num_tasks, bool)
+        hsched.dense_block_ids = np.zeros(0, np.int32)
+        idx = segment_index(store.edge_segments(np.unique(hsched.blocklists)))
+        extras = {}
+        if plan.alg.prepare is not None:
+            extras = _to_host(plan.alg.run_prepare(store, hsched, None))
+            extras.pop("__workspace_bytes__", None)
+        cpu = torch.device("cpu")
+        ne = int(idx.size)
+        return Context(
+            src=_cpu_tensor("src", store.src[idx]),
+            dst=_cpu_tensor("dst", store.dst[idx]),
+            edge_block=_cpu_tensor("edge_block", store.edge_block[idx]),
+            sparse_edge_mask=torch.ones(ne, dtype=torch.bool),
+            dense_edge_mask=torch.zeros(ne, dtype=torch.bool),
+            extras=to_device(extras, cpu), n=store.n, m=store.m, p=store.p,
+            tile_dim=sched.tile_dim, device=cpu, **self._globals)
+
+    def submit(self, state0: dict, it: int, direction: str = "push") -> list:
+        """Snapshot the iteration-start state to the host and dispatch
+        every unit into the pool; returns futures for :meth:`fold`.
+
+        ``direction`` selects the sparse kernel variant: the host lane
+        runs the same direction as the device waves of the iteration."""
+        hstate = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in state0.items()}
+        kernel, _ = kernels_for(self.plan.alg, direction)
+        return [self._pool.submit(self._run_unit, u, hstate, it, kernel)
+                for u in range(len(self.units))]
+
+    def _run_unit(self, u: int, hstate: dict, it: int, kernel):
+        try:
+            return self._run_unit_inner(u, hstate, it, kernel)
+        except HostTaskError:
+            raise
+        except Exception as e:
+            # the blame is attached here, where unit, tasks and
+            # iteration are known
+            raise HostTaskError(u, self.units[u].tolist(), it, e) from e
+
+    def _run_unit_inner(self, u: int, hstate: dict, it: int, kernel):
+        alg = self.plan.alg
+        faults = self.plan._faults
+        t0 = time.perf_counter()
+        with obs.span("host_compute", lane="host-compute", unit=u,
+                      tasks=int(self.units[u].size)):
+            if faults is not None:
+                faults.fire("host.task", unit=u)
+            new = kernel(self._ctxs[u], hstate, it)
+        added = set(new) - set(hstate)
+        if added:
+            raise ValueError(
+                f"{alg.name}: kernels added state leaves {sorted(added)}; "
+                f"streaming requires kernels to write only leaves present in "
+                f"init_state (declare scratch attributes there)")
+        payload = {}
+        for key, s0 in hstate.items():
+            nw = new[key]
+            if nw is s0:
+                continue
+            kind = self._spec(key)
+            if kind not in _COMBINE_KINDS:
+                raise ValueError(
+                    f"state leaf {key!r} is modified by the kernels but "
+                    f"declares no combine kind in metadata['combine'] (one of "
+                    f"{_COMBINE_KINDS}); the host lane cannot fold its per-unit "
+                    f"partial results")
+            payload[key] = (kind, _host_value(nw - s0 if kind == "add" else nw))
+        return payload, time.perf_counter() - t0
+
+    def fold(self, results: list, acc: dict) -> tuple[dict, float]:
+        """Merge every unit's payload (in unit order — deterministic) on
+        the host and fold it ONCE into the accumulator on the plan's
+        device, with :func:`_combine_leaf`'s semantics: exact for
+        integer/boolean attributes, up to summation order for floats."""
+        merged: dict[str, tuple[str, np.ndarray]] = {}
+        busy_s = 0.0
+        for payload, dt in results:
+            busy_s += dt
+            for key, (kind, val) in payload.items():
+                if key not in merged:
+                    merged[key] = (kind, val)
+                elif kind == "add":
+                    merged[key] = (kind, merged[key][1] + val)
+                elif kind == "min":
+                    merged[key] = (kind, np.minimum(merged[key][1], val))
+                else:
+                    merged[key] = (kind, np.maximum(merged[key][1], val))
+        out = dict(acc)
+        for key, (kind, val) in merged.items():
+            v = to_device(np.asarray(val), self.plan.device)
+            if kind == "add":
+                out[key] = acc[key] + v
+            elif kind == "min":
+                out[key] = torch.minimum(acc[key], v)
+            else:
+                out[key] = torch.maximum(acc[key], v)
+        return out, busy_s
+
+    def close(self, wait: bool = False) -> None:
+        """Shut the pool down; ``wait=True`` joins the worker threads."""
+        self._pool.shutdown(wait=wait, cancel_futures=True)
 
 
 # ----------------------------------------------------------------------
@@ -436,7 +666,13 @@ class StreamingPlan:
                  rebalance_threshold: "float | str | None" = "auto",
                  pipeline_depth: int = PIPELINE_DEPTH,
                  share: bool = True, host_fraction: "float | str | None" = "auto",
-                 direction: str | None = None, **unported) -> None:
+                 direction: str | None = None,
+                 faults: "str | FaultPlan | None" = None,
+                 checkpoint_every: int | None = None,
+                 checkpoint_dir: str | None = None,
+                 retry_policy: RetryPolicy | None = None, **unported) -> None:
+        from ..kernels.registry import host_executable
+
         reject_unported(**unported)
         self.alg = alg
         self.store = store
@@ -457,16 +693,51 @@ class StreamingPlan:
                 "divergence trigger), a float (compute-skew threshold), or "
                 f"None (off); got {rebalance_threshold!r}")
         self.rebalance_threshold = rebalance_threshold
+        # -- heterogeneous co-scheduling: the host CPU as a resource ---
         if not (host_fraction is None or host_fraction == "auto"
                 or isinstance(host_fraction, (int, float))):
-            raise ValueError("host_fraction must be 'auto', a float in [0, 1], "
-                             f"or None; got {host_fraction!r}")
-        if isinstance(host_fraction, (int, float)):
-            if not 0.0 <= float(host_fraction) <= 1.0:
-                raise ValueError(f"host_fraction must lie in [0, 1]; got {host_fraction!r}")
-            if float(host_fraction) > 0.0:
-                reject_unported(host_fraction=host_fraction)
+            raise ValueError(
+                "host_fraction must be 'auto' (calibrated host/device split), a "
+                "float in [0, 1] (fixed share of each wave's work peeled to the "
+                f"host CPU), or None (off); got {host_fraction!r}")
+        if (isinstance(host_fraction, (int, float))
+                and not 0.0 <= float(host_fraction) <= 1.0):
+            raise ValueError(f"host_fraction must lie in [0, 1]; got {host_fraction!r}")
+        host_flag = str(alg.metadata.get("host", "auto"))
+        if host_flag not in ("auto", "never"):
+            raise ValueError(f"{alg.name}: metadata['host'] must be 'auto' or "
+                             f"'never', got {host_flag!r}")
+        blockers = []
+        if alg.kernel_sparse is None:
+            blockers.append("the algorithm has no kernel_sparse (host units run "
+                            "the sparse formulation)")
+        if host_flag == "never":
+            blockers.append("metadata['host'] declares 'never'")
+        uncertified = [k for k in alg.metadata.get("host_kernels", ())
+                       if not host_executable(k)]
+        if uncertified:
+            blockers.append("metadata['host_kernels'] names kernels not certified "
+                            f"host-executable: {uncertified}")
+        self._host_capable = not blockers
+        if (isinstance(host_fraction, (int, float)) and float(host_fraction) > 0.0
+                and blockers):
+            raise ValueError(f"{alg.name}: host_fraction={host_fraction!r} requires "
+                             f"host-lane capability — " + "; ".join(blockers))
         self._host_frac_req = host_fraction
+        # "auto" resolves to a zero split until calibration activates
+        # it; an incapable algorithm silently stays device-only there
+        self._host_frac = (host_fraction if self._host_capable
+                           and host_fraction is not None else 0.0)
+        # -- fault tolerance: injection, retry ladder, checkpoints -----
+        (self._faults, self._policy, self._ckpt_every,
+         self._ckpt_dir) = resilience_config(faults, retry_policy,
+                                             checkpoint_every, checkpoint_dir)
+        self._resil = ResilienceStats()
+        self._injected_pub = 0          # injections already published
+        self._sync_iters_left = 0       # transient sync-assembly window
+        self._worker_deaths = 0
+        self._host_failures = 0
+        self._host_futs: list | None = None   # in-flight host futures
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.schedule = schedule or build_schedule(
             alg, store, num_devices=num_devices, mode=mode, tile_dim=tile_dim,
@@ -491,7 +762,16 @@ class StreamingPlan:
         self._footprints = task_footprints(
             store, self.schedule, workspace_kernel=self._workspace_decl,
             stage_csr=self._csr_mode == "slice")
-        waves = build_waves(store, self.schedule, self.budget, self._footprints)
+        self._host_ratio = _hetero_host_ratio_default()
+        self._host_units: list[np.ndarray] = []
+        self._host_lane: _HostLane | None = None
+        self._host_seconds = 0.0
+        self._last_host_busy_s = 0.0
+        self._host_tasks_executed = 0
+        self._host_measured = False
+        self._hetero_refreshes = 0
+        waves = build_waves(store, self.schedule, self.budget, self._footprints,
+                            host_fraction=self._host_frac, host_ratio=self._host_ratio)
         self._apply_waves(waves, initial=True)
         # the one-time planning pass's host cost (per-wave prepare)
         self._planning_phase = dict(self._phase)
@@ -517,9 +797,32 @@ class StreamingPlan:
 
     # -- build side (planning pass) ------------------------------------
     def _apply_waves(self, waves: list[Wave], *, initial: bool = False) -> None:
-        """Install a packed wave list (empty waves vanish)."""
+        """Install a packed wave list: device tasks stay in the streaming
+        pipeline (empty waves vanish), peeled ``host_task_ids`` become
+        host-lane execution units, and the lane (thread pool + per-unit
+        CPU contexts) is rebuilt."""
+        if self._host_lane is not None:
+            self._host_lane.close()
+            self._host_lane = None
+        self._host_units = [w.host_task_ids for w in waves if w.host_task_ids.size]
         self._slabs = self._plan_recipes([w for w in waves if w.task_ids.size],
                                          initial=initial)
+        if (self._host_units and not self._slabs and not self._hoisted
+                and self.alg.prepare is not None
+                and (self.alg.post is not None
+                     or int(self.alg.metadata.get("edge_free_iterations", 0)) > 0)):
+            # fully host-peeled plan (host_fraction=1.0): post and the
+            # edge-free phase still run against the resident context,
+            # whose extras are normally hoisted from the device waves'
+            # prepare outputs; no device wave exists here, so prepare
+            # runs once against the full store instead
+            extras = _to_host(self.alg.run_prepare(self.store, self.schedule,
+                                                   self._plan_state))
+            extras.pop("__workspace_bytes__", None)
+            self._resident_extras = extras
+            self._hoisted = True
+        if self._host_units:
+            self._host_lane = _HostLane(self, self._host_units)
         self.schedule.stats["waves"] = len(self._slabs)
 
     def _plan_recipes(self, waves: list[Wave], *,
@@ -643,6 +946,10 @@ class StreamingPlan:
         outputs are cached on the recipe; byte accounting is pinned to
         the recipe's planned numbers."""
         with obs.span("assemble", lane="staging", wave=wave, bytes=recipe.staged_bytes):
+            if self._faults is not None:
+                # fires on whichever thread assembles: a raise in the
+                # background worker surfaces as WorkerDeath at get()
+                self._faults.fire("stage.assemble", wave=wave)
             slab = self._assemble(recipe.wave, extras=recipe.extras, alloc=self._arena.take)
         slab.staged_bytes = recipe.staged_bytes
         slab.workspace_bytes = recipe.workspace_bytes
@@ -899,8 +1206,22 @@ class StreamingPlan:
             wts = self.schedule.weights[ids].astype(np.float64)
             tot = float(wts.sum())
             task_t[ids] = (t_w * wts / tot) if tot > 0 else t_w / ids.size
-        self._apply_waves(repack_waves(self.schedule, self.budget,
-                                       self._footprints, task_t))
+        if self._host_units:
+            # host tasks never ran on the device: give them device-
+            # equivalent times at the measured device rate so the
+            # re-pack sees the whole schedule, then re-peel to keep the
+            # standing host/device split across the new packing
+            dev_w = float(sum(self.schedule.weights[s.wave.task_ids].sum()
+                              for s in self._slabs))
+            dev_rate = float(times.sum()) / dev_w if dev_w > 0 else 0.0
+            for ids in self._host_units:
+                task_t[ids] = self.schedule.weights[ids] * dev_rate
+        new_waves = repack_waves(self.schedule, self.budget, self._footprints, task_t)
+        if self._host_units:
+            new_waves = peel_host_tasks(self.schedule, new_waves, self._host_frac,
+                                        task_times=task_t, host_ratio=self._host_ratio,
+                                        footprints=self._footprints)
+        self._apply_waves(new_waves)
         self._edge_free_bufs = None     # stale slab-0 reference
         self._rebalanced = True
         obs.metrics.counter("stream.rebalances").inc()
@@ -969,7 +1290,11 @@ class StreamingPlan:
                          if isinstance(l, np.ndarray) else l, tree)
 
     def _put_slab(self, slab: _WaveSlab, *, wave: int = -1) -> _Staged:
-        """Stage 2: one host→device copy of an assembled wave slab."""
+        """Stage 2: one host→device copy of an assembled wave slab.  The
+        ``stage.device_put`` seam fires here, on the thread that issues
+        the copy and before anything is queued on the copy stream."""
+        if self._faults is not None:
+            self._faults.fire("stage.device_put", wave=wave)
         self._bytes_staged += slab.staged_bytes
         arrays = dict(src=slab.src, dst=slab.dst, edge_block=slab.edge_block,
                       sparse_edge_mask=slab.sparse_mask, dense_edge_mask=slab.dense_mask)
@@ -1023,8 +1348,13 @@ class StreamingPlan:
         """Stage 3: run one staged wave's step."""
         recipe = self._slabs[w]
         with obs.span("compute", lane="device", wave=w):
-            return self._active_step()(self._wave_context(staged, recipe.nd),
-                                       state0, acc, it, recipe.run_dense)
+            out = self._active_step()(self._wave_context(staged, recipe.nd),
+                                      state0, acc, it, recipe.run_dense)
+        if self._faults is not None:
+            # firing on the accumulator lets `corrupt` damage the wave's
+            # folded partial; recovery must discard it
+            out = self._faults.fire("wave.compute", out, wave=w)
+        return out
 
     def _calibrate(self, state0, acc, it: int):
         """The synchronous first iteration: a warm-up pass over every
@@ -1100,23 +1430,43 @@ class StreamingPlan:
         return self._active_step()(ctx, state0, state0, it, run_dense)
 
     def _run_waves(self, state0, it: int):
-        """One iteration's kernel work: the three-stage pipeline over every
-        wave, folding partials; calibration (synchronous, timed) on the
-        first executed iteration, pipelined overlap afterwards.  Returns
-        ``(state, wall seconds of an overlapped iteration or 0)``."""
+        """One iteration's kernel work: the host units dispatched first,
+        then the three-stage pipeline over every device wave, folding
+        partials; calibration (synchronous, timed) on the first executed
+        iteration, pipelined overlap afterwards.  Returns ``(state, wall
+        seconds of an overlapped iteration or 0)``."""
         nw = len(self._slabs)
+        lane = self._host_lane
+        if nw == 0 and lane is None:
+            return state0, 0.0
         if it < self._edge_free:
+            # a fully host-peeled plan runs the edge-free kernel once on
+            # the resident context: it is full-vertex, so that is the
+            # whole iteration and the host lane idles
             return self._run_edge_free(state0, it), 0.0
         self._edge_free_bufs = None     # released once edge work begins
         self._prefix_dev = None
+        # host units dispatch FIRST: they run while the card computes the
+        # device waves and are gathered after them (both partitions judge
+        # the same iteration-start state; folding is partition-invariant)
+        host_futs = lane.submit(state0, it, self._direction_now) if lane is not None else None
+        # stashed so that a failure anywhere in the wave loop can wait the
+        # in-flight host work out before the iteration retries
+        self._host_futs = host_futs
         if nw == 0:
-            return state0, 0.0
+            return self._gather_host(host_futs, state0), 0.0
         if self._calibration is None:
-            return self._calibrate(state0, state0, it), 0.0
+            # gather the host partials BEFORE the timed calibration pass:
+            # the host threads stop competing with the phase timings, and
+            # a rebalance fired inside _calibrate may rebuild the lane
+            acc = self._gather_host(host_futs, state0)
+            acc = self._calibrate(state0, acc, it)
+            self._maybe_refresh_split(it)
+            return acc, 0.0
         t0 = time.perf_counter()
         put0 = self._phase["device_put"]
         pipe = self._pipe
-        if pipe is None and self.pipeline_depth > 0:
+        if pipe is None and self.pipeline_depth > 0 and self._sync_iters_left == 0:
             # persistent worker, created at the first overlapped iteration
             pipe = self._pipe = _StagePipeline(self, self.pipeline_depth)
             pipe.request(range(nw))
@@ -1127,7 +1477,8 @@ class StreamingPlan:
         def next_slab(i: int) -> _WaveSlab:
             nonlocal fetched
             if pipe is None:
-                # synchronous baseline (pipeline_depth=0)
+                # synchronous baseline (pipeline_depth=0, or the fail-over
+                # after the staging worker died)
                 ta = time.perf_counter()
                 s = self._assemble_runtime(self._slabs[i], wave=i)
                 self._phase["assemble"] += time.perf_counter() - ta
@@ -1145,6 +1496,11 @@ class StreamingPlan:
         staged = self._put_slab(slab, wave=0)
         before = None           # wave w-1's end on the compute stream
         for w in range(nw):
+            # fail fast: a host unit that already failed aborts the
+            # iteration now, not after every device wave has streamed
+            for f in host_futs or ():
+                if f.done() and f.exception() is not None:
+                    raise f.exception()
             acc = self._step_wave(w, staged, state0, acc, it)
             done = self._mark() if self._copy_stream is not None else None
             self._park_for_recycle(slab, staged)
@@ -1158,6 +1514,9 @@ class StreamingPlan:
                 staged = self._put_slab(slab, wave=w + 1)
             before = done
         del staged
+        # the host partition ran during the loop above; any overhang past
+        # the last device wave is waited out here, inside the wall clock
+        acc = self._gather_host(host_futs, acc)
         self._sync()
         self._drain_recycle(force=True)
         wall = time.perf_counter() - t0
@@ -1172,15 +1531,284 @@ class StreamingPlan:
         self._phase["compute"] += max(wall - put_d - stall, 0.0)
         return acc, wall
 
-    def _run_waves_resilient(self, state0, it: int):
-        """One iteration's wave work.  The reference wraps it in a retry
-        ladder (OOM re-pack, worker fail-over, demotion); until ROADMAP
-        A9 ports it, a failure propagates."""
-        return self._run_waves(state0, it)
+    def _gather_host(self, futs, acc):
+        """Wait on the host lane's unit futures and fold their partials
+        into the running accumulator; publishes the host metrics."""
+        if futs is None:
+            return acc
+        results = [f.result() for f in futs]
+        self._host_futs = None
+        acc, busy_s = self._host_lane.fold(results, acc)
+        self._phase["host_compute"] += busy_s
+        self._host_seconds += busy_s
+        self._last_host_busy_s = busy_s
+        ntasks = int(sum(u.size for u in self._host_units))
+        self._host_tasks_executed += ntasks
+        obs.metrics.counter("stream.host_tasks").inc(ntasks)
+        obs.metrics.counter("stream.host_seconds").inc(busy_s)
+        return acc
 
-    def run(self, store: BlockStore | None = None, state: Any | None = None) -> RunResult:
+    # -- graceful degradation: the recovery ladder ---------------------
+    def _run_waves_resilient(self, state0, it: int):
+        """One iteration's wave work under the retry ladder.
+
+        The fast path is a bare call.  On failure, every in-flight
+        resource is quiesced, the failure is classified (oom / worker /
+        host / fault), the matching recovery reshapes the plan, and the
+        *whole iteration* re-runs from ``state0`` — partials fold from
+        iteration-start state, so a retry never double-counts.  Bounded
+        by ``RetryPolicy.max_retries``; an exhausted ladder re-raises."""
+        policy = self._policy
+        res = self._resil
+        attempts = 0
+        oom_count = 0
+        release = False
+        while True:
+            if release:
+                # the failed attempt's tensors are unreferenced now: hand
+                # the allocator's cached blocks back so that the shrunk
+                # waves can allocate
+                torch.cuda.empty_cache()
+                release = False
+            try:
+                out = self._run_waves(state0, it)
+                if self._sync_iters_left > 0:
+                    self._sync_iters_left -= 1
+                return out
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                kind = classify(e)
+                res.detected += 1
+                attempts += 1
+                obs.instant("failure", lane="resilience", it=it, kind=kind,
+                            attempt=attempts, error=f"{type(e).__name__}: {e}")
+                self._abort_inflight()
+                release = (isinstance(e, torch.cuda.OutOfMemoryError)
+                           and self._copy_stream is not None)
+                if attempts > policy.max_retries:
+                    res.record("exhausted", it=it, kind=kind)
+                    raise
+                if kind == "oom":
+                    oom_count += 1
+                    if oom_count >= policy.demote_after and self._host_capable:
+                        self._demote_wave(e)
+                        res.demotions += 1
+                        obs.metrics.counter("stream.fault_demotions").inc()
+                        res.record("demote", it=it, oom_count=oom_count)
+                    else:
+                        self._shrink_repack(oom_count)
+                        res.oom_repacks += 1
+                        res.record("oom_repack", it=it, factor=policy.backoff ** oom_count)
+                elif kind == "worker":
+                    self._worker_deaths += 1
+                    res.failovers += 1
+                    obs.metrics.counter("stream.fault_failovers").inc()
+                    if self._worker_deaths >= policy.failover_after:
+                        # the worker keeps dying: synchronous assembly
+                        # (pipeline_depth=0 semantics) becomes permanent
+                        self.pipeline_depth = 0
+                        res.record("failover_permanent", it=it, deaths=self._worker_deaths)
+                    else:
+                        self._sync_iters_left = 1
+                        res.record("failover_sync", it=it, deaths=self._worker_deaths)
+                elif kind == "host":
+                    self._host_failures += 1
+                    if self._host_failures >= policy.failover_after:
+                        self._disable_host_lane()
+                        res.host_failovers += 1
+                        res.record("host_disable", it=it, unit=getattr(e, "unit", None))
+                    else:
+                        res.record("host_retry", it=it, unit=getattr(e, "unit", None))
+                else:
+                    res.record("retry", it=it, kind=kind)
+                res.retries += 1
+                obs.metrics.counter("stream.fault_retries").inc()
+                obs.instant("recovery", lane="resilience", it=it,
+                            action=res.actions[-1]["action"])
+
+    def _abort_inflight(self) -> None:
+        """Quiesce every in-flight resource so that a retry starts clean:
+        stop the staging worker (a dead one or a live one), wait out the
+        dispatched host futures (their partials are discarded), let both
+        streams finish (copies may still be in flight on the copy stream,
+        and staged tensors are in use on the compute stream), and give
+        the parked pinned buffers back once their copies have landed."""
+        if self._pipe is not None:
+            try:
+                self._pipe.close(self._arena)
+            finally:
+                self._pipe = None
+        futs, self._host_futs = self._host_futs, None
+        for f in futs or ():
+            try:
+                f.result(timeout=60.0)
+            except Exception:
+                pass            # the retry dispatches from scratch
+        self._sync()
+        self._drain_recycle(force=True)
+
+    def _shrink_repack(self, oom_count: int) -> None:
+        """Device OOM: re-pack the device waves under an exponentially
+        shrunk *effective* capacity (``budget × backoff**oom_count``), so
+        each wave stages less at once.  The per-task bound is never
+        relaxed — ``_fit_slabs`` still verifies every rebuilt wave
+        against the ORIGINAL budget.  The host partition is kept."""
+        eff = self.budget.scaled(self._policy.backoff ** oom_count)
+        task_t = self.schedule.weights.astype(np.float64)
+        packed = repack_waves(self.schedule, eff, self._footprints, task_t)
+        host_ids = (np.concatenate(self._host_units) if self._host_units
+                    else np.zeros(0, np.int64))
+        waves: list[Wave] = []
+        for w in packed:
+            dev = w.task_ids[~np.isin(w.task_ids, host_ids)]
+            if dev.size:
+                waves.append(Wave(task_ids=dev, est_bytes=int(self._footprints[dev].sum())))
+        waves += [Wave(task_ids=np.zeros(0, np.int64), est_bytes=0, host_task_ids=ids)
+                  for ids in self._host_units]
+        self._apply_waves(waves)
+        self._calibration = None        # re-time the re-packed queue
+        self._edge_free_bufs = None     # stale slab-0 reference
+
+    def _demote_wave(self, exc: BaseException) -> None:
+        """Repeated OOM: move the offending wave's tasks to the host lane
+        wholesale (they are never staged there, so they stop pressing on
+        device memory).  The wave is named by the failure's ``wave=``
+        context when it has one, else the largest staged slab takes the
+        blame."""
+        if not self._slabs:
+            return
+        w = None
+        ctx = getattr(exc, "ctx", None)
+        if isinstance(ctx, dict):
+            cw = ctx.get("wave")
+            if isinstance(cw, int) and 0 <= cw < len(self._slabs):
+                w = cw
+        if w is None:
+            w = max(range(len(self._slabs)), key=lambda i: self._slabs[i].staged_bytes)
+        waves: list[Wave] = []
+        for i, r in enumerate(self._slabs):
+            if i == w:
+                waves.append(Wave(task_ids=np.zeros(0, np.int64), est_bytes=0,
+                                  host_task_ids=np.sort(r.wave.task_ids)))
+            else:
+                waves.append(Wave(task_ids=r.wave.task_ids, est_bytes=r.wave.est_bytes))
+        waves += [Wave(task_ids=np.zeros(0, np.int64), est_bytes=0, host_task_ids=ids)
+                  for ids in self._host_units]
+        self._apply_waves(waves)
+        self._calibration = None
+        self._edge_free_bufs = None
+        obs.instant("demote", lane="resilience", wave=w)
+
+    def _disable_host_lane(self) -> None:
+        """Repeated host-task failure: run device-only.  Every peeled task
+        returns to the device wave queue and the auto split stays off for
+        the rest of the plan's life."""
+        self._host_capable = False
+        self._host_frac = 0.0
+        task_t = self.schedule.weights.astype(np.float64)
+        self._apply_waves(repack_waves(self.schedule, self.budget, self._footprints, task_t))
+        self._calibration = None
+        self._edge_free_bufs = None
+        obs.instant("host_disable", lane="resilience")
+
+    def _maybe_refresh_split(self, it: int) -> None:
+        """Adapt the ``"auto"`` host/device split to measured times.
+
+        Runs right after each calibration pass.  Per-task device-
+        equivalent times come from the calibrated wave computes (device
+        tasks: wave time attributed by weight share; host tasks: their
+        weight at the device rate); the schedule is re-packed LPT
+        against them and re-peeled under the hide criterion
+        (:func:`repro_torch.core.membudget.peel_host_tasks`).  The new
+        split is applied only when it diverged beyond the hysteresis
+        band (:func:`repro_torch.core.membudget.hetero_split_diverged`)
+        or flipped between zero and nonzero.  The first activation
+        forces one *probe* task per multi-task wave so that a host rate
+        gets measured at all; once measured, the observed host/device
+        ratio replaces the assumed ``REPRO_HETERO_HOST_RATIO``.  Below
+        the noise floor (``REPRO_HETERO_NOISE_FLOOR_S``) the split stays
+        where it is.  Each application invalidates the calibration, so
+        the re-packed device waves are re-timed before the next
+        evaluation."""
+        if self._host_frac != "auto" or not self._host_capable:
+            return
+        if it + 1 >= self.alg.max_iterations:
+            return                      # no later iteration would run it
+        cal = self._calibration
+        if cal is None or not self._slabs:
+            return                      # a rebalance just re-packed
+        wave_s = list(cal.get("wave_compute_s", []))
+        if not wave_s or float(np.mean(wave_s)) < _hetero_noise_floor_s():
+            return
+        dev_w = float(sum(self.schedule.weights[s.wave.task_ids].sum() for s in self._slabs))
+        if dev_w <= 0.0:
+            return
+        dev_rate = float(sum(wave_s)) / dev_w
+        busy_s = self._last_host_busy_s
+        if self._host_units and busy_s > 0.0 and dev_rate > 0.0:
+            host_w = float(sum(self.schedule.weights[u].sum() for u in self._host_units))
+            if host_w > 0.0:
+                self._host_ratio = max((busy_s / host_w) / dev_rate, 1e-6)
+                self._host_measured = True
+        task_t = np.zeros(self.schedule.num_tasks, dtype=np.float64)
+        for t_w, slab in zip(wave_s, self._slabs):
+            ids = slab.wave.task_ids
+            wts = self.schedule.weights[ids].astype(np.float64)
+            tot = float(wts.sum())
+            task_t[ids] = (t_w * wts / tot) if tot > 0 else t_w / max(ids.size, 1)
+        for ids in self._host_units:
+            task_t[ids] = self.schedule.weights[ids] * dev_rate
+        waves = repack_waves(self.schedule, self.budget, self._footprints, task_t)
+        waves = peel_host_tasks(self.schedule, waves, "auto", task_times=task_t,
+                                host_ratio=self._host_ratio, footprints=self._footprints,
+                                min_tasks=0 if self._host_measured else 1)
+        host_ids = [w.host_task_ids for w in waves if w.host_task_ids.size]
+        new_split = self.schedule.weight_share(np.concatenate(host_ids)) if host_ids else 0.0
+        cur_split = (self.schedule.weight_share(np.concatenate(self._host_units))
+                     if self._host_units else 0.0)
+        if not (hetero_split_diverged(cur_split, new_split)
+                or (new_split == 0.0) != (cur_split == 0.0)):
+            return
+        self._apply_waves(waves)
+        self._edge_free_bufs = None     # stale slab-0 reference
+        self._hetero_refreshes += 1
+        self._calibration = None
+        obs.instant("hetero_refresh", lane="main", split=float(new_split),
+                    host_tasks=int(sum(u.size for u in self._host_units)),
+                    waves=len(self._slabs))
+
+    def _hetero_stats(self, phase_delta: dict) -> dict:
+        """The ``schedule_stats["hetero"]`` block: the resolved
+        host/device split, executed host work, and the per-resource
+        makespans of this run."""
+        host_ids = (np.concatenate(self._host_units) if self._host_units
+                    else np.zeros(0, np.int64))
+        return dict(
+            enabled=bool(self._host_capable and self._host_frac_req is not None),
+            host_fraction=self._host_frac_req,
+            resolved_split=(float(self.schedule.weight_share(host_ids))
+                            if host_ids.size else 0.0),
+            host_tasks=int(host_ids.size),
+            device_tasks=int(self.schedule.num_tasks - host_ids.size),
+            host_units=len(self._host_units),
+            host_ratio=float(self._host_ratio),
+            host_ratio_measured=bool(self._host_measured),
+            refreshes=int(self._hetero_refreshes),
+            host_tasks_executed=int(self._host_tasks_executed),
+            host_seconds=float(self._host_seconds),
+            makespan=dict(device_s=float(phase_delta.get("compute", 0.0)),
+                          host_s=float(phase_delta.get("host_compute", 0.0))),
+        )
+
+    def run(self, store: BlockStore | None = None, state: Any | None = None, *,
+            _start_it: int = 0, _start_cont: bool = True,
+            _ctrl_restore: dict | None = None) -> RunResult:
         """Execute the streamed iteration loop (same contract as
-        :meth:`repro_torch.core.engine.Plan.run`)."""
+        :meth:`repro_torch.core.engine.Plan.run`).  The underscored
+        keywords are :meth:`resume`'s continuation protocol — iteration
+        counter, loop-continue flag, and the direction controller's
+        restored decision history — not public surface."""
         if store is not None and store is not self.store:
             raise TypeError("StreamingPlan is bound to the store it was compiled "
                             "against; compile a new plan for a different graph")
@@ -1190,12 +1818,17 @@ class StreamingPlan:
                 raise ValueError(f"{alg.name}: init_state required")
             state = alg.init_state(self.store)
         state = to_device(state, self.device)
+        if self._host_units and self._host_lane is None:
+            # close() tore the lane down; rebuild it for this run
+            self._host_lane = _HostLane(self, self._host_units)
         ctrl = (DirectionController(alg, self.direction, self.store.n)
                 if self._direction_requested else None)
+        if ctrl is not None and _ctrl_restore is not None:
+            restore_controller(ctrl, _ctrl_restore)
         self._direction_now = "push"
         t0 = time.perf_counter()
-        it = 0
-        cont = True
+        it = int(_start_it)
+        cont = bool(_start_cont)
         overlapped_wall = 0.0
         overlapped_iters = 0
         staged_before = self._bytes_staged
@@ -1209,7 +1842,9 @@ class StreamingPlan:
                     if alg.before is not None:
                         state = alg.before(self.host, state, it)
                     if ctrl is not None:
-                        # one direction per iteration, across every wave
+                        # one direction per iteration, across the device
+                        # waves AND the host lane: bit-identity holds per
+                        # direction, never across a mix
                         self._direction_now = ctrl.decide(state, it)
                     state, wall = self._run_waves_resilient(state, it)
                     if wall > 0.0:
@@ -1220,6 +1855,8 @@ class StreamingPlan:
                     if alg.after is not None:
                         state, cont = alg.after(self.host, state, it)
                 it += 1
+                if self._ckpt_every and (it % self._ckpt_every == 0 or not cont):
+                    self._save_checkpoint(state, it, cont, ctrl)
         finally:
             if self._pipe is not None:
                 self._pipe.close(self._arena)
@@ -1240,23 +1877,43 @@ class StreamingPlan:
                 stall_delta=self._stall_s - stall_before,
                 h2d_s=self._h2d_s - h2d_before[0],
                 h2d_bytes=self._h2d_bytes - h2d_before[1]),
-            hetero=dict(enabled=False, host_fraction=self._host_frac_req,
-                        resolved_split=0.0, host_tasks=0,
-                        device_tasks=int(self.schedule.num_tasks),
-                        note="device-only: the host lane waits for ROADMAP A8"),
+            hetero=self._hetero_stats(phase_delta),
         )
         if ctrl is not None:
             stats["direction"] = ctrl.stats()
+        if self._faults is not None or self._ckpt_every or self._resil.fired:
+            # only runs that opted into fault tolerance (or actually
+            # recovered) grow the stats dict
+            stats["resilience"] = self._resil.snapshot(self._faults)
         return RunResult(result=result, state=state, iterations=it, seconds=dt,
                          schedule_stats=stats)
 
+    # -- checkpoint / resume -------------------------------------------
+    def _save_checkpoint(self, state, it: int, cont: bool, ctrl) -> None:
+        save_run_checkpoint(self._ckpt_dir, self._resil, state, it, cont, ctrl)
+
+    def resume(self, ckpt_dir: str | None = None, *, step: int | None = None) -> RunResult:
+        """Continue a checkpointed run from its latest (or ``step``'s)
+        snapshot; bit-identical to the uninterrupted run for integer/
+        boolean attributes.  ``RunResult.iterations`` stays the absolute
+        iteration count."""
+        snap = load_run_checkpoint(self.alg, self.store,
+                                   ckpt_dir if ckpt_dir is not None else self._ckpt_dir, step)
+        return self.run(state=snap.state, _start_it=snap.it, _start_cont=snap.cont,
+                        _ctrl_restore=snap.ctrl)
+
     def close(self) -> None:
-        """Stop the staging worker (joined, not leaked) and recycle the
-        parked arena buffers.  Idempotent; ``run()`` starts the worker
-        again lazily, so a closed plan can run again."""
+        """Tear down every background resource: the staging worker
+        (joined, not leaked), the host-lane pool (joined), and the parked
+        arena buffers.  Idempotent; ``run()`` rebuilds both lazily, so a
+        closed plan can run again."""
         if self._pipe is not None:
             self._pipe.close(self._arena)
             self._pipe = None
+        if self._host_lane is not None:
+            self._host_lane.close(wait=True)
+            self._host_lane = None
+        self._host_futs = None
         self._drain_recycle(force=True)
 
     def __enter__(self) -> "StreamingPlan":
@@ -1281,6 +1938,11 @@ class StreamingPlan:
         if self._slabs:
             m.gauge("stream.budget_high_water_bytes").set_max(
                 max(self._budget_load(r) for r in self._slabs))
+        if self._faults is not None:
+            new = self._faults.injected - self._injected_pub
+            if new > 0:
+                m.counter("stream.fault_injected").inc(new)
+            self._injected_pub = self._faults.injected
 
     def _streaming_stats(self, state, overlapped_wall: float, overlapped_iters: int, *,
                          staged_delta: int, phase_delta: dict, asm_delta: float,

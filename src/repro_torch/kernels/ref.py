@@ -12,6 +12,17 @@ The tile versions work over the tile batch in chunks so that their
 Those that take ``extents`` (the block rectangle inside each padded
 tile, outside which a tile is zero) ignore it and read whole tiles, so
 that holding a kernel against them tests the kernel's cropping.
+
+Host-compute contract
+---------------------
+The plain versions double as the *host CPU* implementations of
+heterogeneous co-scheduling (:mod:`repro_torch.core.stream`'s host
+lane): the lane's units hold CPU tensors, so every wrapper dispatches
+them here, and they give the same integer/boolean results as the CUDA
+kernels.  A kernel name in :data:`HOST_EXECUTABLE` certifies exactly
+that; :func:`repro_torch.kernels.registry.host_executable` exposes it,
+and the streaming executor refuses to peel tasks of an algorithm that
+names a kernel outside the set in ``metadata["host_kernels"]``.
 """
 from __future__ import annotations
 
@@ -24,8 +35,12 @@ NEG = -1e30
 #: tiles per chunk of the batched plain versions
 CHUNK = 256
 
+#: kernel names whose plain version is certified to run on the host CPU
+#: lane (plain torch, deterministic, bit-identical int/bool results)
+HOST_EXECUTABLE = ("spmv_tiles", "frontier_tiles", "tc_tiles")
+
 __all__ = [
-    "INT_MAX", "NEG", "spmv_tiles_ref", "frontier_tiles_ref", "tc_tiles_ref",
+    "INT_MAX", "NEG", "HOST_EXECUTABLE", "spmv_tiles_ref", "frontier_tiles_ref", "tc_tiles_ref",
     "tc_tiles_idx_ref", "spmv_ell_ref", "attention_ref",
 ]
 

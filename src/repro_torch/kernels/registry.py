@@ -20,7 +20,8 @@ from .tc_tiles import tc_tiles, tc_tiles_cuda
 __all__ = [
     "BACKENDS", "KERNELS", "get_kernel", "launch_counts", "reset_launch_counts",
     "register_workspace", "workspace_bytes", "max_workspace_bytes",
-    "registered_workspaces",
+    "registered_workspaces", "register_host_executable", "host_executable",
+    "registered_host_executable",
 ]
 
 #: ``None`` (dispatch by device) or one of these pins an implementation.
@@ -57,6 +58,30 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for _, cuda, _ in KERNELS.values():
         cuda.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Host-executable capability: kernel names certified to run on the host
+# CPU lane of the streaming executor.  The lane's unit contexts hold CPU
+# tensors, so these names dispatch there to their plain versions by the
+# tensors' device.  An algorithm that names an uncertified kernel in
+# metadata["host_kernels"] stays device-only.
+_HOST_OK: set[str] = set(ref.HOST_EXECUTABLE)
+
+
+def register_host_executable(name: str) -> None:
+    """Certify kernel ``name`` as host-executable (see above)."""
+    _HOST_OK.add(str(name))
+
+
+def host_executable(name: str) -> bool:
+    """Whether ``name`` is certified to run on the host CPU lane."""
+    return str(name) in _HOST_OK
+
+
+def registered_host_executable() -> tuple[str, ...]:
+    """Sorted names currently certified host-executable."""
+    return tuple(sorted(_HOST_OK))
 
 
 # ----------------------------------------------------------------------

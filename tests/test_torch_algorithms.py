@@ -156,14 +156,35 @@ def road_store():
     return _carry(rc.build_block_store(rc.grid_road(8), 2))
 
 
-@pytest.mark.parametrize("arg,value,item", [
-    ("host_fraction", 0.5, "A8"), ("faults", "wave.compute:raise", "A9"),
-    ("checkpoint_every", 1, "A9"), ("checkpoint_dir", "ckpt", "A9"),
-    ("retry_policy", object(), "A9"), ("mesh", object(), "A10")])
+@pytest.mark.parametrize("arg,value,item", [("mesh", object(), "A10")])
 def test_unported_arguments_raise(road_store, arg, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         compile_plan(pagerank_algorithm(), road_store, device="cpu",
                      memory_budget="64KB", **{arg: value})
+
+
+@pytest.mark.parametrize("budget", [None, "64KB"], ids=["incore", "streamed"])
+@pytest.mark.parametrize("arg", ["host_fraction", "faults", "checkpoint_every",
+                                 "checkpoint_dir", "retry_policy"])
+def test_ported_arguments_run(road_store, arg, budget, tmp_path):
+    """The host lane (ROADMAP A8) and the fault-tolerant runtime (A9)
+    arguments build a plan that runs to the fault-free ranks."""
+    from repro_torch.core import RetryPolicy
+
+    if arg == "host_fraction" and budget is None:
+        with pytest.raises(ValueError, match="memory_budget"):
+            compile_plan(pagerank_algorithm(), road_store, device="cpu", host_fraction=0.5)
+        return
+    ckpt = str(tmp_path / "ckpt")
+    kw = dict(host_fraction=dict(host_fraction=0.5),
+              faults=dict(faults="wave.compute:raise"),
+              checkpoint_every=dict(checkpoint_every=1, checkpoint_dir=ckpt),
+              checkpoint_dir=dict(checkpoint_dir=ckpt),
+              retry_policy=dict(retry_policy=RetryPolicy(max_retries=1)))[arg]
+    want = compile_plan(pagerank_algorithm(), road_store, device="cpu").run()
+    got = compile_plan(pagerank_algorithm(), road_store, device="cpu",
+                       **(dict(memory_budget=budget) if budget else {}), **kw).run()
+    np.testing.assert_allclose(got.result, want.result, rtol=1e-5, atol=1e-8)
 
 
 def test_batched_states_raise(road_store):

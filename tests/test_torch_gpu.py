@@ -412,7 +412,16 @@ def _streamed(alg, store, cuda, budget, **kw):
     st = res.schedule_stats["streaming"]
     assert all(b + w <= budget for b, w in zip(st["bytes_per_wave"], st["workspace_per_wave"]))
     assert peak <= plan.resident_device_bytes + (plan.pipeline_depth + 1) * budget
+    _assert_no_recovery(plan)
     return plan, res
+
+
+def _assert_no_recovery(plan):
+    """A fault-free plan detected no failure, demoted nothing and kept
+    its host lane: nothing fell back to the host's plain kernels."""
+    res = plan._resil
+    assert res.detected == 0 and res.demotions == 0 and res.host_failovers == 0
+    assert not any(a["action"] == "host_disable" for a in res.actions)
 
 
 def test_streamed_pagerank_cuda_vs_cpu(cuda, small_store):
@@ -451,3 +460,74 @@ def test_streamed_tc_cuda_vs_cpu(cuda):
     assert plan.num_waves >= 2
     assert registry.launch_counts()["tc_tiles"] > 0
     assert got.result == cpu.result
+
+
+# ---------------------------------------------------------------- A8, A9
+@pytest.mark.parametrize("name", ["cc", "bfs"])
+def test_hetero_streamed_equals_device_only(cuda, small_store, name):
+    """Host units on CPU tensors beside the card's waves: the labels,
+    parents, distances and direction decisions of a device-only run."""
+    src = int(np.argmax(small_store.degrees))
+    make, kw = dict(cc=(afforest_algorithm, dict(mode="sparse_only")),
+                    bfs=(lambda: bfs_algorithm(src), dict(_PLAN_KW, direction="auto")))[name]
+    budget = _quarter_budget(make(), small_store, **{k: v for k, v in kw.items()
+                                                     if k != "direction"})
+    _, want = _streamed(make(), small_store, cuda, budget, host_fraction=None, **kw)
+    plan, got = _streamed(make(), small_store, cuda, budget, host_fraction=0.3, **kw)
+    het = got.schedule_stats["hetero"]
+    assert het["host_tasks"] > 0 and het["host_tasks_executed"] > 0
+    assert plan.num_waves >= 1 and plan._host_lane is not None
+    if name == "cc":
+        np.testing.assert_array_equal(got.result, want.result)
+    else:
+        for k in ("parent", "dist"):
+            np.testing.assert_array_equal(got.result[k], want.result[k])
+        assert (got.schedule_stats["direction"]["decisions"]
+                == want.schedule_stats["direction"]["decisions"])
+    plan.close()
+
+
+def test_real_oom_is_classified(cuda):
+    from repro_torch.core.resilience import classify
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert classify(err.value) == "oom"
+    x = torch.ones(1 << 20, device=cuda)
+    assert float(x.sum()) == float(1 << 20)
+
+
+def test_streamed_faults_recover_on_the_card(cuda, small_store):
+    """An OOM at a copy, a failed wave and a failed host unit, each
+    recovered with both streams quiesced: labels equal the fault-free run."""
+    from repro_torch.core import RetryPolicy
+
+    kw = dict(mode="sparse_only", host_fraction=0.3)
+    budget = _quarter_budget(afforest_algorithm(), small_store, mode="sparse_only")
+    _, want = _streamed(afforest_algorithm(), small_store, cuda, budget, **kw)
+    spec = "stage.device_put:oom:at(2);wave.compute:raise:at(1);host.task:raise:once"
+    plan = compile_plan(afforest_algorithm(), small_store, device=cuda, memory_budget=budget,
+                        faults=spec, retry_policy=RetryPolicy(max_retries=6), **kw)
+    got = plan.run()
+    np.testing.assert_array_equal(got.result, want.result)
+    r = got.schedule_stats["resilience"]
+    assert r["injected"] == 3 and r["retries"] >= 3 and r["oom_repacks"] >= 1
+    plan.close()
+
+
+def test_streamed_resume_bit_identical(cuda, small_store, tmp_path):
+    src = int(np.argmax(small_store.degrees))
+    budget = _quarter_budget(bfs_algorithm(src), small_store, **_PLAN_KW)
+    kw = dict(_PLAN_KW, direction="auto", memory_budget=budget)
+    base = compile_plan(bfs_algorithm(src), small_store, device=cuda, **kw).run()
+    d = str(tmp_path / "ck")
+    compile_plan(bfs_algorithm(src), small_store, device=cuda, checkpoint_every=1,
+                 checkpoint_dir=d, **kw).run()
+    fresh = compile_plan(bfs_algorithm(src), small_store, device=cuda, **kw)
+    for step in range(1, base.iterations + 1):
+        res = fresh.resume(d, step=step)
+        for k in ("parent", "dist"):
+            np.testing.assert_array_equal(res.result[k], base.result[k])
+        assert (res.schedule_stats["direction"]["decisions"]
+                == base.schedule_stats["direction"]["decisions"])
