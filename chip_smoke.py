@@ -22,7 +22,9 @@ at full configuration: the graph engine through
    that see no key, each in float32 and bf16, and a bf16 D=64 shape;
    ``spmv_ell``: (B, R, K, N) = (4, 262144, 32, 2^20),
    the PageRank graph's vertex count and mean degree, and two with K
-   not a multiple of 4);
+   not a multiple of 4); ``spmv_tiles`` and ``frontier_tiles`` also with
+   a query axis, Q in {1, 3, 8}, on the same tiles, each row equal to
+   the Q=1 launch on that row bit for bit, one query's frontier empty;
 2. PageRank on ``degree_order(rmat(20, 16, seed=7), ascending=False)``
    (the Graph500 Kronecker generator, A=.57 B=.19 C=.19, edge factor
    16; scale cut from Graph500's ≥26 for host build time), p=512,
@@ -61,6 +63,20 @@ at full configuration: the graph engine through
    ``torch.cuda.OutOfMemoryError`` classified as ``oom`` and a normal
    allocation after it.  Every fault-free plan must have detected no
    failure, demoted nothing and kept its host lane;
+   ``phase serve``: ``GraphServer`` on the same store, in-core: 8
+   personalized PageRank queries (1-3 seeds), 8 BFS queries
+   (``direction="auto"``, from the vertex of highest degree and 7 drawn
+   ones), a 16-core and a CC query, as 4 batches; BFS, k-core and CC
+   equal their solo runs bit for bit, PageRank its solo runs within
+   rtol 1e-5 / atol 1e-7 and float64 scipy within the L1 limit;
+   ``spmv_tiles`` launches once per iteration of the PageRank batch,
+   ``frontier_tiles`` once per pull level of the BFS batch; then
+   streamed under the quarter budget with a serving budget of resident +
+   3 queries: 8 PageRank queries of 3 iterations queue, run in batches
+   within the budget and equal their solo streamed runs.  Prints each
+   batch, amortized against solo ms, latency, priced high water beside
+   the allocator's growth, and the batched kernels at Q=8 on the path's
+   inputs beside 8 Q=1 launches;
 6. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
    tile_dim=512, dense_density=0.001, against an exact scipy count;
 7. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
@@ -158,6 +174,20 @@ FAULTS = ("stage.assemble:raise:at(1);stage.device_put:oom:at(2);"
 FAULT_RETRIES = 6               # four faults in one iteration, beyond the default 3
 RESUME_STEP = 3
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # float32 sums in another order
+#: batched tile-kernel checks: query counts (one group of 1, 4 and 8 queries)
+BATCH_QS = (1, 3, 8)
+#: phase serve: GraphServer's batch cap; PageRank queries' tolerance, depth
+#: in-core and streamed (cut to keep the run's time), seeds per query
+SERVE_MAX_BATCH = 8
+SERVE_TOL = 1e-4
+SERVE_PR_ITERS = 20
+SERVE_STREAM_ITERS = 3
+SERVE_SEEDS = (1, 3)
+#: batched PageRank rows vs their solo runs: both index_adds are atomic float
+#: adds, so the sums differ in order.  Per element the repo's PageRank
+#: tolerance (rtol 1e-5, atol 1e-7, tests/test_stream.py); over the vector an
+#: L1 distance a tenth of PAGERANK_L1_TOL
+SERVE_PR_RTOL, SERVE_PR_ATOL, SERVE_PR_L1 = 1e-5, 1e-7, 1e-6
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
 #: the LM prefill's shape; then suffix-aligned causal with S_q < S_k, non-causal,
@@ -246,9 +276,12 @@ def attn_error(got, q, k, v, causal: bool = True) -> tuple[float, float]:
     return float(diff.max()), share
 
 
-def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_FLOPS):
+def record(name, launches, err, ms, plain_ms, nbytes, ops, library_ms, rate=F32_FLOPS,
+           kernel=None):
+    """One kernel's row of the JSON line; ``kernel`` names the source of a
+    row whose name is not a kernel's (a batched form)."""
     bound_ms, bound_by = bound(nbytes, ops, rate)
-    source, replaces = SOURCES[name]
+    source, replaces = SOURCES[kernel or name]
     rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=int(launches), max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
@@ -321,18 +354,30 @@ def tensor_core_report(logs: dict) -> None:
 
 def device_profile(run):
     """Run ``run()`` under torch.profiler: (result, wall ms, device-busy
-    ms, [(kernel, ms)] for the five busiest kernels)."""
+    ms, [(kernel, ms)] for the five busiest kernels).  An exception from
+    ``run`` propagates; where the profiler itself fails, the busy time is
+    None and the last item says why."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as e:  # the profiler's own failure: time the run without it
+        prof, why = None, f"{type(e).__name__}: {e}"
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if prof is None:
+        return out, wall, None, why
+    try:
+        prof.stop()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    except Exception as e:  # the profiler's own failure
+        return out, wall, None, f"{type(e).__name__}: {e}"
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:5]
     return out, wall, busy, [(e.key[:60], e.self_device_time_total / 1e3) for e in top]
@@ -406,6 +451,41 @@ def check_spmv(tiles, xs, extents, what):
     return err
 
 
+def check_batched(tiles, extents, gen, dev, what):
+    """spmv_tiles and frontier_tiles with a query axis, Q in BATCH_QS,
+    against their plain versions; each row must equal the Q = 1 launch on
+    that row bit for bit, and one query's empty frontier must give
+    INT32_MAX.  Returns spmv_tiles' largest error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
+    from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
+
+    nd, t = tiles.shape[0], tiles.shape[1]
+    err = 0.0
+    for q in BATCH_QS:
+        xs = torch.rand((q, nd, t), generator=gen, device=dev).to(tiles.dtype)
+        want = ref.spmv_tiles_ref(tiles, xs)
+        got = spmv_tiles_cuda(tiles, xs, extents)
+        err = max(err, float((got - want).abs().max()))
+        atol = SPMV_ATOL * min(1.0, float(want.abs().max()))
+        check(torch.allclose(got, want, rtol=SPMV_RTOL, atol=atol),
+              f"spmv_tiles {what} Q={q} vs plain: max err {err}")
+        for i in range(q):
+            check(torch.equal(got[i], spmv_tiles_cuda(tiles, xs[i], extents)),
+                  f"spmv_tiles {what} Q={q}: row {i} != its Q=1 launch")
+        f = torch.rand((q, nd, t), generator=gen, device=dev) < 0.3
+        f[q // 2] = False                       # one query with an empty frontier
+        got = frontier_tiles_cuda(tiles, f, extents)
+        check(torch.equal(got, ref.frontier_tiles_ref(tiles, f)),
+              f"frontier_tiles {what} Q={q} vs plain")
+        check(bool((got[q // 2] == INT_MAX).all()), f"frontier_tiles {what} Q={q}: empty row")
+        for i in range(q):
+            check(torch.equal(got[i], frontier_tiles_cuda(tiles, f[i], extents)),
+                  f"frontier_tiles {what} Q={q}: row {i} != its Q=1 launch")
+    return err
+
+
 def phase_kernels(dev, gen) -> None:
     """Each kernel against its plain version at the main path's shapes
     (PageRank's 4128 tiles, TC's 9670 triples over 3199 tiles) and at a
@@ -429,6 +509,7 @@ def phase_kernels(dev, gen) -> None:
         xs = torch.rand((nd, t), generator=gen, device=dev)
         whole = torch.full((nd,), t, dtype=torch.int32, device=dev)
         err = check_spmv(tiles, xs, (whole, whole), f"({nd},{t})")
+        berr = check_batched(tiles, (whole, whole), gen, dev, f"({nd},{t})")
         f = torch.rand((nd, t), generator=gen, device=dev) < 0.3
         check(torch.equal(frontier_tiles_cuda(tiles, f), ref.frontier_tiles_ref(tiles, f)),
               f"frontier_tiles ({nd},{t}) vs plain")
@@ -439,8 +520,10 @@ def phase_kernels(dev, gen) -> None:
         empty = frontier_tiles_cuda(tiles, torch.zeros_like(f), extents)
         check(bool((empty == INT_MAX).all()), f"frontier_tiles ({nd},{t}) empty frontier")
         err = max(err, check_spmv(tiles, xs, extents, f"({nd},{t}) ragged"))
+        berr = max(berr, check_batched(tiles, extents, gen, dev, f"({nd},{t}) ragged"))
         say(f"phase kernels: spmv_tiles, frontier_tiles ok at nd={nd} T={t} with whole and "
-            f"ragged extents (spmv_tiles max err {err:.2e})")
+            f"ragged extents (spmv_tiles max err {err:.2e}), and with Q in {BATCH_QS} queries, "
+            f"each row equal to its Q=1 launch (max err {berr:.2e})")
         del tiles, xs, f, empty
     for nd, nb, t in TC_SHAPES:
         tiles = tiles_of(nd, t)
@@ -462,9 +545,10 @@ def phase_kernels(dev, gen) -> None:
             count = check_tile_kernels(tiles, idx, f, extents, f"({nd},{nb},{t}) {dtype}")
         xs = torch.rand((nd, t), generator=gen, device=dev).to(tiles.dtype)
         err = check_spmv(tiles, xs, extents, f"({nd},{t}) {dtype} ragged")
+        berr = check_batched(tiles, extents, gen, dev, f"({nd},{t}) {dtype} ragged")
         say(f"phase kernels: frontier_tiles, tc_tiles, spmv_tiles ok at nd={nd} B={nb} T={t} "
             f"{dtype} with ragged extents and without (count {count}, spmv_tiles max err "
-            f"{err:.2e})")
+            f"{err:.2e}); Q in {BATCH_QS} ok (max err {berr:.2e})")
     torch.cuda.empty_cache()
 
 
@@ -593,13 +677,13 @@ def phase_pagerank(dev, store):
     say(f"phase pagerank: L1 distance to float64 scipy {l1:.3e} (limit {PAGERANK_L1_TOL}), "
         f"rank sum {float(res.result.sum()):.6f}")
 
-    try:
-        _, wall, busy, top = device_profile(plan.run)
+    _, wall, busy, top = device_profile(plan.run)
+    if busy is None:
+        say(f"phase pagerank: device time not measured ({top})")
+    else:
         say(f"phase pagerank: profiled run {wall:.1f} ms wall, device busy {busy:.1f} ms "
             f"({busy / res.iterations:.3f} ms per iteration, idle share "
             f"{1 - busy / wall:.3f}); busiest kernels {top}")
-    except Exception as e:  # a measurement only; the checks above decide the phase
-        say(f"phase pagerank: device time not measured ({type(e).__name__}: {e})")
     no_recovery(plan, "pagerank")
     # phase hetero's reference: in-core, cut to HETERO_PR_ITERS iterations
     short = compile_plan(pagerank_algorithm(max_iters=HETERO_PR_ITERS), store, plan.schedule,
@@ -639,6 +723,27 @@ def phase_pagerank(dev, store):
         f"whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents "
         f"{whole_ms:.4f} ms")
     return plan, rec, res, pr_short.result
+
+
+def frontier_needed(f, want, rows) -> float:
+    """Tile elements the frontier columns ``f`` need, given the kernel's
+    result ``want`` (both (nd, T), or (Q, nd, T) for a batch over shared
+    tiles): for each tile row below ``rows``, the union over the queries
+    of each query's frontier columns up to its first hit (all of them
+    where it has none), so that a batch counts each element once."""
+    import torch
+
+    if f.dim() == 2:
+        f, want = f[None], want[None]
+    t = f.shape[-1]
+    cols = torch.arange(t, device=f.device)
+    total = 0
+    for b in range(0, f.shape[1], 16):        # 16 tiles at a time bound the masks
+        fb, wb = f[:, b:b + 16, None, :], want[:, b:b + 16, :, None].long()
+        need = (fb & (cols <= wb)).any(0)     # (tiles, rows, cols); INT_MAX: all
+        need &= cols[None, :, None] < rows[b:b + 16, None, None]
+        total += int(need.sum())
+    return float(total)
 
 
 def phase_bfs(dev, store, schedule):
@@ -697,21 +802,11 @@ def phase_bfs(dev, store, schedule):
     check(torch.equal(frontier_tiles_cuda(tiles, fcols), want),
           "frontier_tiles main-path inputs, whole tiles")
     nd = tiles.shape[0]
-
-    def needed(f, rows):
-        """Tile elements this frontier needs: each row's frontier columns up
-        to its first hit, all of them when the row has none, over the rows
-        below ``rows``."""
-        seen = f.long().cumsum(dim=1)
-        per_row = torch.where(want == INT_MAX, seen[:, -1:],
-                              seen.gather(1, want.clamp_max(t - 1).long()))
-        return float(torch.where(cols[None, :] < rows[:, None], per_row, 0).sum())
-
     # over whole tiles, then inside the block rectangles
-    old_needed = needed(fcols, torch.full((nd,), t, device=dev))
+    old_needed = frontier_needed(fcols, want, torch.full((nd,), t, device=dev))
     old_bound = bound(old_needed * 4 + nd * t * (1 + 4), old_needed)
     inside = fcols & (cols[None, :] < ctx.tile_cols[:, None])
-    new_needed = needed(inside, ctx.tile_rows)
+    new_needed = frontier_needed(inside, want, ctx.tile_rows)
     rec = record(
         "frontier_tiles", launches["frontier_tiles"],
         float((got.long() - want.long()).abs().max()),
@@ -1201,6 +1296,320 @@ def phase_resilience(dev, store, schedule, runs, bfs, hetero_cc):
         f"classified {kind!r}; a 64 MiB allocation after it works")
 
 
+def personalized64(g, seed_sets, iterations):
+    """Personalized PageRank's formula in float64 (teleport and dangling
+    mass to each query's restart vector), column q taken after
+    ``iterations[q]`` iterations."""
+    at = csr_matrix(g).T.tocsr()
+    deg = g.degrees
+    inv = 1.0 / np.maximum(deg, 1)
+    dangling = deg == 0
+    r = np.zeros((g.n, len(seed_sets)))
+    for q, seeds in enumerate(seed_sets):
+        np.add.at(r[:, q], seeds, 1.0 / len(seeds))
+    x = r.copy()
+    out = [None] * len(seed_sets)
+    for it in range(1, max(iterations) + 1):
+        x = 0.15 * r + 0.85 * (at @ (x * inv[:, None]) + x[dangling].sum(0)[None, :] * r)
+        for q in np.flatnonzero(np.asarray(iterations) == it):
+            out[q] = x[:, q].copy()
+    return out
+
+
+def serve_batches(srv, uids) -> list[dict]:
+    """Step ``srv`` until every query of ``uids`` is done, one batch a
+    step: per batch its real and bucket rows, steps (iterations × waves),
+    host ms (the step ends in a synchronise) and kernel launches."""
+    import torch
+    from repro_torch.kernels import registry
+
+    out = []
+    for _ in range(2 * len(uids)):
+        if all(srv.result(u) is not None for u in uids):
+            break
+        before = srv.stats()["steps_executed"]
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = srv.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = srv.stats()
+        check(done > 0, f"serve: a step completed no query ({st})")
+        out.append(dict(real=st["batch_sizes"][-1], bucket=st["bucket_sizes"][-1],
+                        steps=st["steps_executed"] - before, ms=ms,
+                        launches=registry.launch_counts()))
+    check(all(srv.result(u) is not None and srv.result(u).status == "done" for u in uids),
+          "serve: a query did not complete")
+    return out
+
+
+def serve_rows_match(got, want, what) -> tuple[float, float, float]:
+    """A batched PageRank row against its solo run: (max |diff|, max
+    relative diff where the solo rank is above SERVE_PR_ATOL, L1)."""
+    diff = np.abs(got.astype(np.float64) - want)
+    big = np.abs(want) > SERVE_PR_ATOL
+    rel = float((diff[big] / np.abs(want[big])).max()) if big.any() else 0.0
+    l1 = float(diff.sum())
+    check(np.allclose(got, want, rtol=SERVE_PR_RTOL, atol=SERVE_PR_ATOL) and l1 <= SERVE_PR_L1,
+          f"serve {what}: max diff {diff.max()}, max relative {rel}, L1 {l1} to the solo run")
+    return float(diff.max()), rel, l1
+
+
+def serve_footprint(srv, base, dev, what, card) -> None:
+    """The priced high water beside the allocator's growth over the phase."""
+    import torch
+
+    st = srv.stats()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    say(f"phase serve {what}: priced high water {st['footprint_high_water_bytes'] / 1e9:.3f} GB"
+        f" (budget {'none' if st['budget_bytes'] is None else f'{st["budget_bytes"] / 1e9:.3f} GB'}), "
+        f"max_memory_allocated growth over the phase {peak / 1e9:.3f} GB; latency p50 "
+        f"{st['latency_s']['p50']:.3f} s, p95 {st['latency_s']['p95']:.3f} s [{card}]")
+
+
+def phase_serve(dev, store, schedule, gen, card):
+    """GraphServer over the PageRank store: in-core, 8 personalized
+    PageRank queries, 8 BFS (auto) queries, one k-core and one CC, each
+    held against its solo run (PageRank also against float64); then the
+    same store streamed under a quarter of its footprint with a serving
+    budget of resident + 3 queries, 8 PageRank queries cut to
+    SERVE_STREAM_ITERS iterations.  Times the batched kernels at Q=8 on
+    the inputs the path gave them; ``card`` (nvidia-smi's name and power
+    limit) is printed beside every number.  Returns the two records."""
+    import torch
+    from repro_torch.algorithms import bfs_algorithm, pagerank_algorithm
+    from repro_torch.core import batch_state_bytes, batch_states, compile_plan, tree_array_bytes
+    from repro_torch.kernels import ref, registry
+    from repro_torch.kernels.frontier_tiles import frontier_tiles_cuda
+    from repro_torch.kernels.spmv_tiles import spmv_tiles_cuda
+    from repro_torch.serve import GraphServer, Query
+
+    cfg = PAGERANK
+    kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    g = store.graph
+
+    def draw(k, hi):
+        return torch.randint(0, hi, (k,), generator=gen, device=dev).cpu().numpy()
+
+    seed_sets = [sorted(set(draw(int(draw(1, SERVE_SEEDS[1])[0]) + SERVE_SEEDS[0], g.n)
+                            .tolist())) for _ in range(SERVE_MAX_BATCH)]
+    sources = [int(np.argmax(store.degrees))] + draw(SERVE_MAX_BATCH - 1, g.n).tolist()
+    pr = dict(tol=SERVE_TOL, max_iters=SERVE_PR_ITERS)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = GraphServer(max_batch=SERVE_MAX_BATCH, device=dev)
+    srv.register_graph("web", store, **kw)
+    srv.register_graph("web-bfs", store, direction="auto", **kw)
+    up = [srv.submit(Query("web", "pagerank", dict(pr, seeds=s))) for s in seed_sets]
+    ub = [srv.submit(Query("web-bfs", "bfs", dict(source=s))) for s in sources]
+    uk = srv.submit(Query("web", "kcore", dict(k=KCORE_K)))
+    uc = srv.submit(Query("web", "cc"))
+    say(f"phase serve in-core: 4 resident plans and {len(up) + len(ub) + 2} queries submitted "
+        f"in {time.perf_counter() - t0:.1f} s, resident {srv.admission.resident_bytes / 1e9:.3f}"
+        f" GB priced")
+    batches = serve_batches(srv, up + ub + [uk, uc])
+    check([b["real"] for b in batches] == [8, 8, 1, 1] and batches[0]["bucket"] == 8,
+          f"serve in-core batches {[(b['real'], b['bucket']) for b in batches]}")
+    prb, bfsb = batches[0], batches[1]
+    pulls = srv.result(ub[0]).schedule_stats["direction"]["decisions"].count("pull")
+    check(prb["launches"]["spmv_tiles"] == prb["steps"],
+          f"serve pagerank batch: spmv_tiles launches {prb['launches']['spmv_tiles']} != "
+          f"iterations {prb['steps']}")
+    check(pulls > 0 and bfsb["launches"]["frontier_tiles"] == pulls,
+          f"serve bfs batch: frontier_tiles launches {bfsb['launches']['frontier_tiles']} != "
+          f"pull levels {pulls}")
+    launches = {k: sum(b["launches"][k] for b in batches) for k in prb["launches"]}
+    for b, what in zip(batches, ("pagerank", "bfs", "kcore", "cc")):
+        say(f"phase serve in-core {what} batch: {b['real']}/{b['bucket']} rows, {b['steps']} "
+            f"iterations, {b['ms']:.1f} ms ({b['ms'] / b['real']:.1f} ms a query), launches "
+            f"spmv_tiles {b['launches']['spmv_tiles']}, frontier_tiles "
+            f"{b['launches']['frontier_tiles']} [{card}]")
+    serve_footprint(srv, base, dev, "in-core", card)
+
+    # solo runs through the same resident plans
+    plan = srv.plan_for("web", "pagerank", dict(pr, seeds=seed_sets[0]))
+    solo_ms, iters, diffs = [], [], []
+    for s, u in zip(seed_sets, up):
+        t1 = time.perf_counter()
+        res = plan.run(state=pagerank_algorithm(seeds=s, **pr).init_state(store))
+        solo_ms.append((time.perf_counter() - t1) * 1e3)
+        iters.append(res.iterations)
+        got = srv.result(u).result
+        check(got.shape == (g.n,) and bool(np.isfinite(got).all()), "serve pagerank finite")
+        diffs.append(serve_rows_match(got, res.result, f"pagerank seeds {s}"))
+    want = personalized64(g, seed_sets, iters)
+    l1 = max(float(np.abs(srv.result(u).result.astype(np.float64) - w).sum())
+             for u, w in zip(up, want))
+    check(l1 <= PAGERANK_L1_TOL, f"serve pagerank L1 to float64 {l1} > {PAGERANK_L1_TOL}")
+    say(f"phase serve in-core pagerank: rows within rtol {SERVE_PR_RTOL}, atol {SERVE_PR_ATOL} "
+        f"of their solo runs (largest max |diff|, relative, L1: "
+        f"{[f'{max(d[i] for d in diffs):.2e}' for i in range(3)]}; iterations {iters}), L1 to "
+        f"float64 scipy at most {l1:.3e}; batch "
+        f"{prb['ms'] / prb['real']:.1f} ms a query amortized vs solo {np.mean(solo_ms):.1f} ms "
+        f"[{card}]")
+    bplan = srv.plan_for("web-bfs", "bfs", dict(source=sources[0]))
+    solo_ms = []
+    for s, u in zip(sources, ub):
+        t1 = time.perf_counter()
+        res = bplan.run(state=bfs_algorithm(s).init_state(store))
+        solo_ms.append((time.perf_counter() - t1) * 1e3)
+        for k in ("parent", "dist"):
+            check(np.array_equal(srv.result(u).result[k], res.result[k]),
+                  f"serve bfs source {s}: {k} != solo")
+    say(f"phase serve in-core bfs: parent and dist equal the solo runs; batch "
+        f"{bfsb['ms'] / bfsb['real']:.1f} ms a query amortized vs solo {np.mean(solo_ms):.1f} ms "
+        f"[{card}]")
+    # each batch again, warm (its plan, allocator and kernels already used),
+    # with the device's busy time
+    for what, p, states in (
+            ("pagerank", plan, [pagerank_algorithm(seeds=s, **pr).init_state(store)
+                                for s in seed_sets]),
+            ("bfs", bplan, [bfs_algorithm(s).init_state(store) for s in sources])):
+        batched = batch_states(states)
+        res, wall, busy, top = device_profile(lambda: p.run(state=batched))
+        say(f"phase serve in-core {what}: warm batch of {len(states)} {wall:.1f} ms wall "
+            f"({wall / len(states):.1f} ms a query), {res.iterations} iterations, device busy "
+            + (f"not measured ({top})" if busy is None else
+               f"{busy:.1f} ms (idle share {1 - busy / wall:.3f}); busiest kernels {top}")
+            + f" [{card}]")
+    check(np.array_equal(srv.result(uk).result, srv.plan_for(
+        "web", "kcore", dict(k=KCORE_K)).run().result), "serve kcore != solo")
+    check(np.array_equal(srv.result(uc).result, srv.plan_for("web", "cc").run().result),
+          "serve cc != solo")
+    say("phase serve in-core: k-core and CC equal their solo runs")
+
+    # the batched kernels at Q=8 on the inputs the path gave them
+    ctx = plan.context
+    t = ctx.tile_dim
+    nd = ctx.tiles.shape[0]
+    cols = torch.arange(t, device=dev)
+    extents = (ctx.tile_rows, ctx.tile_cols)
+    ranks = torch.from_numpy(np.stack([srv.result(u).result for u in up])).to(dev)
+    contrib = ranks * ctx.extras["inv_deg"]
+    xs = torch.cat([contrib, contrib.new_zeros(len(up), t)], 1)[
+        :, ctx.tile_row_start[:, None] + cols]
+    want_ys = ref.spmv_tiles_ref(ctx.tiles, xs)
+    got = spmv_tiles_cuda(ctx.tiles, xs, extents)
+    err = float((got - want_ys).abs().max())
+    atol = SPMV_ATOL * min(1.0, float(want_ys.abs().max()))
+    check(torch.allclose(got, want_ys, rtol=SPMV_RTOL, atol=atol),
+          f"spmv_tiles Q={len(up)} serve inputs vs plain: max err {err}")
+    check(all(torch.equal(got[i], spmv_tiles_cuda(ctx.tiles, xs[i], extents))
+              for i in range(len(up))), "spmv_tiles serve inputs: a row != its Q=1 launch")
+    area = float((ctx.tile_rows.double() * ctx.tile_cols.double()).sum())
+    x_read = float(ctx.tile_rows.double().sum()) * xs.element_size()
+    q = len(up)
+    spmv = record(
+        f"spmv_tiles[Q={q}]", launches["spmv_tiles"], err,
+        cuda_ms(lambda: spmv_tiles_cuda(ctx.tiles, xs, extents), 20),
+        cuda_ms(lambda: ref.spmv_tiles_ref(ctx.tiles, xs), 2),
+        area * ctx.tiles.element_size() + q * (x_read + nd * t * 4) + 2 * nd * 4,
+        2.0 * area * q, cuda_ms(lambda: torch.einsum("brc,qbr->qbc", ctx.tiles, xs), 3),
+        kernel="spmv_tiles")
+    solo8 = cuda_ms(lambda: [spmv_tiles_cuda(ctx.tiles, xs[i], extents) for i in range(q)], 10)
+    say(f"  spmv_tiles[Q={q}]: {q} Q=1 launches {solo8:.4f} ms [{card}]")
+
+    bctx = bplan.context
+    dists = np.stack([srv.result(u).result["dist"] for u in ub])
+    decisions = srv.result(ub[0]).schedule_stats["direction"]["decisions"]
+    level = max((it for it, d in enumerate(decisions) if d == "pull"),
+                key=lambda it: int((dists == it).sum()))
+    frontier = torch.from_numpy(dists == level).to(dev)
+    fcols = torch.cat([frontier, frontier.new_zeros(len(ub), t)], 1)[
+        :, bctx.tile_col_start[:, None] + cols]
+    bext = (bctx.tile_rows, bctx.tile_cols)
+    want_f = ref.frontier_tiles_ref(bctx.tiles, fcols)
+    got = frontier_tiles_cuda(bctx.tiles, fcols, bext)
+    check(torch.equal(got, want_f), "frontier_tiles serve inputs vs plain")
+    check(all(torch.equal(got[i], frontier_tiles_cuda(bctx.tiles, fcols[i], bext))
+              for i in range(len(ub))), "frontier_tiles serve inputs: a row != its Q=1 launch")
+    inside = fcols & (cols[None, None, :] < bctx.tile_cols[None, :, None])
+    needed = frontier_needed(inside, want_f, bctx.tile_rows)
+    apart = sum(frontier_needed(inside[i], want_f[i], bctx.tile_rows) for i in range(len(ub)))
+    frontier = record(
+        f"frontier_tiles[Q={len(ub)}]", launches["frontier_tiles"],
+        float((got.long() - want_f.long()).abs().max()),
+        cuda_ms(lambda: frontier_tiles_cuda(bctx.tiles, fcols, bext), 20),
+        cuda_ms(lambda: ref.frontier_tiles_ref(bctx.tiles, fcols), 2),
+        needed * 4 + len(ub) * (float(bctx.tile_cols.sum()) + nd * t * 4) + 2 * nd * 4,
+        needed, None, kernel="frontier_tiles")
+    solo8 = cuda_ms(lambda: [frontier_tiles_cuda(bctx.tiles, fcols[i], bext)
+                             for i in range(len(ub))], 10)
+    say(f"  frontier_tiles[Q={len(ub)}] timed on pull level {level} ({int(inside.sum())} "
+        f"frontier columns; {needed:.0f} tile elements needed by the batch, {apart:.0f} by its "
+        f"queries apart): {len(ub)} Q=1 launches {solo8:.4f} ms [{card}]")
+    del srv, plan, bplan, ctx, bctx, xs, fcols, got, want_ys, want_f
+    store._device_cache.clear()
+    torch.cuda.empty_cache()
+
+    # streamed: the serving budget admits three queries beside the plan
+    wave_budget = quarter_budget(pagerank_algorithm(), store, schedule, STREAM_SPLIT)
+    spr = dict(tol=SERVE_TOL, max_iters=SERVE_STREAM_ITERS)
+    t0 = time.perf_counter()
+    # both plans keep their waves and stay on the device (no rebalance or
+    # host peel from measured wave times), so that a batch and a solo run
+    # launch and fold alike
+    skw = dict(kw, memory_budget=wave_budget, rebalance_threshold=None, host_fraction=None)
+    probe = compile_plan(pagerank_algorithm(**spr), store, device=dev, **skw)
+    per_q = batch_state_bytes(tree_array_bytes(
+        pagerank_algorithm(seeds=[0]).init_state(store)), 1)
+    budget = probe.resident_device_bytes + 3 * per_q
+    check(probe.num_waves >= 4, f"serve streamed: {probe.num_waves} waves < 4")
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = GraphServer(memory_budget=budget, max_batch=SERVE_MAX_BATCH, device=dev)
+    srv.register_graph("web", store, **skw)
+    uids = [srv.submit(Query("web", "pagerank", dict(spr, seeds=s))) for s in seed_sets]
+    depth = srv.stats()["queue_depth"]
+    check(depth > 0, "serve streamed: the budget queued nothing")
+    say(f"phase serve streamed: wave budget {wave_budget / 1e9:.3f} GB, {probe.num_waves} "
+        f"waves, serving budget {budget / 1e9:.3f} GB (resident + 3 x {per_q / 1e6:.1f} MB), "
+        f"{depth} of {len(uids)} queued at submission; planning {time.perf_counter() - t0:.1f} "
+        f"s")
+    batches = serve_batches(srv, uids)
+    st = srv.stats()
+    check(st["footprint_high_water_bytes"] <= budget and st["rejected"] == 0
+          and st["completed"] == len(uids) and st["queued"] > 0,
+          f"serve streamed stats: {st}")
+    for b in batches:
+        say(f"phase serve streamed pagerank batch: {b['real']}/{b['bucket']} rows, "
+            f"{b['steps']} steps (iterations x {probe.num_waves} waves), {b['ms']:.0f} ms "
+            f"({b['ms'] / b['real']:.0f} ms a query), launches spmv_tiles "
+            f"{b['launches']['spmv_tiles']} [{card}]")
+    serve_footprint(srv, base, dev, "streamed", card)
+    solo_ms, solo_launches, diffs = [], [], []
+    for s, u in zip(seed_sets, uids):
+        registry.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = probe.run(state=pagerank_algorithm(seeds=s, **spr).init_state(store))
+        solo_ms.append((time.perf_counter() - t1) * 1e3)
+        solo_launches.append(registry.launch_counts()["spmv_tiles"])
+        diffs.append(serve_rows_match(srv.result(u).result, res.result,
+                                      f"streamed pagerank seeds {s}"))
+    # a plan's first run adds the calibration's warm-up pass over every wave
+    batch_launches = [b["launches"]["spmv_tiles"] for b in batches]
+    check(batch_launches == solo_launches[:len(batches)],
+          f"serve streamed: batches launched spmv_tiles {batch_launches} times, solo runs "
+          f"{solo_launches}")
+    say(f"phase serve streamed: {st['completed']} done, {st['queued']} queued, 0 rejected, high "
+        f"water {st['footprint_high_water_bytes']} <= budget {budget}; rows within rtol "
+        f"{SERVE_PR_RTOL}, atol {SERVE_PR_ATOL} of solo streamed runs (largest max |diff|, "
+        f"relative, L1: {[f'{max(d[i] for d in diffs):.2e}' for i in range(3)]}; "
+        f"{np.mean(solo_ms):.0f} ms each); batches "
+        f"launched spmv_tiles {batch_launches} times, as many as solo runs {solo_launches} "
+        f"[{card}]")
+    probe.close()
+    del srv, probe
+    store._device_cache.clear()
+    torch.cuda.empty_cache()
+    return [spmv, frontier]
+
+
 def phase_stream_tc(dev, store, schedule, incore, rate):
     """TC streamed on the TC dag under a third of its total footprint."""
     import torch
@@ -1348,12 +1757,12 @@ def phase_lm_full(dev, cfg):
         f"{first_s:.3f} s, second {prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s, host "
         f"clock), max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
         f"launches {launches}")
-    try:
-        _, wall, busy, top = device_profile(lambda: step(model, batch))
+    _, wall, busy, top = device_profile(lambda: step(model, batch))
+    if busy is None:
+        say(f"phase lm prefill: device time not measured ({top})")
+    else:
         say(f"phase lm prefill: profiled run {wall:.1f} ms wall, device busy {busy:.1f} ms "
             f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
-    except Exception as e:  # a measurement only; the checks above decide the phase
-        say(f"phase lm prefill: device time not measured ({type(e).__name__}: {e})")
 
     with torch.inference_mode():
         state = lm.init_decode_state(cfg, fu["slots"], fu["cache_len"], device=dev)
@@ -1366,14 +1775,14 @@ def phase_lm_full(dev, cfg):
             return logits
 
         decode()                      # warm
-        try:
-            _, wall, busy, top = device_profile(decode)
-            n = DECODE_PROFILE_STEPS
+        _, wall, busy, top = device_profile(decode)
+        n = DECODE_PROFILE_STEPS
+        if busy is None:
+            say(f"phase lm decode: device time not measured ({top})")
+        else:
             say(f"phase lm decode: profiled {n} steps of {fu['slots']} slots, "
                 f"{wall / n:.2f} ms wall per step, device busy {busy / n:.2f} ms per step "
                 f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
-        except Exception as e:  # a measurement only
-            say(f"phase lm decode: device time not measured ({type(e).__name__}: {e})")
         del state
 
     rng = np.random.default_rng(0)
@@ -1427,8 +1836,9 @@ def phase_lm_full(dev, cfg):
     return rec
 
 
-def run(dev) -> list[dict]:
-    """The phases in order; returns the per-kernel records."""
+def run(dev, card: str) -> list[dict]:
+    """The phases in order; returns the per-kernel records.  ``card`` is
+    the card's name and power limit, printed beside phase serve's numbers."""
     import torch
     from repro_torch.core import build_block_store, degree_order, rmat
 
@@ -1452,6 +1862,9 @@ def run(dev) -> list[dict]:
     streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, bfs_res, cc, cc_ms)
     hetero_cc = phase_hetero(dev, store, runs, rate, bfs_res, cc, cc_ms, pr_res, pr_short)
     phase_resilience(dev, store, schedule, runs, bfs_res, hetero_cc)
+    t0 = time.perf_counter()
+    served = phase_serve(dev, store, schedule, gen, card)
+    say(f"phase serve: {time.perf_counter() - t0:.1f} s")
     del store, g, schedule
     torch.cuda.empty_cache()
     tc, tc_store, tc_schedule, tc_res = phase_tc(dev)
@@ -1464,7 +1877,7 @@ def run(dev) -> list[dict]:
 
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))
     attn = phase_lm_full(dev, lm_config())
-    return [spmv, frontier, tc, attn, ell]
+    return [spmv, frontier, tc, attn, ell, *served]
 
 
 def main() -> int:
@@ -1484,14 +1897,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
-    say(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     logs = _build.build_all(list(SOURCES))
     say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     tensor_core_report(logs)
 
-    kernels = run(dev)
+    kernels = run(dev, card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -19,11 +19,13 @@ from .context import (
 from .direction import (
     DIRECTIONS, DirectionController, direction_spec, resolve_direction,
 )
-from .engine import Plan, RunResult, compile_plan, resolve_device
+from .engine import (
+    Plan, RunResult, batch_states, compile_plan, resolve_device, unbatch_state,
+)
 from .membudget import (
     MemoryBudget, PIPELINE_DEPTH, TenantLedger, arena_model_bytes,
-    batch_state_bytes, build_waves, repack_waves, task_csr_edge_counts,
-    task_footprints,
+    batch_state_bytes, bucket_size, build_waves, repack_waves,
+    task_csr_edge_counts, task_footprints, tree_array_bytes,
 )
 from .stream import StreamingPlan, compile_streaming_plan
 from .faults import FaultPlan, InjectedFault, InjectedOOM
@@ -45,9 +47,11 @@ __all__ = [
     "with_arrays", "with_extras",
     "DIRECTIONS", "DirectionController", "direction_spec", "resolve_direction",
     "Plan", "compile_plan", "RunResult", "resolve_device",
+    "batch_states", "unbatch_state",
     "MemoryBudget", "PIPELINE_DEPTH", "arena_model_bytes",
     "task_footprints", "task_csr_edge_counts",
     "build_waves", "repack_waves", "TenantLedger", "batch_state_bytes",
+    "bucket_size", "tree_array_bytes",
     "StreamingPlan", "compile_streaming_plan",
     "FaultPlan", "InjectedFault", "InjectedOOM",
     "HostTaskError", "ResilienceStats", "RetryPolicy", "WorkerDeath",

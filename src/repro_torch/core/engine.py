@@ -33,9 +33,10 @@ recovery ladder, :mod:`repro_torch.core.resilience`) and
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import TYPE_CHECKING, Any
 
+import numpy as np
 import torch
 
 from .. import obs
@@ -46,6 +47,7 @@ from .direction import DirectionController, kernels_for, resolve_direction
 from .faults import FaultPlan
 from .functors import BlockAlgorithm
 from .knobs import env_str
+from .membudget import tree_array_bytes, tree_map
 from .resilience import ResilienceStats, RetryPolicy, classify
 from .scheduler import Schedule, build_schedule
 
@@ -53,7 +55,7 @@ if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
     from .stream import StreamingPlan
 
 __all__ = ["Plan", "compile_plan", "RunResult", "resolve_device", "reject_unported",
-           "resilience_config"]
+           "resilience_config", "batch_states", "unbatch_state", "context_bytes"]
 
 #: unported compile_plan arguments → the ROADMAP item that ports them
 _UNPORTED = {
@@ -108,6 +110,54 @@ def resolve_device(device: "str | torch.device | None") -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"device must be cpu or cuda; got {device}")
     return device
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.array(leaf))   # copies; a 0-d leaf stays 0-d
+
+
+# ----------------------------------------------------------------------
+# Batched-state entry point.  Algorithms that declare
+# ``metadata["batch"] == "query"`` accept a state with a leading query
+# axis: their kernels run every query's state against the one shared
+# graph context in the same launches.  These helpers build and take
+# apart that axis; Plan.run(state=...) and StreamingPlan.run(state=...)
+# execute the batched state unchanged.
+def batch_states(states, *, pad_to: int | None = None):
+    """Stack per-query states (dicts of arrays or tensors, one structure
+    and per-leaf shape for all) into one batched state of tensors.
+
+    With ``pad_to`` (a bucket from
+    :func:`repro_torch.core.membudget.bucket_size`) the batch is padded
+    by repeating the last query's state; padded rows compute real
+    results that callers discard.
+    """
+    states = list(states)
+    if not states:
+        raise ValueError("batch_states needs at least one state")
+    if pad_to is not None:
+        if pad_to < len(states):
+            raise ValueError(
+                f"pad_to={pad_to} is smaller than the batch of {len(states)}")
+        states = states + [states[-1]] * (pad_to - len(states))
+    return tree_map(lambda *leaves: torch.stack([_as_tensor(x) for x in leaves]),
+                     *states)
+
+
+def unbatch_state(state, index: int):
+    """Query ``index``'s row of a batched state."""
+    return tree_map(lambda leaf: leaf[index], state)
+
+
+def context_bytes(ctx: Context) -> int:
+    """The admission price of a context: the bytes of its tensors, less
+    the tiles' extents (``tile_rows``/``tile_cols``, 8 bytes a dense
+    tile), which the JAX reference's contexts do not hold.  The streamed
+    plan leaves its per-stripe width table out alike, so both packages
+    price one store to the byte and admit alike."""
+    return tree_array_bytes(replace(ctx, tile_rows=None, tile_cols=None))
 
 
 @dataclass
@@ -260,6 +310,15 @@ class Plan:
         with pull/auto.  Shared across every Plan using the same cached
         step, so a second plan or a second graph builds nothing."""
         return sum(step.builds for step in self._steps.values())
+
+    @property
+    def resident_device_bytes(self) -> int:
+        """Device bytes of holding this plan hot, state excluded: the
+        default binding's context as :func:`context_bytes` prices it
+        (graph tensors, tiles, prepared extras).  The serving admission
+        controller's price for a resident in-core plan; query state is
+        priced per batch."""
+        return context_bytes(self._default.context)
 
     def run(self, store: BlockStore | None = None,
             state: Any | None = None, *,

@@ -13,7 +13,7 @@ executor fires explicitly), an **action**, and a **trigger**.  Sites:
                         in-core :class:`~repro_torch.core.engine.Plan`)
 ``host.task``           one host-lane unit (the ``repro-host`` pool)
 ``mesh.collective``     the per-wave mesh fold (ROADMAP A10)
-``serve.query``         one device batch of the graph server (ROADMAP A11)
+``serve.query``         one batch of the graph server (:mod:`repro_torch.serve.graphserve`)
 ======================  ================================================
 
 Spec grammar (``compile_plan(faults=...)`` or ``REPRO_FAULTS``)::

@@ -64,7 +64,7 @@ __all__ = [
     "bucket_size", "task_edge_counts",
     "task_csr_edge_counts", "task_footprints", "tile_bytes",
     "dense_extra_bytes", "single_task_bytes",
-    "resident_bytes", "tree_leaves", "tree_array_bytes", "batch_state_bytes",
+    "resident_bytes", "tree_leaves", "tree_map", "tree_array_bytes", "batch_state_bytes",
     "TenantLedger", "Wave", "build_waves",
     "repack_waves",
     "HOST_RATIO_DEFAULT", "HETERO_HIDE_FACTOR",
@@ -271,6 +271,17 @@ def tree_leaves(tree) -> list:
         return [x for f in dataclasses.fields(tree)
                 for x in tree_leaves(getattr(tree, f.name))]
     return [tree]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structure trees of dicts, lists and
+    tuples (anything else is a leaf)."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return type(head)(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
 
 
 def tree_array_bytes(tree) -> int:

@@ -122,7 +122,7 @@ from .membudget import (
     HOST_RATIO_DEFAULT, MemoryBudget, PIPELINE_DEPTH, Wave, arena_model_bytes,
     bucket_size, build_waves, hetero_split_diverged, peel_host_tasks, repack_waves,
     resident_bytes, split_wave, task_footprints, tree_array_bytes,
-    tree_leaves as _leaves,
+    tree_leaves as _leaves, tree_map,
 )
 from .resilience import HostTaskError, ResilienceStats, RetryPolicy, WorkerDeath, classify
 from .scheduler import Schedule, build_schedule
@@ -241,17 +241,9 @@ def _is_array_leaf(leaf: Any) -> bool:
     return isinstance(leaf, (np.ndarray, torch.Tensor))
 
 
-def _tree_map(fn, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _to_host(tree: Any) -> Any:
     """``tree`` with every tensor leaf as a numpy array."""
-    return _tree_map(lambda l: l.cpu().numpy() if isinstance(l, torch.Tensor) else l, tree)
+    return tree_map(lambda l: l.cpu().numpy() if isinstance(l, torch.Tensor) else l, tree)
 
 
 def _trees_equal(a: Any, b: Any) -> bool:
@@ -274,6 +266,20 @@ def _gather(source: np.ndarray, idx: np.ndarray, out: np.ndarray) -> None:
     if k:
         np.take(source, idx, axis=0, out=out[:k], mode="clip")
     out[k:] = 0
+
+
+def _spread_padding(out: np.ndarray, k: int, n: int) -> None:
+    """``out[k:] = 0, 1, ..., n - 1, 0, 1, ...``.  A slab's padding arcs
+    are masked out on every path, yet the scatters still visit them:
+    as self-loops spread over the vertices they offer their neutral
+    values (``INT32_MAX`` to a min, 0 to a sum) to many addresses, where
+    padding with zeros queues every one on vertex 0."""
+    pad = out[k:]
+    step = min(n, pad.size)
+    if step:
+        base = np.arange(step, dtype=out.dtype)
+        for s in range(0, pad.size, step):
+            pad[s:s + step] = base[:pad.size - s]
 
 
 _ABSENT = object()
@@ -873,7 +879,7 @@ class StreamingPlan:
             else:
                 ws = max(u.base_ws for u in units)
             for w, u in enumerate(units):
-                u.slab.extras = _tree_map(
+                u.slab.extras = tree_map(
                     lambda leaf: leaf[w] if _is_array_leaf(leaf) else leaf, packed)
                 u.slab.staged_bytes = u.base_staged + tree_array_bytes(u.slab.extras)
                 u.slab.workspace_bytes = ws
@@ -979,6 +985,8 @@ class StreamingPlan:
         _gather(store.src, idx, src)
         _gather(store.dst, idx, dst)
         _gather(store.edge_block, idx, edge_block)
+        _spread_padding(src, ne, store.n)
+        dst[ne:] = src[ne:]
         dense_blocks = np.zeros(store.layout.num_blocks, bool)
         if wsched.dense_block_ids.size:
             dense_blocks[wsched.dense_block_ids] = True
@@ -1284,9 +1292,9 @@ class StreamingPlan:
         memory on the CPU; on the card, copies issued on the copy stream
         from the (pinned) host buffers."""
         if self._copy_stream is None:
-            return _tree_map(lambda l: torch.from_numpy(l) if isinstance(l, np.ndarray)
+            return tree_map(lambda l: torch.from_numpy(l) if isinstance(l, np.ndarray)
                              else l, tree)
-        return _tree_map(lambda l: torch.from_numpy(l).to(self.device, non_blocking=True)
+        return tree_map(lambda l: torch.from_numpy(l).to(self.device, non_blocking=True)
                          if isinstance(l, np.ndarray) else l, tree)
 
     def _put_slab(self, slab: _WaveSlab, *, wave: int = -1) -> _Staged:

@@ -1,8 +1,10 @@
 // frontier_tiles: per row u of each bitmap tile, the smallest local
-// column c with A[b,u,c] > 0 and f[b,c] > 0, else INT32_MAX.
+// column c with A[b,u,c] > 0 and f[b,c] > 0, else INT32_MAX; with a query
+// axis, the same for Q frontiers f[q] against the shared tiles.
 //
 // Replaces the Pallas kernel src/repro/kernels/frontier_tile.py::frontier_tiles
-// (BFS's dense bottom-up K_D path, src/repro/algorithms/bfs.py:162).
+// (BFS's dense bottom-up K_D path, src/repro/algorithms/bfs.py:162, and
+// under vmap the multi-source BFS of graph serving, :137-149).
 //
 // Contract: tile b is zero at rows >= rows[b] and columns >= cols[b] (its
 // block's rectangle in the padded T x T tile; no extents means the whole
@@ -13,7 +15,11 @@
 // bytes read depend on the data: from nothing (an empty frontier) up to
 // every frontier column of every row inside the rectangles.
 //
-// Design: grid nd, 256 threads (8 warps); one block per tile.
+// Design: grid (nd, Q), 256 threads (8 warps); one block per (tile, query).
+// * Each query's frontier is compacted by its own block, so a block whose
+//   query has an empty frontier in the tile writes INT32_MAX and leaves
+//   without stalling the other queries' blocks.  The tile is read once per
+//   query that probes it (the probes stop at different columns).
 // * The block reads the frontier columns c < cols[b] of its tile once and
 //   compacts the set ones, in order, into a list in shared memory (a
 //   ballot and a prefix popc per warp, warp offsets through shared
@@ -53,13 +59,16 @@ template <typename T, typename F>
 __global__ void __launch_bounds__(kThreads)
 frontier_tiles_kernel(const T* __restrict__ tiles, const F* __restrict__ fcols,
                       const int* __restrict__ ext_rows, const int* __restrict__ ext_cols,
-                      int* __restrict__ out, int t) {
+                      int* __restrict__ out, long long nd, int t) {
   extern __shared__ int list[];   // the tile's frontier columns, in order
   __shared__ int warp_n[kWarps];
   const long long b = blockIdx.x;
   const int rows = extent(ext_rows, b, t), cols = extent(ext_cols, b, t);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int* o = out + b * t;
+  // this block's query: its frontier and output slabs
+  const long long slab = (long long)blockIdx.y * nd * t;
+  fcols += slab;
+  int* o = out + slab + b * t;
 
   int n = 0;
   for (int c0 = 0; c0 < cols; c0 += kThreads) {
@@ -115,7 +124,8 @@ frontier_tiles_kernel(const T* __restrict__ tiles, const F* __restrict__ fcols,
 
 template <typename T, typename F>
 cudaError_t launch(const void* tiles, const void* fcols, const int* rows, const int* cols,
-                   int* out, long long nd, int t, cudaStream_t stream) {
+                   int* out, long long nq, long long nd, int t, cudaStream_t stream) {
+  if (nd > 0x7fffffffLL || nq < 1 || nq > 65535) return cudaErrorInvalidValue;
   const size_t smem = (size_t)t * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(frontier_tiles_kernel<T, F>,
@@ -123,18 +133,19 @@ cudaError_t launch(const void* tiles, const void* fcols, const int* rows, const 
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
-  frontier_tiles_kernel<T, F><<<(unsigned)nd, kThreads, smem, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const F*>(fcols), rows, cols, out, t);
+  frontier_tiles_kernel<T, F><<<dim3((unsigned)nd, (unsigned)nq), kThreads, smem, stream>>>(
+      static_cast<const T*>(tiles), static_cast<const F*>(fcols), rows, cols, out, nd, t);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_f(const void* tiles, const void* fcols, const int* rows, const int* cols,
-                     int* out, long long nd, int t, int fdtype, cudaStream_t stream) {
+                     int* out, long long nq, long long nd, int t, int fdtype,
+                     cudaStream_t stream) {
   switch (fdtype) {
-    case 0: return launch<T, uint8_t>(tiles, fcols, rows, cols, out, nd, t, stream);
-    case 1: return launch<T, float>(tiles, fcols, rows, cols, out, nd, t, stream);
-    case 2: return launch<T, __nv_bfloat16>(tiles, fcols, rows, cols, out, nd, t, stream);
+    case 0: return launch<T, uint8_t>(tiles, fcols, rows, cols, out, nq, nd, t, stream);
+    case 1: return launch<T, float>(tiles, fcols, rows, cols, out, nq, nd, t, stream);
+    case 2: return launch<T, __nv_bfloat16>(tiles, fcols, rows, cols, out, nq, nd, t, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -143,12 +154,12 @@ cudaError_t launch_f(const void* tiles, const void* fcols, const int* rows, cons
 
 // dtype of the tiles: 0 = float32, 1 = bfloat16.
 // fdtype of the frontier columns: 0 = bool (one byte), 1 = float32, 2 = bfloat16.
-// rows and cols are the (nd,) int32 extents of the tiles, or both null for
-// whole tiles.
+// fcols and out are (nq, nd, T); out is int32.  rows and cols are the (nd,)
+// int32 extents of the tiles, or both null for whole tiles.
 extern "C" int frontier_tiles_launch(int device, const void* tiles, const void* fcols,
                                      const void* rows, const void* cols, void* out,
-                                     long long nd, int t, int dtype, int fdtype,
-                                     void* stream) {
+                                     long long nq, long long nd, int t, int dtype,
+                                     int fdtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -156,8 +167,8 @@ extern "C" int frontier_tiles_launch(int device, const void* tiles, const void* 
   const int* er = static_cast<const int*>(rows);
   const int* ec = static_cast<const int*>(cols);
   switch (dtype) {
-    case 0: return launch_f<float>(tiles, fcols, er, ec, o, nd, t, fdtype, s);
-    case 1: return launch_f<__nv_bfloat16>(tiles, fcols, er, ec, o, nd, t, fdtype, s);
+    case 0: return launch_f<float>(tiles, fcols, er, ec, o, nq, nd, t, fdtype, s);
+    case 1: return launch_f<__nv_bfloat16>(tiles, fcols, er, ec, o, nq, nd, t, fdtype, s);
     default: return cudaErrorInvalidValue;
   }
 }

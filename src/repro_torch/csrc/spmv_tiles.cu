@@ -1,8 +1,10 @@
 // spmv_tiles: y[b] = A[b]^T x[b] over a batch of dense 0/1 bitmap tiles,
-// each read only inside its block rectangle.
+// each read only inside its block rectangle; with a query axis,
+// y[q, b] = A[b]^T x[q, b] for Q slices against the shared tiles.
 //
 // Replaces the Pallas kernel src/repro/kernels/spmv_tile.py::spmv_tiles
-// (PageRank's dense K_D path, src/repro/algorithms/pagerank.py:100).
+// (PageRank's dense K_D path, src/repro/algorithms/pagerank.py:100, and
+// under vmap the batched PageRank of graph serving, :107-109).
 //
 // Contract: tile b is zero at rows >= rows[b] and columns >= cols[b] (its
 // block's rectangle in the padded T x T tile; no extents means the whole
@@ -62,6 +64,16 @@
 //   the main path's inputs, on the same card.)
 // * The groups' partial sums fold with shuffles inside a warp and through
 //   shared memory across warps.
+// * Query axis: a block takes one item and a group of up to QG = 8 queries
+//   (grid.y walks the groups).  It walks the item's rows once and keeps QG
+//   accumulators per column, so a tile is read from HBM once per group,
+//   not once per query; the QG x slices of a row are loaded beside its
+//   tile segment.  Every query's sums run in the order the Q = 1 kernel
+//   uses (the same rows per lane, the same fmaf chain, the same fold), so
+//   row q of a batched launch equals the Q = 1 launch on row q bit for
+//   bit.  The fold goes query by query through the one shared buffer.
+//   QG is a template argument (1, 2, 4 or 8, the least that holds min(Q,
+//   8)), so a Q = 1 launch keeps one accumulator set.
 // * No global __device__ state: two streams may run the kernel at once.
 //   The extents are clamped to [0, T] here and never read on the host.
 #include <cuda_bf16.h>
@@ -116,99 +128,127 @@ template <int V>
 __device__ __forceinline__ int lanes(int cols) { return min((cols + V - 1) / V, kThreads); }
 __device__ __forceinline__ int pow2(int w) { return w <= 1 ? 1 : 1 << (32 - __clz(w - 1)); }
 
-template <typename T, int V>
+template <typename T, int V, int QG>
 __global__ void __launch_bounds__(kThreads)
 spmv_tiles_kernel(const T* __restrict__ tiles, const T* __restrict__ xs,
                   const int* __restrict__ ext_rows, const int* __restrict__ ext_cols,
-                  float* __restrict__ ys, long long nd, int t) {
+                  float* __restrict__ ys, long long nd, int t, int nq) {
   using E = Elems<T, V>;
   __shared__ float part[kThreads * V];   // the groups' partial sums of a chunk
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // items panel-major: item = panel * nd + tile
   const long long item = blockIdx.x, b = item % nd;
   const int p0 = (int)(item / nd) * kPanel, p1 = min(p0 + kPanel, t);
+  const int q0 = blockIdx.y * QG, nqg = min(QG, nq - q0);   // this block's queries
+  const long long qstride = nd * t;    // one query's slab of xs and ys
   const int n = extent(ext_rows, b, t);   // rows to walk
   // columns to sum: the rectangle's inside this panel
   const int width = n > 0 ? max(min(extent(ext_cols, b, t), p1) - p0, 0) : 0;
   const T* a = tiles + b * t * (long long)t + p0;
-  const T* x = xs + b * t;
-  float* y = ys + b * t + p0;
+  const T* x = xs + q0 * qstride + b * t;
+  float* y = ys + q0 * qstride + b * t + p0;
 
   for (int c0 = 0; c0 < width; c0 += kThreads * V) {
     const int w = lanes<V>(width - c0), wp = pow2(w);
     const int groups = kThreads / wp;
     const int q = tid & (wp - 1), g = tid / wp;
-    float acc[V];
+    float acc[QG][V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int k = 0; k < QG; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
     if (q < w) {
       const T* p = a + c0 + q * V;
       for (int r = g; r < n; r += groups * kBatch) {
         typename E::raw v[kBatch];
-        float xv[kBatch];
+        float xv[kBatch][QG];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
           const int rr = r + k * groups;
           v[k] = rr < n ? __ldcs(reinterpret_cast<const typename E::raw*>(p + (long long)rr * t))
                         : E::zero();
-          xv[k] = rr < n ? to_f32(x[rr]) : 0.f;
+#pragma unroll
+          for (int s = 0; s < QG; ++s)
+            xv[k][s] = rr < n && s < nqg ? to_f32(x[s * qstride + rr]) : 0.f;
         }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
           float f[V];
           E::unpack(v[k], f);
 #pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] = fmaf(f[j], xv[k], acc[j]);
+          for (int s = 0; s < QG; ++s)
+#pragma unroll
+            for (int j = 0; j < V; ++j) acc[s][j] = fmaf(f[j], xv[k][s], acc[s][j]);
         }
       }
     }
-    // fold the groups: inside a warp by shuffles (wp < 32), then across
-    // warps (or, for wp >= 32, across the groups) through shared memory
-    int slot = g;
-    bool writes = true;
-    if (wp < 32) {
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        for (int o = wp; o < 32; o <<= 1) acc[j] += __shfl_xor_sync(kAll, acc[j], o);
-      slot = warp;
-      writes = lane < wp;
-    }
+    // fold the groups, one query at a time through part: inside a warp by
+    // shuffles (wp < 32), then across warps (or, for wp >= 32, across the
+    // groups) through shared memory
     const int parts = wp < 32 ? kWarps : groups, stride = wp * V;
-    if (writes) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) part[slot * stride + q * V + j] = acc[j];
+    for (int s = 0; s < QG; ++s) {
+      if (s >= nqg) break;   // uniform across the block
+      int slot = g;
+      bool writes = true;
+      if (wp < 32) {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          for (int o = wp; o < 32; o <<= 1) acc[s][j] += __shfl_xor_sync(kAll, acc[s][j], o);
+        slot = warp;
+        writes = lane < wp;
+      }
+      if (writes) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) part[slot * stride + q * V + j] = acc[s][j];
+      }
+      __syncthreads();
+      for (int e = tid; e < w * V && c0 + e < width; e += kThreads) {
+        float sum = 0.f;
+        for (int i = 0; i < parts; ++i) sum += part[i * stride + e];
+        y[s * qstride + c0 + e] = sum;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int e = tid; e < w * V && c0 + e < width; e += kThreads) {
-      float s = 0.f;
-      for (int i = 0; i < parts; ++i) s += part[i * stride + e];
-      y[c0 + e] = s;
-    }
-    __syncthreads();
   }
-  for (int c = width + tid; c < p1 - p0; c += kThreads) y[c] = 0.f;   // past the rectangle
+  for (int s = 0; s < nqg; ++s)   // past the rectangle
+    for (int c = width + tid; c < p1 - p0; c += kThreads) y[s * qstride + c] = 0.f;
 }
 
+template <typename T, int V, int QG>
+cudaError_t launch_q(const void* tiles, const void* xs, const int* rows, const int* cols,
+                     float* ys, long long nd, int t, int nq, cudaStream_t stream) {
+  const long long items = nd * ((t + kPanel - 1) / kPanel);   // one block each
+  const long long groups = (nq + QG - 1) / QG;
+  if (items > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  spmv_tiles_kernel<T, V, QG><<<dim3((unsigned)items, (unsigned)groups), kThreads, 0, stream>>>(
+      static_cast<const T*>(tiles), static_cast<const T*>(xs), rows, cols, ys, nd, t, nq);
+  return cudaGetLastError();
+}
+
+// the least query group that holds min(nq, 8) queries
 template <typename T, int V>
 cudaError_t launch(const void* tiles, const void* xs, const int* rows, const int* cols,
-                   float* ys, long long nd, int t, cudaStream_t stream) {
-  const long long items = nd * ((t + kPanel - 1) / kPanel);   // one block each
-  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
-  spmv_tiles_kernel<T, V><<<(unsigned)items, kThreads, 0, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const T*>(xs), rows, cols, ys, nd, t);
-  return cudaGetLastError();
+                   float* ys, long long nq, long long nd, int t, cudaStream_t stream) {
+  if (nq < 1 || nq > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int q = (int)nq;
+  if (q == 1) return launch_q<T, V, 1>(tiles, xs, rows, cols, ys, nd, t, q, stream);
+  if (q == 2) return launch_q<T, V, 2>(tiles, xs, rows, cols, ys, nd, t, q, stream);
+  if (q <= 4) return launch_q<T, V, 4>(tiles, xs, rows, cols, ys, nd, t, q, stream);
+  return launch_q<T, V, 8>(tiles, xs, rows, cols, ys, nd, t, q, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (tiles and xs share it); ys is float32,
-// (nd, T), and every element of it is written.  rows and cols are the (nd,)
-// int32 extents of the tiles, or both null for whole tiles.  vec = 1 takes
-// 16-byte loads: the caller promises a 16-byte aligned tiles pointer and
-// T * sizeof(element) a multiple of 16.
+// dtype: 0 = float32, 1 = bfloat16 (tiles and xs share it); xs is (nq, nd,
+// T) and ys float32 (nq, nd, T), every element of it written.  rows and
+// cols are the (nd,) int32 extents of the tiles, or both null for whole
+// tiles.  vec = 1 takes 16-byte loads: the caller promises a 16-byte
+// aligned tiles pointer and T * sizeof(element) a multiple of 16.
 extern "C" int spmv_tiles_launch(int device, const void* tiles, const void* xs,
                                  const void* rows, const void* cols, void* ys,
-                                 long long nd, int t, int dtype, int vec, void* stream) {
+                                 long long nq, long long nd, int t, int dtype, int vec,
+                                 void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -216,10 +256,10 @@ extern "C" int spmv_tiles_launch(int device, const void* tiles, const void* xs,
   const int* er = static_cast<const int*>(rows);
   const int* ec = static_cast<const int*>(cols);
   switch (dtype * 2 + (vec ? 1 : 0)) {
-    case 0: return launch<float, 1>(tiles, xs, er, ec, y, nd, t, s);
-    case 1: return launch<float, 4>(tiles, xs, er, ec, y, nd, t, s);
-    case 2: return launch<__nv_bfloat16, 1>(tiles, xs, er, ec, y, nd, t, s);
-    case 3: return launch<__nv_bfloat16, 8>(tiles, xs, er, ec, y, nd, t, s);
+    case 0: return launch<float, 1>(tiles, xs, er, ec, y, nq, nd, t, s);
+    case 1: return launch<float, 4>(tiles, xs, er, ec, y, nq, nd, t, s);
+    case 2: return launch<__nv_bfloat16, 1>(tiles, xs, er, ec, y, nq, nd, t, s);
+    case 3: return launch<__nv_bfloat16, 8>(tiles, xs, er, ec, y, nq, nd, t, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -45,9 +45,21 @@ __all__ = [
 ]
 
 
+def _per_query(fn, tiles: torch.Tensor, vecs: torch.Tensor, dtype) -> torch.Tensor:
+    """``fn`` on each query row of ``vecs`` (Q, nd, T) against the shared
+    tiles: row q of the result is exactly ``fn(tiles, vecs[q])``."""
+    out = torch.empty(vecs.shape, dtype=dtype, device=vecs.device)
+    for q in range(vecs.shape[0]):
+        out[q] = fn(tiles, vecs[q])
+    return out
+
+
 def spmv_tiles_ref(tiles: torch.Tensor, xs: torch.Tensor, extents=None) -> torch.Tensor:
-    """y[b] = A[b]ᵀ · x[b] for a batch of dense blocks — (nd,T,T),(nd,T)→(nd,T) f32.
-    ``extents`` is ignored: whole tiles are read."""
+    """y[b] = A[b]ᵀ · x[b] for a batch of dense blocks — (nd,T,T),(nd,T)→(nd,T) f32;
+    with a query axis, (Q,nd,T) slices against the shared tiles give
+    (Q,nd,T).  ``extents`` is ignored: whole tiles are read."""
+    if xs.dim() == 3:
+        return _per_query(spmv_tiles_ref, tiles, xs, torch.float32)
     out = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
     for s in range(0, tiles.shape[0], CHUNK):
         a = tiles[s:s + CHUNK].float()
@@ -59,8 +71,11 @@ def spmv_tiles_ref(tiles: torch.Tensor, xs: torch.Tensor, extents=None) -> torch
 def frontier_tiles_ref(tiles: torch.Tensor, fcols: torch.Tensor,
                        extents=None) -> torch.Tensor:
     """Bottom-up BFS tile step: per tile row, the smallest local column c
-    with an edge into the frontier, else INT_MAX — (nd,T,T),(nd,T)→(nd,T) i32.
-    ``extents`` is ignored: whole tiles are read."""
+    with an edge into the frontier, else INT_MAX — (nd,T,T),(nd,T)→(nd,T) i32;
+    with a query axis, (Q,nd,T) frontiers against the shared tiles give
+    (Q,nd,T).  ``extents`` is ignored: whole tiles are read."""
+    if fcols.dim() == 3:
+        return _per_query(frontier_tiles_ref, tiles, fcols, torch.int32)
     t = tiles.shape[-1]
     colid = torch.arange(t, dtype=torch.int32, device=tiles.device)[None, None, :]
     out = torch.empty(fcols.shape, dtype=torch.int32, device=tiles.device)

@@ -24,7 +24,7 @@ from repro_torch import interop
 from repro_torch.algorithms import (
     bfs, bfs_algorithm, pagerank, pagerank_algorithm, tc_algorithm, triangle_count,
 )
-from repro_torch.core import compile_plan, rmat
+from repro_torch.core import batch_states, compile_plan, rmat
 from repro_torch.kernels.spmv_tiles import spmv_tiles
 
 GRAPHS = {
@@ -188,13 +188,22 @@ def test_ported_arguments_run(road_store, arg, budget, tmp_path):
 
 
 def test_batched_states_raise(road_store):
+    # a batched state runs (graph serving's query axis); what raises is
+    # a malformed batch or an empty or out-of-range source list
     plan = compile_plan(pagerank_algorithm(), road_store, device="cpu")
     state = pagerank_algorithm().init_state(road_store)
     batched = {k: np.stack([v, v]) for k, v in state.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        plan.run(state=batched)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        bfs_algorithm(0, sources=[0, 1])
+    got = plan.run(state=batched)
+    solo = plan.run()
+    assert got.state["rank"].shape == (2, road_store.n)
+    for row in got.state["rank"]:
+        assert torch.equal(row, solo.state["rank"])
+    with pytest.raises(ValueError, match="pad_to"):
+        batch_states([state, state], pad_to=1)
+    with pytest.raises(ValueError, match="at least one"):
+        bfs_algorithm(0, sources=[])
+    with pytest.raises(ValueError, match="out of range"):
+        bfs_algorithm(0, sources=[0, road_store.n]).init_state(road_store)
 
 
 def test_steps_are_built_once_per_direction(road_store):

@@ -31,7 +31,7 @@ from repro_torch.kernels.spmv_ell import spmv_ell
 from repro_torch.kernels.spmv_tiles import spmv_tiles
 from repro_torch.kernels.tc_tiles import tc_tiles
 from repro_torch.models import lm
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import GraphServer, Query, Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -163,6 +163,44 @@ def test_spmv_tiles_cuda_with_extents_vs_plain(cuda, t, dtype):
     assert bool((got[past] == 0).all())        # exact zeros past each rectangle's columns
     torch.testing.assert_close(spmv_tiles(tiles, xs), want, rtol=1e-5, atol=1e-6)
     assert registry.launch_counts()["spmv_tiles"] == before + 2
+
+
+#: query counts of the batched launches: one group of each template width
+#: (1, 2, 4, 8 queries) and 9, which spills into a second group
+QUERY_COUNTS = (1, 2, 3, 8, 9)
+
+
+@pytest.mark.parametrize("q", QUERY_COUNTS)
+@pytest.mark.parametrize("t", [64, 100, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_tiles_cuda_query_axis(cuda, q, t, dtype):
+    rng = np.random.default_rng(q * 1000 + t)
+    tiles, extents = _ragged(rng, 26, t, 0.2, cuda, dtype)
+    xs = torch.from_numpy(rng.random((q, 26, t)).astype(np.float32)).to(cuda, dtype)
+    before = registry.launch_counts()["spmv_tiles"]
+    got = spmv_tiles(tiles, xs, extents)
+    assert registry.launch_counts()["spmv_tiles"] == before + 1
+    assert got.shape == (q, 26, t)
+    torch.testing.assert_close(got, ref.spmv_tiles_ref(tiles, xs), rtol=1e-5, atol=1e-6)
+    for i in range(q):      # each row is the Q = 1 launch on that row, bit for bit
+        assert torch.equal(got[i], spmv_tiles(tiles, xs[i], extents))
+
+
+@pytest.mark.parametrize("q", QUERY_COUNTS)
+@pytest.mark.parametrize("t,dtype", [(64, torch.float32), (192, torch.bfloat16),
+                                     (512, torch.float32), (50, torch.float32)])
+def test_frontier_tiles_cuda_query_axis(cuda, q, t, dtype):
+    rng = np.random.default_rng(q * 1000 + t)
+    tiles, extents = _ragged(rng, 9, t, 0.05, cuda, dtype)
+    f = torch.from_numpy(rng.random((q, 9, t)) < 0.3).to(cuda)
+    f[q // 2] = False                          # one query with an empty frontier
+    before = registry.launch_counts()["frontier_tiles"]
+    got = frontier_tiles(tiles, f, extents)
+    assert registry.launch_counts()["frontier_tiles"] == before + 1
+    assert torch.equal(got, ref.frontier_tiles_ref(tiles, f))
+    assert bool((got[q // 2] == INT_MAX).all())
+    for i in range(q):
+        assert torch.equal(got[i], frontier_tiles(tiles, f[i], extents))
 
 
 def test_spmv_tiles_cuda_misaligned_tiles_take_the_scalar_route(cuda):
@@ -531,3 +569,36 @@ def test_streamed_resume_bit_identical(cuda, small_store, tmp_path):
             np.testing.assert_array_equal(res.result[k], base.result[k])
         assert (res.schedule_stats["direction"]["decisions"]
                 == base.schedule_stats["direction"]["decisions"])
+
+
+def test_graph_server_batches_on_the_card(cuda, small_store):
+    """An in-core batch of 4 BFS and one of 4 PageRank queries on the
+    card against their solo runs there: BFS bit for bit, PageRank within
+    rtol 1e-5 (the batched and solo index_adds are atomic float adds).
+    Each batch launches its tile kernel once per level or iteration."""
+    srcs = [int(np.argmax(small_store.degrees)), 3, 100, 777]
+    seeds = [[0], [5, 9], [17], [1, 2, 3]]
+    srv = GraphServer(max_batch=4, device=cuda)
+    srv.register_graph("g", small_store, direction="auto", **_PLAN_KW)
+    srv.register_graph("g-pr", small_store, **_PLAN_KW)
+    ub = [srv.submit(Query("g", "bfs", dict(source=s))) for s in srcs]
+    up = [srv.submit(Query("g-pr", "pagerank", dict(seeds=s))) for s in seeds]
+    registry.reset_launch_counts()
+    assert srv.step() == 4                     # the BFS batch (FIFO head)
+    pulls = srv.result(ub[0]).schedule_stats["direction"]["decisions"].count("pull")
+    assert pulls > 0 and registry.launch_counts()["frontier_tiles"] == pulls
+    steps = srv.stats()["steps_executed"]
+    registry.reset_launch_counts()
+    assert srv.step() == 4                     # the PageRank batch
+    assert registry.launch_counts()["spmv_tiles"] == srv.stats()["steps_executed"] - steps
+    st = srv.stats()
+    assert st["batch_sizes"] == [4, 4] and st["bucket_sizes"] == [4, 4]
+    for uid, s in zip(ub, srcs):
+        solo = compile_plan(bfs_algorithm(s), small_store, device=cuda, direction="auto",
+                            **_PLAN_KW).run().result
+        for k in ("parent", "dist"):
+            np.testing.assert_array_equal(srv.result(uid).result[k], solo[k])
+    for uid, s in zip(up, seeds):
+        solo = compile_plan(pagerank_algorithm(seeds=s), small_store, device=cuda,
+                            **_PLAN_KW).run().result
+        np.testing.assert_allclose(srv.result(uid).result, solo, rtol=1e-5, atol=1e-9)
