@@ -77,6 +77,21 @@ at full configuration: the graph engine through
    batch, amortized against solo ms, latency, priced high water beside
    the allocator's growth, and the batched kernels at Q=8 on the path's
    inputs beside 8 Q=1 launches;
+   ``phase mesh``: the device mesh from one controller, over every card as
+   one shard each when there are two or more, else two shards on cuda:0
+   (``DeviceMesh(["cuda:0"] * 2)``), each shard under phase stream's
+   budget: PageRank hybrid (3 iterations) within rtol 1e-5 / atol 1e-7 of
+   an in-core run of 3 iterations, BFS auto bit for bit (parents,
+   distances, decisions) against in-core, and the DistributedEngine's
+   PageRank (the reference test's edge update, 20 steps) within 1e-5 of
+   in-core; after TC below, TC hybrid streamed under the mesh, exactly the
+   in-core count.  Each run checks the shard count, every shard's staged
+   bytes + workspace within its budget, bytes across the combine, each
+   card's peak memory within its resident bytes + (depth + 1) × its
+   shards' budgets, and the path's tile kernel launched on every shard
+   that held tiles; it prints waves, GB staged per device per iteration,
+   ms per iteration beside the single-device streamed run's and the
+   combine's time per wave (CUDA events);
 6. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
    tile_dim=512, dense_density=0.001, against an exact scipy count;
 7. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
@@ -159,14 +174,16 @@ PAGERANK_L1_TOL = 1e-5         # float32 ranks vs float64, same iteration count
 KCORE_K = 16
 HITS_REL_L1_TOL = 1e-3
 #: phase stream: budgets are the schedule's total task footprint over these
-#: (PageRank, BFS and CC pack at least 4 waves, TC at least 2)
+#: (PageRank, BFS and CC pack at least 4 waves, TC at least 2); streamed
+#: PageRank's depth, cut for run time (its in-core reference is cut alike)
 STREAM_SPLIT = 4
 TC_STREAM_SPLIT = 3
+STREAM_PR_ITERS = 5
 #: one pinned host→device copy that measures the H2D rate
 H2D_PROBE_BYTES = 1 << 30
 #: phase hetero: the host lane's fixed share; PageRank's depth (iterations)
 HOST_FRACTION = 0.3
-HETERO_PR_ITERS = 5
+HETERO_PR_ITERS = STREAM_PR_ITERS     # one in-core reference serves both
 HETERO_PR_RTOL = 1e-5
 #: phase resilience: one fault at each seam, recovered in one iteration
 FAULTS = ("stage.assemble:raise:at(1);stage.device_put:oom:at(2);"
@@ -188,6 +205,16 @@ SERVE_SEEDS = (1, 3)
 #: tolerance (rtol 1e-5, atol 1e-7, tests/test_stream.py); over the vector an
 #: L1 distance a tenth of PAGERANK_L1_TOL
 SERVE_PR_RTOL, SERVE_PR_ATOL, SERVE_PR_L1 = 1e-5, 1e-7, 1e-6
+#: phase mesh: shards on one card when only one exists; streamed PageRank's
+#: depth (cut for run time) and its tolerance against in-core (the reference
+#: mesh tests' per element, phase serve's over the vector); the
+#: DistributedEngine's iterations (tests/test_distributed.py) and its largest
+#: difference to the in-core ranks
+MESH_SHARDS = 2
+MESH_PR_ITERS = 3
+MESH_PR_RTOL, MESH_PR_ATOL, MESH_PR_L1 = 1e-5, 1e-7, SERVE_PR_L1
+MESH_DIST_ITERS = 20
+MESH_DIST_TOL = 1e-5
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
 #: the LM prefill's shape; then suffix-aligned causal with S_q < S_k, non-causal,
@@ -685,7 +712,8 @@ def phase_pagerank(dev, store):
             f"({busy / res.iterations:.3f} ms per iteration, idle share "
             f"{1 - busy / wall:.3f}); busiest kernels {top}")
     no_recovery(plan, "pagerank")
-    # phase hetero's reference: in-core, cut to HETERO_PR_ITERS iterations
+    # phase stream's and phase hetero's reference: in-core, cut to
+    # STREAM_PR_ITERS (= HETERO_PR_ITERS) iterations
     short = compile_plan(pagerank_algorithm(max_iters=HETERO_PR_ITERS), store, plan.schedule,
                          device=dev, tile_dim=cfg["tile_dim"],
                          dense_density=cfg["dense_density"])
@@ -693,7 +721,15 @@ def phase_pagerank(dev, store):
     no_recovery(short, "pagerank short")
     check(pr_short.iterations == HETERO_PR_ITERS,
           f"pagerank short: {pr_short.iterations} iterations != {HETERO_PR_ITERS}")
-    del short
+    # phase mesh's reference: in-core, cut to MESH_PR_ITERS iterations
+    three = compile_plan(pagerank_algorithm(max_iters=MESH_PR_ITERS), store, plan.schedule,
+                         device=dev, tile_dim=cfg["tile_dim"],
+                         dense_density=cfg["dense_density"])
+    pr_three = three.run()
+    no_recovery(three, "pagerank three")
+    check(pr_three.iterations == MESH_PR_ITERS,
+          f"pagerank three: {pr_three.iterations} iterations != {MESH_PR_ITERS}")
+    del short, three
 
     # time the kernel on the inputs the last iteration gave it
     ctx = plan.context
@@ -722,7 +758,7 @@ def phase_pagerank(dev, store):
         f"correlation {corr:.3f}, largest rectangle {float((rows * cols).max()):.0f} elements; "
         f"whole-tile bound {old_bound[0]:.4f} ms ({old_bound[1]}); the kernel without extents "
         f"{whole_ms:.4f} ms")
-    return plan, rec, res, pr_short.result
+    return plan, rec, res, pr_short.result, pr_three.result
 
 
 def frontier_needed(f, want, rows) -> float:
@@ -1073,10 +1109,11 @@ def stream_run(dev, name, alg, store, budget, rate, incore_ms, **kw):
     return plan, res, launches, summary
 
 
-def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
-    """PageRank, BFS (auto) and CC streamed on the PageRank store under a
-    budget of a quarter of their total footprint, each held against its
-    in-core run; each tile kernel also timed on a wave slab."""
+def phase_stream(dev, store, schedule, pagerank, pr_short, bfs, cc, cc_ms):
+    """PageRank (STREAM_PR_ITERS iterations), BFS (auto) and CC streamed on
+    the PageRank store under a budget of a quarter of their total
+    footprint, each held against its in-core run (PageRank's cut alike,
+    ``pr_short``); each tile kernel also timed on a wave slab."""
     import torch
     from repro_torch.algorithms import afforest_algorithm, bfs_algorithm, pagerank_algorithm
     from repro_torch.core import build_schedule
@@ -1089,20 +1126,22 @@ def phase_stream(dev, store, schedule, pagerank, bfs, cc, cc_ms):
     out = {}
     runs = {}
 
-    alg = pagerank_algorithm()
+    alg = pagerank_algorithm(max_iters=STREAM_PR_ITERS)
     budget = quarter_budget(alg, store, schedule, STREAM_SPLIT)
     plan, res, launches, runs["pagerank"] = stream_run(
         dev, "pagerank", alg, store, budget, rate,
         pagerank.seconds * 1e3 / pagerank.iterations, **kw)
     check(plan.num_waves >= 4, f"stream pagerank: {plan.num_waves} waves < 4")
     check(launches["spmv_tiles"] > 0, "stream pagerank: spmv_tiles never launched")
+    check(res.iterations == STREAM_PR_ITERS,
+          f"stream pagerank: {res.iterations} iterations != {STREAM_PR_ITERS}")
     g = store.graph
     l1 = float(np.abs(res.result.astype(np.float64) - pagerank64(g, res.iterations)).sum())
     check(l1 <= PAGERANK_L1_TOL, f"stream pagerank L1 to float64 {l1} > {PAGERANK_L1_TOL}")
     say(f"phase stream pagerank: L1 distance to float64 scipy {l1:.3e} (limit "
         f"{PAGERANK_L1_TOL}), to the in-core ranks "
-        f"{float(np.abs(res.result - pagerank.result).sum()):.3e}; iterations "
-        f"{res.iterations} (in-core {pagerank.iterations})")
+        f"{float(np.abs(res.result - pr_short).sum()):.3e} (in-core cut to "
+        f"{STREAM_PR_ITERS} iterations)")
     w = max(range(plan.num_waves), key=lambda i: plan._slabs[i].nd)
     ctx = wave_context(plan, w)
     t = ctx.tile_dim
@@ -1619,7 +1658,7 @@ def phase_stream_tc(dev, store, schedule, incore, rate):
     cfg = TC
     alg = tc_algorithm()
     budget = quarter_budget(alg, store, schedule, TC_STREAM_SPLIT)
-    plan, res, launches, _ = stream_run(
+    plan, res, launches, summary = stream_run(
         dev, "tc", alg, store, budget, rate, incore.seconds * 1e3,
         tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
     check(plan.num_waves >= 2, f"stream tc: {plan.num_waves} waves < 2")
@@ -1630,7 +1669,7 @@ def phase_stream_tc(dev, store, schedule, incore, rate):
     ctx = wave_context(plan, w)
     idx = ctx.extras["tc_tiles_idx"]
     ms = cuda_ms(lambda: tc_tiles_cuda(ctx.tiles, idx, (ctx.tile_rows, ctx.tile_cols)), 5)
-    return launches["tc_tiles"], ms, ctx.tiles.shape[0], plan._slabs[w].nd
+    return (launches["tc_tiles"], ms, ctx.tiles.shape[0], plan._slabs[w].nd), summary
 
 
 def stream_kernel_report(per_kernel) -> None:
@@ -1639,6 +1678,194 @@ def stream_kernel_report(per_kernel) -> None:
     for name, (launches, ms, tb, nd) in per_kernel.items():
         say(f"phase stream kernels: {name} {launches} launches per streamed run, "
             f"{ms:.4f} ms per launch on a wave slab of {nd} tiles (bucket {tb})")
+
+
+def card_mesh(card: str):
+    """Every card as one shard when there are two or more, else
+    MESH_SHARDS shards on cuda:0; prints which."""
+    import torch
+    from repro_torch.core import DeviceMesh
+
+    n = torch.cuda.device_count()
+    mesh = DeviceMesh.cuda(n) if n >= 2 else DeviceMesh(["cuda:0"] * MESH_SHARDS)
+    say(f"phase mesh: {mesh!r}, {mesh.size} shards on {len(mesh.distinct)} card(s) [{card}]")
+    return mesh
+
+
+def mesh_run(name, alg, store, budget, mesh, single, kernel, card, **kw):
+    """One streamed plan under ``mesh`` at ``budget`` per shard: checks the
+    shard count, every shard's staged bytes + workspace within the budget,
+    bytes across the combine, each card's peak memory within its resident
+    bytes + (depth + 1) × its shards' largest planned load, and ``kernel``
+    launched on every shard that held tiles; prints the numbers beside
+    ``single``'s (the single-device streamed run's summary).
+
+    The planned load (a shard's staged bytes + workspace in its largest
+    wave) is what the budget bounds, so this limit is the budget's own
+    and tighter where the waves fill less than the budget (TC: a third
+    of the footprint per shard, whose budget limit would exceed the
+    card).  Each limit is also capped at the card's memory.  Returns
+    (plan, result, launches per shard, shards holding tiles)."""
+    import torch
+    from repro_torch.core import compile_plan
+    from repro_torch.kernels import registry
+
+    cards = mesh.distinct
+    for c in cards:
+        torch.cuda.synchronize(c)
+    torch.cuda.empty_cache()
+    base = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    plan = compile_plan(alg, store, memory_budget=budget, mesh=mesh, **kw)
+    build_s = time.perf_counter() - t0
+    registry.reset_launch_counts()
+    res = plan.run()
+    launches = registry.launch_counts()
+    st = res.schedule_stats["streaming"]
+    check(st["mesh_devices"] == mesh.size, f"mesh {name}: mesh_devices {st['mesh_devices']}")
+    check(all(b + w <= budget for b, w in zip(st["per_device_bytes"], st["workspace_per_wave"])),
+          f"mesh {name}: a shard's staged bytes + workspace exceed the budget {budget}")
+    check(st["collective_bytes"] > 0, f"mesh {name}: nothing crossed the combine")
+    no_recovery(plan, f"mesh {name}")
+    load = max(b + w for b, w in zip(st["per_device_bytes"], st["workspace_per_wave"]))
+    peaks, limits = [], []
+    for c in cards:
+        shards = sum(d == c for d in mesh.devices)
+        peaks.append(torch.cuda.max_memory_allocated(c) - base[c])
+        limits.append(min(plan.resident_device_bytes + (plan.pipeline_depth + 1) * shards * load,
+                          torch.cuda.get_device_properties(c).total_memory))
+        check(peaks[-1] <= limits[-1], f"mesh {name}: {c} max_memory_allocated {peaks[-1]} > "
+              f"{limits[-1]}")
+    held = [any(r.run_dense and r.nds[i] > 0 for r in plan._slabs) for i in range(mesh.size)]
+    per_shard = [x.get(kernel, 0) for x in st["shard_launches"]]
+    check(sum(per_shard) == launches[kernel],
+          f"mesh {name}: per-shard {kernel} launches {per_shard} != {launches[kernel]}")
+    per_dev = sum(st["per_device_bytes"])
+    steady = (st["overlapped_wall_seconds"] / st["overlapped_iterations"] * 1e3
+              if st["overlapped_iterations"] else float("nan"))
+    folds = st["collective_folds"]
+    coll = st["phase_seconds"]["collective"] / folds * 1e3 if folds else float("nan")
+    say(f"phase mesh {name}: {mesh.size} shards, budget {budget / 1e9:.3f} GB per shard, "
+        f"{st['num_waves']} waves (planning {build_s:.1f} s), {per_dev / 1e9:.3f} GB staged per "
+        f"device per iteration ({sum(st['bytes_per_wave']) / 1e9:.3f} GB in all), "
+        f"{res.iterations} iterations in {res.seconds:.2f} s: "
+        f"{res.seconds * 1e3 / res.iterations:.1f} ms per iteration (host clock; steady "
+        f"overlapped {steady:.1f} ms) vs single-device streamed {single['ms']:.1f} ms (steady "
+        f"{single['steady']:.1f} ms); collective {coll:.3f} ms per wave over {folds} folds "
+        f"(CUDA events), {st['collective_bytes'] / 1e6:.2f} MB per shard across them; "
+        f"{kernel} launches per shard {per_shard} (shards holding tiles {held}); "
+        f"max_memory_allocated {[f'{x / 1e9:.2f}' for x in peaks]} GB (limits "
+        f"{[f'{x / 1e9:.2f}' for x in limits]}, planned load {load / 1e9:.3f} GB a shard) "
+        f"[{card}]")
+    return plan, res, per_shard, held
+
+
+def phase_mesh(dev, store, schedule, runs, bfs, pagerank, pr_three, card):
+    """The device mesh on the PageRank store, one controller over
+    card_mesh()'s shards, each under phase stream's budget per shard:
+    PageRank hybrid (MESH_PR_ITERS iterations) against in-core, BFS auto
+    bit for bit (parents, distances, decisions) against in-core, and the
+    DistributedEngine's PageRank (the reference test's edge update) over
+    MESH_DIST_ITERS steps against in-core and float64.  Returns the mesh."""
+    import torch
+    from repro_torch.algorithms import bfs_algorithm, pagerank_algorithm
+    from repro_torch.core import DistributedEngine, build_schedule
+
+    cfg = PAGERANK
+    kw = dict(tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    mesh = card_mesh(card)
+
+    plan, res, per, held = mesh_run(
+        "pagerank", pagerank_algorithm(max_iters=MESH_PR_ITERS), store,
+        runs["pagerank"]["budget"], mesh, runs["pagerank"], "spmv_tiles", card, **kw)
+    check(res.iterations == MESH_PR_ITERS, f"mesh pagerank: {res.iterations} iterations")
+    check(any(held) and all(p > 0 for p, h in zip(per, held) if h),
+          f"mesh pagerank: spmv_tiles launches per shard {per}, tiles held {held}")
+    n = store.n
+    err = np.abs(res.result.astype(np.float64) - pr_three)
+    rel = float((err / np.maximum(np.abs(pr_three), 1e-30)).max())
+    l1 = float(err.sum())
+    check(bool(np.allclose(res.result, pr_three, rtol=MESH_PR_RTOL, atol=MESH_PR_ATOL)),
+          f"mesh pagerank vs in-core ({MESH_PR_ITERS} iterations): largest relative "
+          f"difference {rel}")
+    check(l1 <= MESH_PR_L1, f"mesh pagerank L1 to in-core {l1} > {MESH_PR_L1}")
+    say(f"phase mesh pagerank: {MESH_PR_ITERS} iterations within rtol {MESH_PR_RTOL}, atol "
+        f"{MESH_PR_ATOL} of in-core: largest relative difference {rel:.2e}, L1 "
+        f"{l1:.3e} (limit {MESH_PR_L1})")
+    del plan
+
+    src = int(np.argmax(store.degrees))
+    plan, res, per, held = mesh_run(
+        "bfs", bfs_algorithm(src), store, runs["bfs"]["budget"], mesh, runs["bfs"],
+        "frontier_tiles", card, direction="auto", **kw)
+    for k in ("parent", "dist"):
+        check(np.array_equal(res.result[k], bfs.result[k]), f"mesh bfs {k} != in-core")
+    decisions = res.schedule_stats["direction"]["decisions"]
+    check(decisions == bfs.schedule_stats["direction"]["decisions"],
+          f"mesh bfs decisions {decisions} != in-core")
+    check("pull" in decisions and any(held) and all(p > 0 for p, h in zip(per, held) if h),
+          f"mesh bfs: frontier_tiles launches per shard {per}, tiles held {held}")
+    say(f"phase mesh bfs: parent, dist and decisions equal in-core ({decisions})")
+    del plan
+
+    # the reference test's DistributedEngine PageRank (tests/test_distributed.py)
+    t0 = time.perf_counter()
+    sched = build_schedule(pagerank_algorithm(), store, num_devices=mesh.size,
+                           mode="sparse_only")
+    inv = 1.0 / np.maximum(np.diff(store.indptr), 1)
+    inv_deg = {c: torch.from_numpy(inv).float().to(c) for c in mesh.distinct}
+
+    def edge_update(src_, dst_, valid, state):
+        contrib = state["rank"] * inv_deg[src_.device]
+        vals = torch.where(valid, contrib[src_], 0.0)
+        acc = torch.zeros(n, dtype=torch.float32, device=src_.device)
+        return dict(rank=state["rank"], acc=acc.index_add_(0, dst_, vals))
+
+    eng = DistributedEngine(store, sched, edge_update, combine=dict(rank="max", acc="add"),
+                            mesh=mesh)
+    build_s = time.perf_counter() - t0
+    state = dict(rank=torch.full((n,), 1.0 / n, device=dev), acc=torch.zeros(n, device=dev))
+    dangling = torch.from_numpy(np.diff(store.indptr) == 0).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_DIST_ITERS):
+        state = eng.step(state)
+        dm = torch.where(dangling, state["rank"], 0.0).sum()
+        state = dict(rank=0.15 / n + 0.85 * (state["acc"] + dm / n),
+                     acc=torch.zeros(n, device=dev))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MESH_DIST_ITERS
+    got = state["rank"].cpu().numpy()
+    check(bool(np.isfinite(got).all()) and got.shape == (n,), "distributed pagerank shape")
+    diff = float(np.abs(got - pagerank.result).max())
+    check(diff < MESH_DIST_TOL, f"distributed pagerank vs in-core: max |diff| {diff}")
+    l1 = float(np.abs(got.astype(np.float64) - pagerank64(store.graph, MESH_DIST_ITERS)).sum())
+    check(l1 <= PAGERANK_L1_TOL, f"distributed pagerank L1 to float64 {l1} > {PAGERANK_L1_TOL}")
+    say(f"phase mesh distributed: DistributedEngine PageRank over {mesh.size} shards, "
+        f"{MESH_DIST_ITERS} steps in {step_ms:.2f} ms each (host clock; build {build_s:.1f} s); "
+        f"max |diff| to in-core ({pagerank.iterations} iterations) {diff:.2e} (limit "
+        f"{MESH_DIST_TOL}), L1 to float64 scipy {l1:.3e} [{card}]")
+    del eng, state
+    torch.cuda.empty_cache()
+    return mesh
+
+
+def phase_mesh_tc(store, schedule, incore, single, mesh, card):
+    """TC hybrid streamed under ``mesh`` on the TC dag at phase stream's
+    third of its footprint per shard, exactly the in-core count."""
+    from repro_torch.algorithms import tc_algorithm
+
+    cfg = TC
+    alg = tc_algorithm()
+    budget = quarter_budget(alg, store, schedule, TC_STREAM_SPLIT)
+    plan, res, per, held = mesh_run("tc", alg, store, budget, mesh, single, "tc_tiles", card,
+                                    tile_dim=cfg["tile_dim"], dense_density=cfg["dense_density"])
+    check(res.result == incore.result, f"mesh tc count {res.result} != in-core {incore.result}")
+    check(any(held) and all(p > 0 for p, h in zip(per, held) if h),
+          f"mesh tc: tc_tiles launches per shard {per}, tiles held {held}")
+    say(f"phase mesh tc: {res.result} triangles, equal to in-core")
 
 
 def lm_config(**changes):
@@ -1848,30 +2075,42 @@ def run(dev, card: str) -> list[dict]:
 
     cfg = PAGERANK
     t0 = time.perf_counter()
-    g, _ = degree_order(rmat(cfg["scale"], cfg["edge_factor"], seed=cfg["seed"]),
-                        ascending=False)
+    g = rmat(cfg["scale"], cfg["edge_factor"], seed=cfg["seed"])
+    t1 = time.perf_counter()
+    g, _ = degree_order(g, ascending=False)
+    t2 = time.perf_counter()
     store = build_block_store(g, cfg["p"])
-    say(f"phase pagerank: graph + store {time.perf_counter() - t0:.1f} s, n {g.n}, arcs {g.m}")
-    plan, spmv, pr_res, pr_short = phase_pagerank(dev, store)
+    t3 = time.perf_counter()
+    say(f"phase pagerank: graph + store {t3 - t0:.1f} s (rmat {t1 - t0:.1f}, degree order "
+        f"{t2 - t1:.1f}, block store {t3 - t2:.1f}; host), n {g.n}, arcs {g.m}")
+    plan, spmv, pr_res, pr_short, pr_three = phase_pagerank(dev, store)
     frontier, bfs_res = phase_bfs(dev, store, plan.schedule)
     schedule = plan.schedule
     del plan
     cc, cc_ms = phase_algorithms(dev, store)
     store._device_cache.clear()     # the streamed plans hold no in-core copy
     torch.cuda.empty_cache()
-    streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, bfs_res, cc, cc_ms)
+    streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, pr_short, bfs_res, cc,
+                                        cc_ms)
     hetero_cc = phase_hetero(dev, store, runs, rate, bfs_res, cc, cc_ms, pr_res, pr_short)
     phase_resilience(dev, store, schedule, runs, bfs_res, hetero_cc)
     t0 = time.perf_counter()
     served = phase_serve(dev, store, schedule, gen, card)
     say(f"phase serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = phase_mesh(dev, store, schedule, runs, bfs_res, pr_res, pr_three, card)
+    store._device_cache.clear()
+    mesh_s = time.perf_counter() - t0
     del store, g, schedule
     torch.cuda.empty_cache()
     tc, tc_store, tc_schedule, tc_res = phase_tc(dev)
     tc_store._device_cache.clear()
     torch.cuda.empty_cache()
-    streamed["tc_tiles"] = phase_stream_tc(dev, tc_store, tc_schedule, tc_res, rate)
+    streamed["tc_tiles"], tc_single = phase_stream_tc(dev, tc_store, tc_schedule, tc_res, rate)
     stream_kernel_report(streamed)
+    t0 = time.perf_counter()
+    phase_mesh_tc(tc_store, tc_schedule, tc_res, tc_single, mesh, card)
+    say(f"phase mesh: {mesh_s + time.perf_counter() - t0:.1f} s")
     del tc_store, tc_schedule
     torch.cuda.empty_cache()
 

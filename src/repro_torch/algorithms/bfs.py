@@ -209,7 +209,12 @@ def bfs_algorithm(source: int = 0, *, sources=None, max_iters: int = 10_000,
         metadata=dict(combine=dict(parent="min", dist="min"), csr="none",
                       workspace_kernel="frontier_tiles",
                       workspace_kernel_pull="frontier_tiles",
-                      direction=dict(frontier="nf", beta=float(beta)), batch="query"),
+                      direction=dict(frontier="nf", beta=float(beta)),
+                      # mesh="shard": the level's parent min-scatter is
+                      # judged on post-written `dist`, so any edge/tile
+                      # partition over the shards min-folds to the
+                      # identical (deterministic) parents
+                      mesh="shard", batch="query"),
     )
 
 

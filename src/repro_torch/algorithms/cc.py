@@ -101,6 +101,11 @@ def afforest_algorithm(*, k_rounds: int = 2, sample_size: int = 1024,
             # wave for them against the first-k prefix CSR
             edge_free_iterations=k_rounds,
             csr="none",
+            # mesh="shard": finalization hooks judge roots on
+            # iteration-start C (a min over any edge partition); the
+            # edge-free sampling rounds read no per-shard data, so the
+            # mesh executor runs them once, without a collective
+            mesh="shard",
         ),
     )
 

@@ -68,7 +68,9 @@ def hits_algorithm(*, tol: float = 1e-8, max_iters: int = 100) -> BlockAlgorithm
         max_iterations=2 * max_iters,
         finalize=lambda store, state: dict(hub=state["hub"].cpu().numpy(),
                                            auth=state["auth"].cpu().numpy()),
-        metadata=dict(combine=dict(acc="add"), csr="none"),
+        # mesh="shard": both phases are pure scatter-adds into acc from
+        # iteration-start hub/auth — a sum over any edge partition
+        metadata=dict(combine=dict(acc="add"), csr="none", mesh="shard"),
     )
 
 

@@ -70,7 +70,10 @@ def kcore_algorithm(k: int, *, max_iters: int = 10_000) -> BlockAlgorithm:
                       # nearly everything is alive early, so "auto" pulls
                       # until peeling thins the subgraph out
                       direction=dict(frontier="alive"),
-                      csr="none"),
+                      # mesh="shard": alive-neighbour degree counting is a
+                      # scatter-add from iteration-start alive — a sum over
+                      # any edge partition; alive/peeled are post-written
+                      csr="none", mesh="shard"),
     )
 
 

@@ -167,8 +167,12 @@ def pagerank_algorithm(*, damping: float = 0.85, tol: float = 1e-4,
         # combine="add": the streaming executor folds each wave's acc
         # partial; csr="none": no kernel reads the adjacency;
         # batch="query": the state may carry a leading query axis
+        # mesh="shard": the rank scatter decomposes over any edge
+        # partition judged from iteration-start rank; acc folds as a sum
+        # of the shards' deltas (up to float summation order)
         metadata=dict(combine="add", params=dict(damping=damping, tol=tol),
-                      workspace_kernel="spmv_tiles", csr="none", batch="query"),
+                      workspace_kernel="spmv_tiles", csr="none", mesh="shard",
+                      batch="query"),
     )
 
 

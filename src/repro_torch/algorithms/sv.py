@@ -99,7 +99,10 @@ def sv_algorithm(*, max_iters: int = 200) -> BlockAlgorithm:
                       # H counts hooks: large early (pull), tapering to
                       # zero as components settle (back to push)
                       direction=dict(frontier="H"),
-                      csr="none"),
+                      # mesh="shard": hooks judge roots on iteration-start
+                      # C, so the min-scatter min-folds over any edge
+                      # partition; H sums the per-shard hook counts
+                      csr="none", mesh="shard"),
     )
 
 

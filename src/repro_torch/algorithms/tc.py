@@ -290,8 +290,12 @@ def tc_algorithm() -> BlockAlgorithm:
         # csr="slice": the membership test reads ctx.indices, with every
         # position computed by _prepare from the (per-wave rebased)
         # row_block_ptr — so each streamed wave stages only the
-        # conformal CSR row ranges its triples touch
-        metadata=dict(combine="add", workspace_kernel="tc_tiles", csr="slice"),
+        # conformal CSR row ranges its triples touch.  mesh="shard":
+        # triples partition cleanly over shards (each triple's count is
+        # independent and sums), with mesh_pack unifying the
+        # data-dependent bucket ladders across shards
+        metadata=dict(combine="add", workspace_kernel="tc_tiles", csr="slice",
+                      mesh="shard"),
     )
 
 

@@ -1,6 +1,6 @@
 """Core of the port: graph, partition, block store, scheduler, engine,
-the out-of-core streaming executor with its host lane, and the
-fault-tolerant runtime."""
+the out-of-core streaming executor with its host lane and its device
+mesh, and the fault-tolerant runtime."""
 from .graph import (
     Graph, degree_order, erdos_renyi, from_edges, grid_road, load_binary,
     read_edge_list, rmat, save_binary, star_skew, csr_prefix,
@@ -28,6 +28,7 @@ from .membudget import (
     task_csr_edge_counts, task_footprints, tree_array_bytes,
 )
 from .stream import StreamingPlan, compile_streaming_plan
+from .distributed import DeviceMesh, DistributedEngine, make_device_edge_partition
 from .faults import FaultPlan, InjectedFault, InjectedOOM
 from .resilience import (
     HostTaskError, ResilienceStats, RetryPolicy, WorkerDeath,
@@ -53,6 +54,7 @@ __all__ = [
     "build_waves", "repack_waves", "TenantLedger", "batch_state_bytes",
     "bucket_size", "tree_array_bytes",
     "StreamingPlan", "compile_streaming_plan",
+    "DeviceMesh", "DistributedEngine", "make_device_edge_partition",
     "FaultPlan", "InjectedFault", "InjectedOOM",
     "HostTaskError", "ResilienceStats", "RetryPolicy", "WorkerDeath",
     "env_flag", "env_float", "env_int", "env_str",

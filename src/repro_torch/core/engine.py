@@ -27,8 +27,10 @@ executors take the fault-tolerant runtime: ``faults`` (seeded
 injection, :mod:`repro_torch.core.faults`), ``retry_policy`` (the
 recovery ladder, :mod:`repro_torch.core.resilience`) and
 ``checkpoint_every``/``checkpoint_dir`` with :meth:`Plan.resume`
-(:mod:`repro_torch.checkpoint`).  The device mesh is not ported yet:
-``mesh`` raises :class:`NotImplementedError` naming ROADMAP A10.
+(:mod:`repro_torch.checkpoint`).  ``mesh`` (a
+:class:`~repro_torch.core.distributed.DeviceMesh`, streaming only) runs
+each wave's tasks sharded over the mesh's devices from one controller
+(:mod:`repro_torch.core.distributed`).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from .blocks import BlockStore
 from .compilecache import alg_cache_key, shared_entry
 from .context import Context, HostCtx, build_context, build_host_ctx, to_device
 from .direction import DirectionController, kernels_for, resolve_direction
+from .distributed import DeviceMesh
 from .faults import FaultPlan
 from .functors import BlockAlgorithm
 from .knobs import env_str
@@ -54,24 +57,8 @@ from .scheduler import Schedule, build_schedule
 if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
     from .stream import StreamingPlan
 
-__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device", "reject_unported",
+__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device",
            "resilience_config", "batch_states", "unbatch_state", "context_bytes"]
-
-#: unported compile_plan arguments → the ROADMAP item that ports them
-_UNPORTED = {
-    "mesh": "A10 (mesh composition: core/distributed.py, stream._MeshStreamStep)",
-}
-
-
-def reject_unported(**given) -> None:
-    """Raise :class:`NotImplementedError` naming the ROADMAP item for the
-    first unported argument that is set (not ``None``)."""
-    for name, value in given.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected argument {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"compile_plan({name}=...) is not ported yet: ROADMAP {_UNPORTED[name]}")
 
 
 def resilience_config(faults, retry_policy, checkpoint_every, checkpoint_dir):
@@ -535,7 +522,13 @@ def compile_plan(
     ``checkpoint_every`` iterations (default every one) that
     ``plan.resume()`` continues bit-identically for integer/bool
     attributes.  Recoveries surface in ``schedule_stats["resilience"]``.
-    ``mesh`` is not ported yet (ROADMAP A10).
+
+    ``mesh`` (streaming only) is a
+    :class:`~repro_torch.core.distributed.DeviceMesh`: the budget is per
+    shard, waves pack to ``mesh.size × budget``, each shard stages and
+    computes its share of every wave on its own device, and the partials
+    fold with ``metadata["combine"]`` on shard 0's device, which is the
+    plan's device (``device`` may be omitted, or must name it).
     """
     if rebalance_threshold not in (None, "auto") and memory_budget is None:
         raise ValueError(
@@ -551,7 +544,19 @@ def compile_plan(
             "host_fraction only applies to the streaming executor; pass "
             "memory_budget=... as well (the in-core Plan has no waves to "
             "split across host and device)")
-    reject_unported(mesh=mesh)
+    if mesh is not None:
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a repro_torch.core.distributed.DeviceMesh; "
+                            f"got {type(mesh).__name__}")
+        if memory_budget is None:
+            raise ValueError(
+                "mesh= composes the *streaming* executor with a device mesh; pass "
+                "memory_budget=... as well (for whole-graph resident mesh execution "
+                "use repro_torch.core.distributed.DistributedEngine)")
+        if device is not None and resolve_device(device) != mesh.devices[0]:
+            raise ValueError(f"device={device} is not the mesh's shard-0 device "
+                             f"{mesh.devices[0]}; a mesh plan runs on its shard-0 device")
+        device = mesh.devices[0]
     resilience = dict(faults=faults, checkpoint_every=checkpoint_every,
                       checkpoint_dir=checkpoint_dir, retry_policy=retry_policy)
     if memory_budget is not None:
@@ -564,7 +569,7 @@ def compile_plan(
             tile_dim=tile_dim, dense_frac=dense_frac, dense_density=dense_density,
             share=share, direction=direction, rebalance_threshold=rebalance_threshold,
             pipeline_depth=PIPELINE_DEPTH if pipeline_depth is None else pipeline_depth,
-            host_fraction=host_fraction, **resilience)
+            host_fraction=host_fraction, mesh=mesh, **resilience)
     return Plan(
         alg, store, schedule,
         device=resolve_device(device), num_devices=num_devices, mode=mode,

@@ -12,7 +12,7 @@ executor fires explicitly), an **action**, and a **trigger**.  Sites:
 ``wave.compute``        one wave's step (per-iteration step for the
                         in-core :class:`~repro_torch.core.engine.Plan`)
 ``host.task``           one host-lane unit (the ``repro-host`` pool)
-``mesh.collective``     the per-wave mesh fold (ROADMAP A10)
+``mesh.collective``     the per-wave combine of a mesh plan's shards
 ``serve.query``         one batch of the graph server (:mod:`repro_torch.serve.graphserve`)
 ======================  ================================================
 

@@ -82,6 +82,16 @@ class Schedule:
                        num_tasks=int(ids.size)),
         )
 
+    def partition_tasks(self, num_devices: int) -> np.ndarray:
+        """A fresh LPT shard assignment over *this* schedule's tasks.
+
+        The mesh-cooperative streaming executor calls this on each
+        wave's restricted sub-schedule: the global ``device_assignment``
+        balances the whole task list, but a wave holds an arbitrary
+        subset of it, so packing wave-locally keeps every shard busy
+        within the wave.  Returns a ``(t,)`` shard id per task."""
+        return lpt_assign(self.weights, max(int(num_devices), 1))
+
     def weight_share(self, task_ids) -> float:
         """Fraction of the schedule's total E-estimate weight carried by
         ``task_ids`` — how the heterogeneous executor reports its

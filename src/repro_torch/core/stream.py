@@ -88,8 +88,34 @@ stopped, the host futures waited out, both streams synchronised, the
 pinned buffers returned only after their copies landed, and after a
 real ``torch.cuda.OutOfMemoryError`` the allocator's cache emptied.
 ``checkpoint_dir`` writes a run snapshot at iteration boundaries that
-:meth:`StreamingPlan.resume` continues.  The device mesh
-(``mesh.collective``) waits for ROADMAP A10.
+:meth:`StreamingPlan.resume` continues.
+
+Mesh-cooperative streaming — ``mesh=``
+--------------------------------------
+``compile_plan(alg, store, memory_budget=..., mesh=DeviceMesh(...))``
+composes the waves with :mod:`repro_torch.core.distributed`'s model: the
+budget becomes *per shard*, waves are packed to the mesh capacity
+``D × budget`` (:func:`repro_torch.core.membudget.build_waves`), and each
+wave's tasks are LPT-split over the shards, so every shard stages only
+its own padded COO/CSR/tile slab
+(:func:`repro_torch.core.distributed.make_device_edge_partition`, the
+same bucket ladder and staging arena as one device).  Each shard's slice
+is copied to its device on that device's copy stream; each shard runs
+the kernels on its slice from the replicated iteration-start state, on
+its own device; the per-leaf updates fold on shard 0's device with the
+algorithm's ``metadata["combine"]`` op in shard order (``add`` on the
+delta from iteration start, ``min``/``max`` elementwise) into the
+running accumulator.  The combine is a step of its own, timed (CUDA
+events on the card) into the ``collective`` phase, and fires the
+``mesh.collective`` fault seam.  Vertex arrays, the resident context and
+the state are replicated once per distinct device; only edge work is
+sharded.  Algorithms opt in with ``metadata["mesh"] == "shard"``;
+``prepare`` runs per shard against a shard-local store view, and the
+algorithm's ``mesh_pack`` unifies shard-varying outputs.  The host lane
+stays off under a mesh (the mesh owns the wave partition).
+``schedule_stats["streaming"]`` reports ``mesh_devices``,
+``per_device_bytes`` (each ≤ the per-shard budget) and
+``collective_bytes``.
 
 Entry point: ``compile_plan(alg, store, memory_budget=...)`` returns a
 :class:`StreamingPlan` instead of a :class:`~repro_torch.core.engine.Plan`.
@@ -111,6 +137,10 @@ from .. import obs
 from .blocks import BlockStore, _to_int32, segment_index
 from .compilecache import alg_cache_key, shared_entry
 from .context import Context, build_host_ctx, to_device, with_arrays
+from .distributed import (
+    COMBINE_KINDS as _COMBINE_KINDS, DeviceMesh, combine, device_scope,
+    make_device_edge_partition, replicate,
+)
 from .direction import (
     DirectionController, kernels_for, resolve_direction, workspace_kernels,
 )
@@ -127,7 +157,7 @@ from .membudget import (
 from .resilience import HostTaskError, ResilienceStats, RetryPolicy, WorkerDeath, classify
 from .scheduler import Schedule, build_schedule
 from .engine import (
-    RunResult, load_run_checkpoint, reject_unported, resilience_config,
+    RunResult, load_run_checkpoint, resilience_config,
     restore_controller, save_run_checkpoint,
 )
 
@@ -135,11 +165,10 @@ __all__ = ["StreamingPlan", "compile_streaming_plan", "PHASES"]
 
 #: Per-wave pipeline phases, in execution order — also the
 #: ``stream.phase_seconds.<phase>`` metric-name suffixes.  ``collective``
-#: stays 0 until the mesh (ROADMAP A10) is ported.
+#: is the mesh's per-wave combine (0 on one device).
 PHASES = ("assemble", "prepare", "device_put", "compute", "collective",
           "host_compute")
 
-_COMBINE_KINDS = ("add", "min", "max")
 _CSR_MODES = ("resident", "slice", "none")
 
 # Auto-rebalancing: fire when the observed wave-compute skew (max/mean)
@@ -179,17 +208,47 @@ def _combine_spec(alg: BlockAlgorithm):
     return lambda key: None
 
 
-def _combine_leaf(kind: str | None, key: str, acc, s0, new):
+def _check_kind(kind: str | None, key: str, who: str) -> None:
+    if kind not in _COMBINE_KINDS:
+        raise ValueError(
+            f"state leaf {key!r} is modified by the kernels but declares no "
+            f"combine kind in metadata['combine'] (one of {_COMBINE_KINDS}); {who}")
+
+
+def _fold_leaf(kind: str, acc, partial):
+    """``acc`` with one partial folded in: ``add`` takes the delta from
+    iteration start, ``min``/``max`` the new values, elementwise."""
     if kind == "add":
-        return acc + (new - s0)
-    if kind == "min":
-        return torch.minimum(acc, new)
-    if kind == "max":
-        return torch.maximum(acc, new)
-    raise ValueError(
-        f"state leaf {key!r} is modified by the kernels but declares no "
-        f"combine kind in metadata['combine'] (one of {_COMBINE_KINDS}); "
-        f"streaming cannot fold its per-wave partial results")
+        return acc + partial
+    return (torch.minimum if kind == "min" else torch.maximum)(acc, partial)
+
+
+def _combine_leaf(kind: str | None, key: str, acc, s0, new):
+    _check_kind(kind, key, "streaming cannot fold its per-wave partial results")
+    return _fold_leaf(kind, acc, new - s0 if kind == "add" else new)
+
+
+def _check_no_added(name: str, new: dict, state0: dict) -> None:
+    added = set(new) - set(state0)
+    if added:
+        raise ValueError(
+            f"{name}: kernels added state leaves {sorted(added)}; streaming "
+            f"requires kernels to write only leaves present in init_state "
+            f"(declare scratch attributes there)")
+
+
+def _run_kernels(step, ctx: Context, state0: dict, it: int, run_dense: bool) -> dict:
+    """``step``'s sparse then (when the wave has tiles) dense kernel on
+    one context, from iteration-start ``state0``."""
+    if not isinstance(state0, dict):
+        raise TypeError(f"{step.name}: streaming requires a dict state")
+    new = state0
+    if step.kernel_sparse is not None:
+        new = step.kernel_sparse(ctx, new, it)
+    if step.kernel_dense is not None and run_dense:
+        new = step.kernel_dense(ctx, new, it)
+    _check_no_added(step.name, new, state0)
+    return new
 
 
 class _StreamStep:
@@ -209,19 +268,7 @@ class _StreamStep:
 
     def __call__(self, ctx: Context, state0: dict, acc: dict, it: int,
                  run_dense: bool) -> dict:
-        if not isinstance(state0, dict):
-            raise TypeError(f"{self.name}: streaming requires a dict state")
-        new = state0
-        if self.kernel_sparse is not None:
-            new = self.kernel_sparse(ctx, new, it)
-        if self.kernel_dense is not None and run_dense:
-            new = self.kernel_dense(ctx, new, it)
-        added = set(new) - set(state0)
-        if added:
-            raise ValueError(
-                f"{self.name}: kernels added state leaves {sorted(added)}; "
-                f"streaming requires kernels to write only leaves present in "
-                f"init_state (declare scratch attributes there)")
+        new = _run_kernels(self, ctx, state0, it, run_dense)
         return {key: acc[key] if new[key] is state0[key]
                 else _combine_leaf(self.spec(key), key, acc[key], state0[key], new[key])
                 for key in state0}
@@ -234,6 +281,70 @@ def _stream_step_for(alg: BlockAlgorithm, device: torch.device, *,
                      share: bool = True, direction: str = "push") -> _StreamStep:
     return shared_entry(_STREAM_STEP_CACHE, alg_cache_key(alg, device.type, direction),
                         lambda: _StreamStep(alg, direction), share=share)
+
+
+class _MeshStreamStep:
+    """The mesh per-wave step.
+
+    :meth:`run` launches each shard's kernels on its own slice of the
+    wave, on its own device, from the replicated iteration-start state;
+    :meth:`fold` is the collective: per leaf, the shards' partials fold
+    on shard 0's device with the declared combine op in shard order
+    (``add`` on the delta from iteration start, so a replicated baseline
+    is not counted D times; ``min``/``max`` elementwise) and then into
+    the running accumulator, as :class:`_StreamStep` folds a wave.  The
+    two are separate steps so that the plan can time the fold.
+
+    The leaves that cross are those the kernels write, judged per step
+    variant (with or without the dense kernel), as the reference's trace
+    judges them: once a shard has returned a leaf anew, that leaf crosses
+    every later fold of the variant, also where this wave's data left it
+    unchanged (an unchanged ``add`` leaf folds a zero delta, a ``min``
+    or ``max`` leaf its iteration-start values, which change nothing).
+    ``combined_keys`` holds the leaves that crossed the last fold (the
+    basis of ``collective_bytes``).  ``run`` attributes each kernel
+    launch (the registry's counts) to the shard that made it, in
+    ``launches``."""
+
+    def __init__(self, alg: BlockAlgorithm, direction: str = "push") -> None:
+        self.builds = 1
+        obs.metrics.counter("compile.traces").inc()
+        self.name = alg.name
+        self.spec = _combine_spec(alg)
+        self.kernel_sparse, self.kernel_dense = kernels_for(alg, direction)
+        self.combined_keys: tuple[str, ...] = ()
+        self._written: dict[bool, set[str]] = {False: set(), True: set()}
+
+    def run(self, ctxs: list[Context], states0: list[dict], it: int,
+            run_dense: bool, launches: list[dict]) -> list[dict]:
+        from ..kernels.registry import launch_counts
+
+        news = []
+        for ctx, s0, shard in zip(ctxs, states0, launches):
+            before = launch_counts()
+            with device_scope(ctx.device):
+                news.append(_run_kernels(self, ctx, s0, it, run_dense))
+            for name, n in launch_counts().items():
+                shard[name] = shard.get(name, 0) + n - before[name]
+        return news
+
+    def fold(self, states0: list[dict], news: list[dict], acc: dict,
+             run_dense: bool) -> dict:
+        written = self._written[run_dense]
+        written.update(key for key in states0[0]
+                       if any(new[key] is not s0[key] for new, s0 in zip(news, states0)))
+        out = {}
+        for key in states0[0]:
+            if key not in written:
+                out[key] = acc[key]
+                continue
+            kind = self.spec(key)
+            _check_kind(kind, key, "the mesh cannot fold its per-device partials")
+            partials = [new[key] - s0[key] if kind == "add" else new[key]
+                        for new, s0 in zip(news, states0)]
+            out[key] = _fold_leaf(kind, acc[key], combine(kind, partials))
+        self.combined_keys = tuple(key for key in states0[0] if key in written)
+        return out
 
 
 # ----------------------------------------------------------------------
@@ -258,6 +369,23 @@ def _trees_equal(a: Any, b: Any) -> bool:
                 and np.asarray(a).dtype == np.asarray(b).dtype
                 and np.array_equal(np.asarray(a), np.asarray(b)))
     return a == b
+
+
+def _signature(tree: Any) -> Any:
+    """A tree's structure with each array leaf's shape and dtype and each
+    static leaf's value: equal signatures stack along a new axis."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _signature(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_signature(v) for v in tree))
+    if _is_array_leaf(tree):
+        return ("array", tuple(tree.shape), str(tree.dtype))
+    return ("static", tree)
+
+
+def _shard_tree(tree: Any, i: int) -> Any:
+    """Shard ``i``'s row of every array leaf of a shard-stacked tree."""
+    return tree_map(lambda leaf: leaf[i] if _is_array_leaf(leaf) else leaf, tree)
 
 
 def _gather(source: np.ndarray, idx: np.ndarray, out: np.ndarray) -> None:
@@ -286,6 +414,43 @@ _ABSENT = object()
 
 
 # ----------------------------------------------------------------------
+def _gather_tiles(store: BlockStore, pos: np.ndarray, tiles: np.ndarray,
+                  trs: np.ndarray, tcs: np.ndarray) -> None:
+    """The store's tiles at ``pos`` and their origins into padded buffers."""
+    _gather(store.tiles, pos, tiles)
+    _gather(store.tile_row_start, pos, trs)
+    _gather(store.tile_col_start, pos, tcs)
+
+
+def _local_store(store: BlockStore, tile_dim: int, ids: np.ndarray | None,
+                 tiles=None, trs=None, tcs=None, csr=None) -> BlockStore:
+    """The store view a wave's (or a shard's) ``prepare`` sees: only the
+    tiles it stages (``ids`` their blocks; none when ``ids`` is None) and,
+    with ``csr=(indices, row_block_ptr, indptr)``, the staged CSR slice,
+    so that positions ``prepare`` computes index what was staged."""
+    if ids is not None:
+        rows, cols = store.tile_extents(ids)
+        view = dc_replace(store, tile_dim=tile_dim, tile_block_ids=ids.astype(np.int32),
+                          tiles=tiles, tile_row_start=trs, tile_col_start=tcs,
+                          tile_rows=rows, tile_cols=cols, _device_cache={})
+    else:
+        view = dc_replace(
+            store, tile_dim=0, tile_block_ids=np.zeros(0, np.int32),
+            tiles=np.zeros((0, 0, 0), np.float32),
+            tile_row_start=np.zeros(0, np.int64), tile_col_start=np.zeros(0, np.int64),
+            tile_rows=np.zeros(0, np.int32), tile_cols=np.zeros(0, np.int32),
+            _device_cache={})
+    if csr is not None:
+        indices, rbp, indptr = csr
+        view = dc_replace(view, indices=indices, row_block_ptr=rbp, indptr=indptr,
+                          _device_cache={})
+    return view
+
+
+def _nbytes(*arrays) -> int:
+    return sum(int(a.nbytes) for a in arrays if a is not None)
+
+
 class _HostArena:
     """Pooled host staging buffers, one free-list per (shape, dtype).
 
@@ -514,24 +679,14 @@ class _HostLane:
             if faults is not None:
                 faults.fire("host.task", unit=u)
             new = kernel(self._ctxs[u], hstate, it)
-        added = set(new) - set(hstate)
-        if added:
-            raise ValueError(
-                f"{alg.name}: kernels added state leaves {sorted(added)}; "
-                f"streaming requires kernels to write only leaves present in "
-                f"init_state (declare scratch attributes there)")
+        _check_no_added(alg.name, new, hstate)
         payload = {}
         for key, s0 in hstate.items():
             nw = new[key]
             if nw is s0:
                 continue
             kind = self._spec(key)
-            if kind not in _COMBINE_KINDS:
-                raise ValueError(
-                    f"state leaf {key!r} is modified by the kernels but "
-                    f"declares no combine kind in metadata['combine'] (one of "
-                    f"{_COMBINE_KINDS}); the host lane cannot fold its per-unit "
-                    f"partial results")
+            _check_kind(kind, key, "the host lane cannot fold its per-unit partial results")
             payload[key] = (kind, _host_value(nw - s0 if kind == "add" else nw))
         return payload, time.perf_counter() - t0
 
@@ -555,13 +710,7 @@ class _HostLane:
                     merged[key] = (kind, np.maximum(merged[key][1], val))
         out = dict(acc)
         for key, (kind, val) in merged.items():
-            v = to_device(np.asarray(val), self.plan.device)
-            if kind == "add":
-                out[key] = acc[key] + v
-            elif kind == "min":
-                out[key] = torch.minimum(acc[key], v)
-            else:
-                out[key] = torch.maximum(acc[key], v)
+            out[key] = _fold_leaf(kind, acc[key], to_device(np.asarray(val), self.plan.device))
         return out, busy_s
 
     def close(self, wait: bool = False) -> None:
@@ -597,6 +746,9 @@ class _WaveSlab:
     nd: int = 0                    # live tiles (the rest is bucket padding)
     arena_arrays: tuple = ()       # arena-owned buffers to recycle
     prep_ws: int = 0               # prepare-declared share of workspace
+    per_device_bytes: int = 0      # one shard's staged share (mesh)
+    nds: tuple = ()                # live tiles per shard (mesh)
+    shard_tasks: tuple = ()        # each shard's task ids (mesh)
 
 
 @dataclass
@@ -618,6 +770,9 @@ class _WaveRecipe:
     tile_bucket: int               # padded tile count (0 without tiles)
     nd: int
     extras: Any = None
+    per_device_bytes: int = 0
+    nds: tuple = ()
+    shard_tasks: tuple = ()
 
 
 @dataclass
@@ -628,6 +783,7 @@ class _PlanUnit:
 
     slab: _WaveSlab
     raw_extras: Any = None
+    dev_extras: list | None = None   # mesh: per-shard raw prepare outputs
     base_staged: int = 0             # staged bytes excluding extras
     base_ws: int = 0
     prep_ws: int = 0                 # prepare-declared share of base_ws
@@ -641,12 +797,13 @@ class _PlanUnit:
 
 @dataclass
 class _Staged:
-    """One wave's slab on the device: its tensors, extras, and the event
-    that marks the end of its copy (``None`` on the CPU)."""
+    """One wave's slab on the device: its tensors, extras, and the events
+    that mark the end of its copies, one per card (none on the CPU).
+    Under a mesh ``arrays`` and ``extras`` are lists, one per shard."""
 
-    arrays: dict
+    arrays: Any
     extras: Any
-    copied: "torch.cuda.Event | None"
+    copied: list
 
 
 # ----------------------------------------------------------------------
@@ -676,10 +833,10 @@ class StreamingPlan:
                  faults: "str | FaultPlan | None" = None,
                  checkpoint_every: int | None = None,
                  checkpoint_dir: str | None = None,
-                 retry_policy: RetryPolicy | None = None, **unported) -> None:
+                 retry_policy: RetryPolicy | None = None,
+                 mesh: DeviceMesh | None = None) -> None:
         from ..kernels.registry import host_executable
 
-        reject_unported(**unported)
         self.alg = alg
         self.store = store
         self.device = torch.device(device)
@@ -692,6 +849,24 @@ class StreamingPlan:
         if self._csr_mode not in _CSR_MODES:
             raise ValueError(f"{alg.name}: metadata['csr'] must be one of "
                              f"{_CSR_MODES}, got {self._csr_mode!r}")
+        self.mesh = mesh
+        if mesh is not None:
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a repro_torch DeviceMesh; got "
+                                f"{type(mesh).__name__}")
+            if alg.metadata.get("mesh") != "shard":
+                raise ValueError(
+                    f"{alg.name}: metadata['mesh'] must declare 'shard' to run under a "
+                    "mesh — the kernels must decompose over any partition of a wave's "
+                    "tasks judged from iteration-start state, and prepare must restrict "
+                    "to a device-local view")
+            if mesh.devices[0] != self.device:
+                raise ValueError(f"the plan's device {self.device} is not the mesh's "
+                                 f"shard-0 device {mesh.devices[0]}")
+        self._mesh_devices = mesh.size if mesh is not None else 1
+        #: shard → device, and the distinct devices (the plan's first)
+        self._shard_devices = mesh.devices if mesh is not None else (self.device,)
+        self._devices = mesh.distinct if mesh is not None else (self.device,)
         if not (rebalance_threshold is None or rebalance_threshold == "auto"
                 or isinstance(rebalance_threshold, (int, float))):
             raise ValueError(
@@ -724,6 +899,9 @@ class StreamingPlan:
         if uncertified:
             blockers.append("metadata['host_kernels'] names kernels not certified "
                             f"host-executable: {uncertified}")
+        if mesh is not None:
+            blockers.append("mesh-cooperative streaming (the mesh already owns the "
+                            "wave partition)")
         self._host_capable = not blockers
         if (isinstance(host_fraction, (int, float)) and float(host_fraction) > 0.0
                 and blockers):
@@ -746,8 +924,8 @@ class StreamingPlan:
         self._host_futs: list | None = None   # in-flight host futures
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.schedule = schedule or build_schedule(
-            alg, store, num_devices=num_devices, mode=mode, tile_dim=tile_dim,
-            dense_frac=dense_frac, dense_density=dense_density,
+            alg, store, num_devices=max(num_devices, self._mesh_devices), mode=mode,
+            tile_dim=tile_dim, dense_frac=dense_frac, dense_density=dense_density,
             memory_budget=self.budget, direction=self.direction)
         self.host = build_host_ctx(store, self.schedule, self.device)
         # shape-driving prepare decisions (TC's bucket ladder) made once
@@ -759,8 +937,14 @@ class StreamingPlan:
         self._arena = _HostArena(pin=on_card)
         self._arena_deferred: list[tuple] = []
         self._pipe: _StagePipeline | None = None
-        self._copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        # one copy stream per card of the plan (per distinct mesh device)
+        self._copy_streams = ({d: torch.cuda.Stream(d) for d in self._devices}
+                              if on_card else None)
         self._copies: list[tuple] = []      # (start, end, bytes) not yet read
+        self._collectives: list[tuple] = []     # (start, end) of each fold, unread
+        self._collective_bytes = 0          # per-shard payload across the folds
+        self._collective_folds = 0
+        self._shard_launches = [{} for _ in range(self._mesh_devices)]   # kernel → launches
         self._h2d_s = 0.0                   # copy time, CUDA events on the card
         self._h2d_bytes = 0
         # "auto" prices the max over the push/pull dense variants
@@ -777,7 +961,8 @@ class StreamingPlan:
         self._host_measured = False
         self._hetero_refreshes = 0
         waves = build_waves(store, self.schedule, self.budget, self._footprints,
-                            host_fraction=self._host_frac, host_ratio=self._host_ratio)
+                            devices=self._mesh_devices, host_fraction=self._host_frac,
+                            host_ratio=self._host_ratio)
         self._apply_waves(waves, initial=True)
         # the one-time planning pass's host cost (per-wave prepare)
         self._planning_phase = dict(self._phase)
@@ -786,6 +971,10 @@ class StreamingPlan:
         self._step_pull = (
             _stream_step_for(alg, self.device, share=share, direction="pull")
             if self.direction in ("pull", "auto") else None)
+        self._mesh_step = _MeshStreamStep(alg) if mesh is not None else None
+        self._mesh_step_pull = (_MeshStreamStep(alg, "pull")
+                                if mesh is not None and self._step_pull is not None else None)
+        self._state_reps: dict | None = None    # iteration-start state per device
         self._calibration: dict | None = None
         self._bytes_staged = 0          # actual H2D traffic, all passes
         self._stall_s = 0.0             # main loop blocked on the queue
@@ -838,6 +1027,24 @@ class StreamingPlan:
         budget, and retain only the recipes.  Wave-invariant extras are
         hoisted resident *before* the budget check: they are staged
         once, not per wave."""
+        if self.mesh is not None:
+            units = [self._make_unit(w) for w in waves]
+            if initial:
+                self._resident_extras: dict = {}
+                self._hoisted = False
+                trees = [e for u in units for e in u.dev_extras]
+                if trees and all(_trees_equal(e, trees[0]) for e in trees[1:]):
+                    # shard- and wave-invariant prepare outputs
+                    # (PageRank's inv_deg, ...) are staged once,
+                    # replicated over the mesh
+                    self._resident_extras = trees[0]
+                    self._hoisted = True
+            if self._hoisted or self.alg.mesh_pack is None:
+                slabs = self._fit_slabs([self._finalize_mesh_extras(u.slab, u.dev_extras)
+                                         for u in units])
+            else:
+                slabs = self._fit_unified(units)
+            return [self._recipe(s) for s in slabs]
         slabs = [self._assemble(w) for w in waves]
         if initial:
             self._decide_hoist(slabs)
@@ -854,6 +1061,10 @@ class StreamingPlan:
 
     def _make_unit(self, wave: Wave) -> _PlanUnit:
         """Assemble one wave into a planning unit (raw extras kept)."""
+        if self.mesh is not None:
+            slab, lst = self._assemble_mesh(wave)
+            return _PlanUnit(slab=slab, dev_extras=lst, base_staged=slab.staged_bytes,
+                             base_ws=slab.workspace_bytes, prep_ws=slab.prep_ws)
         slab = self._assemble(wave)
         self._strip_hoisted(slab)
         return _PlanUnit.of(slab)
@@ -862,27 +1073,33 @@ class StreamingPlan:
         """Cross-wave shape unification + budget fit, to fixpoint.
 
         Every wave's ``prepare`` outputs are padded to one shared shape
-        set by the algorithm's ``mesh_pack`` (the waves are its leading
-        axis), so the waves' extras share shapes.  Because padding can
-        push a unified slab over the budget, the loop verifies the
+        set by the algorithm's ``mesh_pack`` (the waves, times the shards
+        under a mesh, are its leading axis), so the waves' extras share
+        shapes.  Because padding can push a unified slab over the
+        budget, the loop verifies the
         *unified* bytes, splits any offender and re-unifies until every
         wave fits.  When even a single-task wave cannot afford the
         shared caps, unification is abandoned for the whole plan."""
         if not units:
             return []
+        d, mesh = self._mesh_devices, self.mesh is not None
         while True:
             slabs = [u.slab for u in units]
-            packed = _to_host(self.alg.mesh_pack([u.raw_extras for u in units]))
+            packed = _to_host(self.alg.mesh_pack(
+                [e for u in units for e in u.dev_extras] if mesh
+                else [u.raw_extras for u in units]))
             ws_decl = packed.pop("__workspace_bytes__", None) if isinstance(packed, dict) else None
             if ws_decl is not None:
                 ws = max(u.base_ws - u.prep_ws for u in units) + int(ws_decl)
             else:
                 ws = max(u.base_ws for u in units)
             for w, u in enumerate(units):
+                at = slice(w * d, (w + 1) * d) if mesh else w    # the wave's rows
                 u.slab.extras = tree_map(
-                    lambda leaf: leaf[w] if _is_array_leaf(leaf) else leaf, packed)
+                    lambda leaf: leaf[at] if _is_array_leaf(leaf) else leaf, packed)
                 u.slab.staged_bytes = u.base_staged + tree_array_bytes(u.slab.extras)
                 u.slab.workspace_bytes = ws
+                u.slab.per_device_bytes = -(-u.slab.staged_bytes // d)
             over = {w for w, u in enumerate(units)
                     if self._budget_load(u.slab) > self.budget.total_bytes}
             if not over:
@@ -901,11 +1118,14 @@ class StreamingPlan:
                 # per-wave shapes for the whole plan
                 return self._fit_slabs([self._restore_raw(u) for u in units])
 
-    @staticmethod
-    def _restore_raw(u: _PlanUnit) -> _WaveSlab:
+    def _restore_raw(self, u: _PlanUnit) -> _WaveSlab:
         """Undo shape unification on one planning unit."""
         slab = u.slab
         slab.workspace_bytes = u.base_ws
+        if self.mesh is not None:
+            slab.staged_bytes = u.base_staged
+            slab.extras = None
+            return self._finalize_mesh_extras(slab, u.dev_extras)
         slab.extras = u.raw_extras
         slab.staged_bytes = u.base_staged + tree_array_bytes(u.raw_extras)
         return slab
@@ -919,18 +1139,23 @@ class StreamingPlan:
             csr_entries=slab.csr_entries, csr_segments=slab.csr_segments,
             csr_bytes=slab.csr.nbytes if slab.csr is not None else 0,
             src_bucket=int(slab.src.shape[-1]),
-            tile_bucket=int(slab.tiles.shape[0]) if slab.tiles is not None else 0,
-            nd=slab.nd, extras=slab.extras)
+            tile_bucket=int(slab.tiles.shape[-3]) if slab.tiles is not None else 0,
+            nd=slab.nd, extras=slab.extras, per_device_bytes=slab.per_device_bytes,
+            nds=slab.nds, shard_tasks=slab.shard_tasks)
 
     def _reassemble(self, wave: Wave) -> _WaveSlab:
         """One wave → finished slab, honoring the standing hoist decision."""
+        if self.mesh is not None:
+            return self._finalize_mesh_extras(*self._assemble_mesh(wave))
         slab = self._assemble(wave)
         self._strip_hoisted(slab)
         return slab
 
     def _budget_load(self, slab) -> int:
-        """The bytes the budget must bound: staged slab + kernel scratch."""
-        return slab.staged_bytes + slab.workspace_bytes
+        """The bytes the budget must bound: one device's staged share
+        plus its kernel scratch (one shard's share under a mesh)."""
+        staged = slab.per_device_bytes if self.mesh is not None else slab.staged_bytes
+        return staged + slab.workspace_bytes
 
     def _fit_slabs(self, slabs: list[_WaveSlab]) -> list[_WaveSlab]:
         out: list[_WaveSlab] = []
@@ -956,9 +1181,15 @@ class StreamingPlan:
                 # fires on whichever thread assembles: a raise in the
                 # background worker surfaces as WorkerDeath at get()
                 self._faults.fire("stage.assemble", wave=wave)
-            slab = self._assemble(recipe.wave, extras=recipe.extras, alloc=self._arena.take)
+            if self.mesh is not None:
+                slab, _ = self._assemble_mesh(recipe.wave, extras=recipe.extras,
+                                              alloc=self._arena.take)
+            else:
+                slab = self._assemble(recipe.wave, extras=recipe.extras,
+                                      alloc=self._arena.take)
         slab.staged_bytes = recipe.staged_bytes
         slab.workspace_bytes = recipe.workspace_bytes
+        slab.per_device_bytes = recipe.per_device_bytes
         return slab
 
     def _assemble(self, wave: Wave, *, extras: Any = _ABSENT, alloc=None) -> _WaveSlab:
@@ -997,40 +1228,23 @@ class StreamingPlan:
         dense_mask[ne:] = False
 
         # -- dense tiles (already materialized by build_schedule) ------
-        tiles = trs = tcs = None
+        tiles = trs = tcs = ids = None
         nd = 0
+        t = sched.tile_dim
         run_dense = (self.alg.kernel_dense is not None
                      and bool(wsched.dense_task_mask.any()))
-        wstore = store
         if run_dense:
             ids = wsched.dense_block_ids
             pos = store.tile_positions(ids)
             nd = int(pos.size)
             tb = bucket_size(nd, minimum=1)
-            t = sched.tile_dim
             tiles = alloc((tb, t, t), np.float32)
             trs, tcs = alloc(tb, np.int64), alloc(tb, np.int64)
-            _gather(store.tiles, pos, tiles)
-            _gather(store.tile_row_start, pos, trs)
-            _gather(store.tile_col_start, pos, tcs)
+            _gather_tiles(store, pos, tiles, trs, tcs)
             arena_arrays += [tiles, trs, tcs]
-            if planning and self.alg.prepare is not None:
-                rows, cols = store.tile_extents(ids)
-                wstore = dc_replace(
-                    store, tile_dim=t, tile_block_ids=ids.astype(np.int32),
-                    tiles=tiles[:nd], tile_row_start=trs[:nd], tile_col_start=tcs[:nd],
-                    tile_rows=rows, tile_cols=cols, _device_cache={})
-        elif planning and self.alg.prepare is not None:
-            # prepare must not see tiles the wave does not stage
-            wstore = dc_replace(
-                store, tile_dim=0, tile_block_ids=np.zeros(0, np.int32),
-                tiles=np.zeros((0, 0, 0), np.float32),
-                tile_row_start=np.zeros(0, np.int64), tile_col_start=np.zeros(0, np.int64),
-                tile_rows=np.zeros(0, np.int32), tile_cols=np.zeros(0, np.int32),
-                _device_cache={})
 
         # -- conformal CSR row slices (metadata["csr"] == "slice") -----
-        csr = None
+        csr = csr_view = None
         csr_entries = csr_segments = 0
         if self._csr_mode == "slice":
             sl_idx, rbp_r, indptr_r, csr_segs = store.csr_slices(blocks)
@@ -1040,34 +1254,26 @@ class StreamingPlan:
             csr[:csr_entries] = sl_idx
             csr[csr_entries:] = 0
             arena_arrays.append(csr)
-            if planning and self.alg.prepare is not None:
-                # prepare sees the wave-local CSR view: positions it
-                # computes from row_block_ptr index the staged slice
-                wstore = dc_replace(wstore, indices=sl_idx, row_block_ptr=rbp_r,
-                                    indptr=indptr_r, _device_cache={})
+            csr_view = (sl_idx, rbp_r, indptr_r)
 
         ws = prep_ws = 0
         if planning:
+            wstore = store
+            if self.alg.prepare is not None:
+                # prepare sees only what the wave stages
+                wstore = (_local_store(store, t, ids, tiles[:nd], trs[:nd], tcs[:nd], csr_view)
+                          if run_dense else _local_store(store, t, None, csr=csr_view))
             t0 = time.perf_counter()
             extras = _to_host(self.alg.run_prepare(wstore, wsched, self._plan_state))
             self._phase["prepare"] += time.perf_counter() - t0
             # prepare may declare device scratch under the reserved key:
             # a budget input, not a kernel input
             ws = prep_ws = int(extras.pop("__workspace_bytes__", 0))
+            if run_dense:
+                ws += self._tile_workspace(int(tiles.shape[0]))
 
-        staged = (src.nbytes + dst.nbytes + edge_block.nbytes + sparse_mask.nbytes
-                  + dense_mask.nbytes + tree_array_bytes(extras))
-        if csr is not None:
-            staged += csr.nbytes
-        if tiles is not None:
-            staged += tiles.nbytes + trs.nbytes + tcs.nbytes
-            if planning:
-                from ..kernels.registry import max_workspace_bytes, workspace_bytes
-
-                wk = self._workspace_decl
-                hints = dict(nd=int(tiles.shape[0]), tile_dim=sched.tile_dim)
-                ws += (workspace_bytes(wk, **hints) if wk is not None
-                       else max_workspace_bytes(**hints))
+        staged = (_nbytes(src, dst, edge_block, sparse_mask, dense_mask, csr, tiles, trs, tcs)
+                  + tree_array_bytes(extras))
         return _WaveSlab(
             wave=wave, src=src, dst=dst, edge_block=edge_block,
             sparse_mask=sparse_mask, dense_mask=dense_mask,
@@ -1078,6 +1284,153 @@ class StreamingPlan:
             csr_entries=csr_entries, csr_segments=csr_segments, nd=nd,
             arena_arrays=tuple(arena_arrays) if alloc is not np.empty else (),
             prep_ws=int(prep_ws))
+
+    def _assemble_mesh(self, wave: Wave, *, extras: Any = _ABSENT,
+                       alloc=None) -> tuple[_WaveSlab, list]:
+        """Assemble one wave as padded per-shard slabs ``[D, …]``.
+
+        The wave's tasks are LPT-split over the shards
+        (:meth:`~repro_torch.core.scheduler.Schedule.partition_tasks` on
+        the wave's sub-schedule); each shard's COO and CSR slices come
+        from :func:`~repro_torch.core.distributed.make_device_edge_partition`
+        (every block of every assigned task, on the bucket ladder); its
+        dense tiles are its own subset, padded to the wave's tile bucket
+        with zero tiles at origin 0, whose extents come out 0.  In the
+        planning pass (``extras`` absent) ``prepare`` runs once per shard
+        against a shard-local store view (shard-rebased CSR maps, the
+        shard's tiles), so positions it computes index that shard's
+        staged slice.  Runtime assembly gathers only.  Every element of
+        every buffer is written.
+
+        Returns the slab plus the per-shard prepare outputs (planning
+        only); :meth:`_finalize_mesh_extras` hoists or stacks them."""
+        store, sched = self.store, self.schedule
+        planning = extras is _ABSENT
+        alloc = alloc or np.empty
+        d = self._mesh_devices
+        t = sched.tile_dim
+        wsched = sched.restrict(wave.task_ids)
+        assign = wsched.partition_tasks(d)
+        part = make_device_edge_partition(store, wsched, assignment=assign, num_devices=d,
+                                          bucket=True, stage_csr=self._csr_mode == "slice",
+                                          alloc=alloc)
+        src, dst, edge_block, valid = (part[k] for k in ("src", "dst", "edge_block", "valid"))
+        for i, k in enumerate(part["edges"]):
+            _spread_padding(src[i], k, store.n)
+            dst[i, k:] = src[i, k:]
+        dense_blocks = np.zeros(store.layout.num_blocks, bool)
+        if wsched.dense_block_ids.size:
+            dense_blocks[wsched.dense_block_ids] = True
+        dense_mask, sparse_mask = alloc(valid.shape, np.bool_), alloc(valid.shape, np.bool_)
+        np.take(dense_blocks, edge_block, out=dense_mask)
+        dense_mask &= valid
+        np.greater(valid, dense_mask, out=sparse_mask)      # valid and not dense
+        arena_arrays = [src, dst, edge_block, valid, sparse_mask, dense_mask]
+        run_dense = (self.alg.kernel_dense is not None
+                     and bool(wsched.dense_task_mask.any()))
+        dev_scheds = [wsched.restrict(np.nonzero(assign == i)[0]) for i in range(d)]
+
+        # -- per-shard dense tiles, padded to the wave's tile bucket ---
+        tiles = trs = tcs = None
+        nds = (0,) * d
+        tb = 0
+        if run_dense:
+            nds = tuple(int(ds.dense_block_ids.size) for ds in dev_scheds)
+            tb = bucket_size(max(nds), minimum=1)
+            tiles = alloc((d, tb, t, t), np.float32)
+            trs, tcs = alloc((d, tb), np.int64), alloc((d, tb), np.int64)
+            arena_arrays += [tiles, trs, tcs]
+            for i, ds in enumerate(dev_scheds):
+                _gather_tiles(store, store.tile_positions(ds.dense_block_ids),
+                              tiles[i], trs[i], tcs[i])
+
+        # -- per-shard prepare against shard-local store views ---------
+        ws = prep_ws = 0
+        extras_list: list = []
+        if planning and self.alg.prepare is not None:
+            t0 = time.perf_counter()
+            for i, ds in enumerate(dev_scheds):
+                csr_view = None
+                if self._csr_mode == "slice":
+                    csr_view = (part["indices"][i, :part["csr_entries"][i]],
+                                *part["csr_maps"][i])
+                k = nds[i]
+                wstore = (_local_store(store, t, ds.dense_block_ids, tiles[i, :k],
+                                       trs[i, :k], tcs[i, :k], csr_view) if run_dense
+                          else _local_store(store, t, None, csr=csr_view))
+                dev_extras = _to_host(self.alg.run_prepare(wstore, ds, self._plan_state))
+                ws = max(ws, int(dev_extras.pop("__workspace_bytes__", 0)))
+                extras_list.append(dev_extras)
+            prep_ws = ws
+            self._phase["prepare"] += time.perf_counter() - t0
+        elif planning:
+            extras_list = [{} for _ in range(d)]
+        if planning and run_dense:
+            ws += self._tile_workspace(tb)      # one shard's padded count
+
+        csr = part.get("indices")
+        if csr is not None:
+            arena_arrays.append(csr)
+        staged = _nbytes(src, dst, edge_block, sparse_mask, dense_mask, csr, tiles, trs, tcs)
+        slab = _WaveSlab(
+            wave=wave, src=src, dst=dst, edge_block=edge_block,
+            sparse_mask=sparse_mask, dense_mask=dense_mask,
+            tiles=tiles, tile_row_start=trs, tile_col_start=tcs,
+            csr=csr, extras=None if planning else extras, run_dense=run_dense,
+            staged_bytes=int(staged), workspace_bytes=int(ws),
+            edges=int(sum(part["edges"])), segments=int(sum(part["segments"])),
+            csr_entries=int(sum(part.get("csr_entries", []))),
+            csr_segments=int(sum(part.get("csr_segments", []))), nd=int(sum(nds)),
+            arena_arrays=tuple(arena_arrays) if alloc is not np.empty else (),
+            prep_ws=int(prep_ws), nds=nds,
+            shard_tasks=tuple(wave.task_ids[assign == i] for i in range(d)))
+        return slab, extras_list
+
+    def _tile_workspace(self, nd: int) -> int:
+        """The dense kernels' scratch for ``nd`` padded tiles."""
+        from ..kernels.registry import max_workspace_bytes, workspace_bytes
+
+        hints = dict(nd=nd, tile_dim=self.schedule.tile_dim)
+        wk = self._workspace_decl
+        return (workspace_bytes(wk, **hints) if wk is not None
+                else max_workspace_bytes(**hints))
+
+    def _finalize_mesh_extras(self, slab: _WaveSlab, extras_list: list) -> _WaveSlab:
+        """Attach a mesh slab's extras (hoisted → none; else stacked with
+        a leading shard axis) and fix the byte accounting."""
+        if self._hoisted and all(_trees_equal(e, self._resident_extras)
+                                 for e in extras_list):
+            slab.extras = None
+        else:
+            slab.extras = self._stack_extras(extras_list)
+            if isinstance(slab.extras, dict) and "__workspace_bytes__" in slab.extras:
+                # mesh_pack re-declared the prepare scratch for the
+                # stacked (per-shard padded) shapes
+                decl = int(slab.extras.pop("__workspace_bytes__"))
+                slab.workspace_bytes += decl - slab.prep_ws
+                slab.prep_ws = decl
+            slab.staged_bytes += tree_array_bytes(slab.extras)
+        slab.per_device_bytes = -(-slab.staged_bytes // self._mesh_devices)
+        return slab
+
+    def _stack_extras(self, extras_list: list):
+        """Per-shard prepare outputs → one tree with a leading shard axis:
+        the algorithm's ``mesh_pack`` when it has one (required for
+        outputs whose structure varies by shard, like TC's bucket
+        ladder), else a plain stack of identically shaped trees.  A
+        neutral pad value is algorithm knowledge, so a shape mismatch
+        without ``mesh_pack`` raises."""
+        if self.alg.mesh_pack is not None:
+            return _to_host(self.alg.mesh_pack(extras_list))
+        sig = _signature(extras_list[0])
+        if any(_signature(e) != sig for e in extras_list[1:]):
+            raise ValueError(
+                f"{self.alg.name}: per-device prepare outputs differ in structure or "
+                f"shape across mesh devices; provide BlockAlgorithm.mesh_pack to unify "
+                f"them (padding must be neutral for the kernels)")
+        return tree_map(lambda *leaves: (np.stack([np.asarray(x) for x in leaves])
+                                         if _is_array_leaf(leaves[0]) else leaves[0]),
+                        *extras_list)
 
     def _decide_hoist(self, slabs: list[_WaveSlab]) -> None:
         """Wave-invariant ``prepare`` outputs (vertex-level arrays like
@@ -1102,11 +1455,12 @@ class StreamingPlan:
             slab.staged_bytes -= tree_array_bytes(slab.extras)
             slab.extras = None
 
-    def _put_resident(self, name: str, a: np.ndarray) -> torch.Tensor:
+    def _put_resident(self, name: str, a: np.ndarray,
+                      device: torch.device | None = None) -> torch.Tensor:
         a = np.ascontiguousarray(a)
         if np.issubdtype(a.dtype, np.integer):
             a = _to_int32(name, a)
-        return torch.from_numpy(a).to(self.device)
+        return torch.from_numpy(a).to(device or self.device)
 
     def _build_resident_context(self) -> Context:
         """Vertex-level tensors only — the per-wave slab fields start
@@ -1115,26 +1469,32 @@ class StreamingPlan:
         ``"slice"`` mode each wave swaps in its staged slice, and in
         ``"none"`` mode a minimal placeholder holds no ``m``-proportional
         memory.  The per-stripe width table from which each wave's tile
-        extents are gathered is built here too."""
+        extents are gathered is built here too.  Under a mesh every
+        distinct device gets its own copy (``self._residents``); the
+        plan's device's is returned."""
         store = self.store
         indices = (store.indices if self._csr_mode == "resident"
                    else np.zeros(bucket_size(0), np.int32))
-        empty32 = torch.zeros(0, dtype=torch.int32, device=self.device)
-        nomask = torch.zeros(0, dtype=torch.bool, device=self.device)
         cuts = store.layout.cuts
-        self._cuts64 = torch.from_numpy(np.asarray(cuts, np.int64)).to(self.device)
-        self._stripe_width = self._put_resident("stripe_width", np.diff(cuts))
-        return Context(
-            src=empty32, dst=empty32, edge_block=empty32,
-            indptr=self._put_resident("indptr", store.indptr),
-            indices=self._put_resident("indices", indices),
-            degrees=self._put_resident("degrees", store.degrees),
-            row_block_ptr=self._put_resident("row_block_ptr", store.row_block_ptr),
-            cuts=self._put_resident("cuts", cuts),
-            sparse_edge_mask=nomask, dense_edge_mask=nomask,
-            extras=to_device(dict(self._resident_extras), self.device),
-            n=store.n, m=store.m, p=store.p, tile_dim=self.schedule.tile_dim,
-            device=self.device)
+        self._residents: dict = {}
+        for dev in self._devices:
+            empty32 = torch.zeros(0, dtype=torch.int32, device=dev)
+            nomask = torch.zeros(0, dtype=torch.bool, device=dev)
+            ctx = Context(
+                src=empty32, dst=empty32, edge_block=empty32,
+                indptr=self._put_resident("indptr", store.indptr, dev),
+                indices=self._put_resident("indices", indices, dev),
+                degrees=self._put_resident("degrees", store.degrees, dev),
+                row_block_ptr=self._put_resident("row_block_ptr", store.row_block_ptr, dev),
+                cuts=self._put_resident("cuts", cuts, dev),
+                sparse_edge_mask=nomask, dense_edge_mask=nomask,
+                extras=to_device(dict(self._resident_extras), dev),
+                n=store.n, m=store.m, p=store.p, tile_dim=self.schedule.tile_dim,
+                device=dev)
+            self._residents[dev] = (
+                ctx, torch.from_numpy(np.asarray(cuts, np.int64)).to(dev),
+                self._put_resident("stripe_width", np.diff(cuts), dev))
+        return self._residents[self.device][0]
 
     # -- execute side --------------------------------------------------
     @property
@@ -1155,7 +1515,9 @@ class StreamingPlan:
     @property
     def compile_count(self) -> int:
         """Wave steps built: 1 for a push plan, 2 with pull/auto."""
-        return sum(s.builds for s in (self._step, self._step_pull) if s is not None)
+        steps = ((self._mesh_step, self._mesh_step_pull) if self.mesh is not None
+                 else (self._step, self._step_pull))
+        return sum(s.builds for s in steps if s is not None)
 
     def _estimate_shares(self) -> np.ndarray:
         """Each wave's share of the schedule's total weight — the
@@ -1224,7 +1586,8 @@ class StreamingPlan:
             dev_rate = float(times.sum()) / dev_w if dev_w > 0 else 0.0
             for ids in self._host_units:
                 task_t[ids] = self.schedule.weights[ids] * dev_rate
-        new_waves = repack_waves(self.schedule, self.budget, self._footprints, task_t)
+        new_waves = repack_waves(self.schedule, self.budget, self._footprints, task_t,
+                                 devices=self._mesh_devices)
         if self._host_units:
             new_waves = peel_host_tasks(self.schedule, new_waves, self._host_frac,
                                         task_times=task_t, host_ratio=self._host_ratio,
@@ -1244,29 +1607,46 @@ class StreamingPlan:
     # -- clocks ----------------------------------------------------------
     def _mark(self):
         """A point on the device's timeline: a CUDA event recorded on the
-        compute stream on the card, the host clock on the CPU."""
-        if self._copy_stream is None:
+        plan's device's compute stream on the card, the host clock on
+        the CPU."""
+        if self._copy_streams is None:
             return time.perf_counter()
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        ev.record(torch.cuda.current_stream(self.device))
         return ev
 
     def _since(self, mark) -> float:
         """Seconds from ``mark`` to now on the same clock (waits for the
         device on the card)."""
-        if self._copy_stream is None:
+        if self._copy_streams is None:
             return time.perf_counter() - mark
         end = self._mark()
         end.synchronize()
         return mark.elapsed_time(end) / 1e3
 
+    def _marks_done(self) -> list:
+        """One event per card on its compute stream: the point where the
+        work queued there so far ends (none on the CPU)."""
+        if self._copy_streams is None:
+            return []
+        out = []
+        for dev in self._devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            out.append(ev)
+        return out
+
     def _sync(self) -> None:
-        if self._copy_stream is not None:
-            torch.cuda.synchronize(self.device)
+        if self._copy_streams is not None:
+            for dev in self._devices:
+                torch.cuda.synchronize(dev)
             for start, end, nbytes in self._copies:
                 self._h2d_s += start.elapsed_time(end) / 1e3
                 self._h2d_bytes += nbytes
             self._copies.clear()
+            for start, end in self._collectives:
+                self._phase["collective"] += start.elapsed_time(end) / 1e3
+            self._collectives.clear()
 
     # -- arena recycling -------------------------------------------------
     # A slab's arena buffers go back to the pool once the copy that read
@@ -1279,22 +1659,22 @@ class StreamingPlan:
     def _drain_recycle(self, *, force: bool = False) -> None:
         while self._arena_deferred:
             copied, arrays = self._arena_deferred[0]
-            if copied is not None:
-                if force:
-                    copied.synchronize()
-                elif not copied.query():
-                    return
+            if force:
+                for ev in copied:
+                    ev.synchronize()
+            elif not all(ev.query() for ev in copied):
+                return
             self._arena.give(*arrays)
             self._arena_deferred.pop(0)
 
-    def _to_device(self, tree: Any) -> Any:
-        """``tree``'s numpy leaves as tensors on the plan's device: shared
-        memory on the CPU; on the card, copies issued on the copy stream
-        from the (pinned) host buffers."""
-        if self._copy_stream is None:
+    def _to_device(self, tree: Any, device: torch.device) -> Any:
+        """``tree``'s numpy leaves as tensors on ``device``: shared memory
+        on the CPU; on a card, copies issued on the current stream (the
+        caller's copy stream) from the (pinned) host buffers."""
+        if self._copy_streams is None:
             return tree_map(lambda l: torch.from_numpy(l) if isinstance(l, np.ndarray)
                              else l, tree)
-        return tree_map(lambda l: torch.from_numpy(l).to(self.device, non_blocking=True)
+        return tree_map(lambda l: torch.from_numpy(l).to(device, non_blocking=True)
                          if isinstance(l, np.ndarray) else l, tree)
 
     def _put_slab(self, slab: _WaveSlab, *, wave: int = -1) -> _Staged:
@@ -1312,57 +1692,121 @@ class StreamingPlan:
         if slab.csr is not None:
             arrays["indices"] = slab.csr
         t0 = time.perf_counter()
-        with obs.span("device_put", lane="device", wave=wave, bytes=slab.staged_bytes):
-            if self._copy_stream is None:
-                staged = _Staged(self._to_device(arrays), self._to_device(slab.extras), None)
+        with obs.span("device_put", lane="device", wave=wave, devices=self._mesh_devices,
+                      bytes=slab.staged_bytes):
+            if self.mesh is None:
+                staged = self._copy_to(self.device, arrays, slab.extras)
             else:
-                compute = torch.cuda.current_stream(self.device)
-                start = torch.cuda.Event(enable_timing=True)
-                copied = torch.cuda.Event(enable_timing=True)
-                with torch.cuda.stream(self._copy_stream):
-                    start.record()
-                    staged = _Staged(self._to_device(arrays),
-                                     self._to_device(slab.extras), copied)
-                    copied.record()
-                # allocated on the copy stream, used on the compute stream:
-                # the allocator must not hand this memory out before the
-                # compute stream is done with it
-                for t in list(staged.arrays.values()) + [
-                        x for x in _leaves(staged.extras) if isinstance(x, torch.Tensor)]:
-                    t.record_stream(compute)
-                compute.wait_event(copied)
-                self._copies.append((start, copied, slab.staged_bytes))
+                # each shard's slice goes to its own device, on that
+                # device's copy stream
+                shards = [self._copy_to(dev, {k: v[i] for k, v in arrays.items()},
+                                        _shard_tree(slab.extras, i))
+                          for i, dev in enumerate(self._shard_devices)]
+                staged = _Staged([x.arrays for x in shards], [x.extras for x in shards],
+                                 [ev for x in shards for ev in x.copied])
         self._phase["device_put"] += time.perf_counter() - t0
         return staged
 
-    def _wave_context(self, staged: _Staged, nd: int) -> Context:
-        """The resident context with one wave's tensors swapped in; the
-        tiles' extents are gathered from the resident stripe widths at
-        each staged tile's origin (zero for the bucket's padding)."""
-        arrays = dict(staged.arrays)
+    def _copy_to(self, device: torch.device, arrays: dict, extras: Any) -> _Staged:
+        """One device's share of a wave slab: shared memory on the CPU; on
+        a card, copies on that card's copy stream, which its compute
+        stream waits for."""
+        if self._copy_streams is None:
+            return _Staged(self._to_device(arrays, device), self._to_device(extras, device), [])
+        compute = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        copied = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self._copy_streams[device]):
+            start.record()
+            staged = _Staged(self._to_device(arrays, device),
+                             self._to_device(extras, device), [copied])
+            copied.record()
+        # allocated on the copy stream, used on the compute stream: the
+        # allocator must not hand this memory out before the compute
+        # stream is done with it
+        tensors = list(staged.arrays.values()) + [
+            x for x in _leaves(staged.extras) if isinstance(x, torch.Tensor)]
+        for t in tensors:
+            t.record_stream(compute)
+        compute.wait_event(copied)
+        self._copies.append((start, copied, sum(int(t.nbytes) for t in tensors)))
+        return staged
+
+    def _wave_context(self, staged: _Staged, nd: int, shard: int | None = None) -> Context:
+        """The resident context with one wave's tensors swapped in (shard
+        ``shard``'s, on its device, under a mesh); the tiles' extents are
+        gathered from the resident stripe widths at each staged tile's
+        origin (zero for the bucket's padding)."""
+        if shard is None:
+            arrays, extras, dev = staged.arrays, staged.extras, self.device
+        else:
+            arrays, extras = staged.arrays[shard], staged.extras[shard]
+            dev = self._shard_devices[shard]
+        resident, cuts64, stripe_width = self._residents[dev]
+        arrays = dict(arrays)
         if "tiles" in arrays:
-            live = torch.arange(arrays["tiles"].shape[0], device=self.device) < nd
+            live = torch.arange(arrays["tiles"].shape[0], device=dev) < nd
             for origin, extent in (("tile_row_start", "tile_rows"),
                                    ("tile_col_start", "tile_cols")):
                 start = arrays[origin]
-                stripe = torch.searchsorted(self._cuts64, start, right=True) - 1
-                arrays[extent] = torch.where(live, self._stripe_width[stripe], 0).to(torch.int32)
+                stripe = torch.searchsorted(cuts64, start, right=True) - 1
+                arrays[extent] = torch.where(live, stripe_width[stripe], 0).to(torch.int32)
                 arrays[origin] = start.to(torch.int32)
-        if staged.extras is not None:
-            return with_arrays(self._resident, extras=staged.extras, **arrays)
-        return with_arrays(self._resident, **arrays)
+        if extras is not None:
+            return with_arrays(resident, extras=extras, **arrays)
+        return with_arrays(resident, **arrays)
 
     def _step_wave(self, w: int, staged: _Staged, state0, acc, it: int):
-        """Stage 3: run one staged wave's step."""
+        """Stage 3: run one staged wave's step; under a mesh, every
+        shard's kernels and then the timed combine."""
         recipe = self._slabs[w]
-        with obs.span("compute", lane="device", wave=w):
-            out = self._active_step()(self._wave_context(staged, recipe.nd),
-                                      state0, acc, it, recipe.run_dense)
-        if self._faults is not None:
-            # firing on the accumulator lets `corrupt` damage the wave's
-            # folded partial; recovery must discard it
-            out = self._faults.fire("wave.compute", out, wave=w)
+        faults = self._faults
+        if self.mesh is None:
+            with obs.span("compute", lane="device", wave=w):
+                out = self._active_step()(self._wave_context(staged, recipe.nd),
+                                          state0, acc, it, recipe.run_dense)
+            if faults is not None:
+                # firing on the accumulator lets `corrupt` damage the
+                # wave's folded partial; recovery must discard it
+                out = faults.fire("wave.compute", out, wave=w)
+            return out
+        step = self._mesh_step_pull if self._direction_now == "pull" else self._mesh_step
+        states0 = [self._state_reps[dev] for dev in self._shard_devices]
+        with obs.span("compute", lane="device", wave=w, devices=self._mesh_devices):
+            ctxs = [self._wave_context(staged, nd, shard=i) for i, nd in enumerate(recipe.nds)]
+            news = step.run(ctxs, states0, it, recipe.run_dense, self._shard_launches)
+        t0 = time.perf_counter()
+        start = self._collective_start()
+        with obs.span("collective", lane="device", wave=w, devices=self._mesh_devices):
+            out = step.fold(states0, news, acc, recipe.run_dense)
+        if start is None:
+            self._phase["collective"] += time.perf_counter() - t0
+        else:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            self._collectives.append((start, end))
+        self._collective_folds += 1
+        if faults is not None:
+            out = faults.fire("wave.compute", out, wave=w)
+            out = faults.fire("mesh.collective", out, wave=w)
+        # per-shard payload: each combined leaf crosses one fold per wave
+        self._collective_bytes += sum(int(states0[0][k].nbytes) for k in step.combined_keys
+                                      if isinstance(states0[0][k], torch.Tensor))
         return out
+
+    def _collective_start(self):
+        """On the card, the event where a wave's combine starts on the
+        plan's device: recorded after every card's compute stream has
+        finished its shards (so the fold's time excludes shard skew).
+        ``None`` on the CPU, which times the fold on the host clock."""
+        if self._copy_streams is None:
+            return None
+        main = torch.cuda.current_stream(self.device)
+        for ev in self._marks_done()[1:]:
+            main.wait_event(ev)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(main)
+        return start
 
     def _calibrate(self, state0, acc, it: int):
         """The synchronous first iteration: a warm-up pass over every
@@ -1391,8 +1835,8 @@ class StreamingPlan:
             assemble_s += time.perf_counter() - t0
             t0 = time.perf_counter()
             staged = self._put_slab(slab, wave=w)
-            if staged.copied is not None:
-                staged.copied.synchronize()
+            for ev in staged.copied:
+                ev.synchronize()
             put_s += time.perf_counter() - t0
             mark = self._mark()
             acc = self._step_wave(w, staged, state0, acc, it)
@@ -1423,7 +1867,10 @@ class StreamingPlan:
             self._prefix_dev = dict(indptr=self._put_resident("prefix_indptr", pptr),
                                     indices=self._put_resident("prefix_indices", pidx))
             self._bytes_staged += pptr.nbytes + pidx.nbytes
-        if not self._slabs:
+        if not self._slabs or self.mesh is not None:
+            # edge-free kernels read no per-shard data: under a mesh every
+            # shard would compute the identical full-vertex update, so it
+            # runs once, on the plan's device, with no collective
             ctx, run_dense = self._resident, False
         else:
             if self._edge_free_bufs is None:
@@ -1454,6 +1901,10 @@ class StreamingPlan:
             return self._run_edge_free(state0, it), 0.0
         self._edge_free_bufs = None     # released once edge work begins
         self._prefix_dev = None
+        if self.mesh is not None:
+            # the iteration-start state, one copy per card: what every
+            # shard's kernels read (the folds write only the accumulator)
+            self._state_reps = replicate(state0, self._devices)
         # host units dispatch FIRST: they run while the card computes the
         # device waves and are gathered after them (both partitions judge
         # the same iteration-start state; folding is partition-invariant)
@@ -1502,7 +1953,7 @@ class StreamingPlan:
         acc = state0
         slab = next_slab(0)
         staged = self._put_slab(slab, wave=0)
-        before = None           # wave w-1's end on the compute stream
+        before: list = []       # wave w-1's end on each card's compute stream
         for w in range(nw):
             # fail fast: a host unit that already failed aborts the
             # iteration now, not after every device wave has streamed
@@ -1510,15 +1961,15 @@ class StreamingPlan:
                 if f.done() and f.exception() is not None:
                     raise f.exception()
             acc = self._step_wave(w, staged, state0, acc, it)
-            done = self._mark() if self._copy_stream is not None else None
+            done = self._marks_done()
             self._park_for_recycle(slab, staged)
             self._drain_recycle()
             if w + 1 < nw:
                 slab = next_slab(w + 1)
-                if before is not None:
-                    # wave w-1's slab is free for the allocator only once
-                    # its step has run: at most two slabs on the device
-                    before.synchronize()
+                # wave w-1's slab is free for the allocator only once its
+                # step has run: at most two slabs on each device
+                for ev in before:
+                    ev.synchronize()
                 staged = self._put_slab(slab, wave=w + 1)
             before = done
         del staged
@@ -1593,7 +2044,7 @@ class StreamingPlan:
                             attempt=attempts, error=f"{type(e).__name__}: {e}")
                 self._abort_inflight()
                 release = (isinstance(e, torch.cuda.OutOfMemoryError)
-                           and self._copy_stream is not None)
+                           and self._copy_streams is not None)
                 if attempts > policy.max_retries:
                     res.record("exhausted", it=it, kind=kind)
                     raise
@@ -1664,7 +2115,8 @@ class StreamingPlan:
         against the ORIGINAL budget.  The host partition is kept."""
         eff = self.budget.scaled(self._policy.backoff ** oom_count)
         task_t = self.schedule.weights.astype(np.float64)
-        packed = repack_waves(self.schedule, eff, self._footprints, task_t)
+        packed = repack_waves(self.schedule, eff, self._footprints, task_t,
+                              devices=self._mesh_devices)
         host_ids = (np.concatenate(self._host_units) if self._host_units
                     else np.zeros(0, np.int64))
         waves: list[Wave] = []
@@ -1715,7 +2167,8 @@ class StreamingPlan:
         self._host_capable = False
         self._host_frac = 0.0
         task_t = self.schedule.weights.astype(np.float64)
-        self._apply_waves(repack_waves(self.schedule, self.budget, self._footprints, task_t))
+        self._apply_waves(repack_waves(self.schedule, self.budget, self._footprints, task_t,
+                                       devices=self._mesh_devices))
         self._calibration = None
         self._edge_free_bufs = None
         obs.instant("host_disable", lane="resilience")
@@ -1767,7 +2220,8 @@ class StreamingPlan:
             task_t[ids] = (t_w * wts / tot) if tot > 0 else t_w / max(ids.size, 1)
         for ids in self._host_units:
             task_t[ids] = self.schedule.weights[ids] * dev_rate
-        waves = repack_waves(self.schedule, self.budget, self._footprints, task_t)
+        waves = repack_waves(self.schedule, self.budget, self._footprints, task_t,
+                             devices=self._mesh_devices)
         waves = peel_host_tasks(self.schedule, waves, "auto", task_times=task_t,
                                 host_ratio=self._host_ratio, footprints=self._footprints,
                                 min_tasks=0 if self._host_measured else 1)
@@ -1844,6 +2298,8 @@ class StreamingPlan:
         phase_before = dict(self._phase)
         asm_before = self._assemble_overlapped_s
         stall_before = self._stall_s
+        folds_before = self._collective_folds
+        launches_before = [dict(x) for x in self._shard_launches]
         try:
             while cont and it < alg.max_iterations:
                 with obs.span("iteration", lane="main", it=it, alg=alg.name):
@@ -1883,6 +2339,9 @@ class StreamingPlan:
                 phase_delta=phase_delta,
                 asm_delta=self._assemble_overlapped_s - asm_before,
                 stall_delta=self._stall_s - stall_before,
+                folds_delta=self._collective_folds - folds_before,
+                shard_launches=[{k: v - b.get(k, 0) for k, v in now.items()}
+                                for now, b in zip(self._shard_launches, launches_before)],
                 h2d_s=self._h2d_s - h2d_before[0],
                 h2d_bytes=self._h2d_bytes - h2d_before[1]),
             hetero=self._hetero_stats(phase_delta),
@@ -1942,6 +2401,7 @@ class StreamingPlan:
         m.counter("stream.bytes_staged").inc(max(int(staged_delta), 0))
         m.gauge("stream.arena_bytes").set_max(self._arena.bytes)
         m.gauge("stream.waves").set(len(self._slabs))
+        m.gauge("stream.mesh_devices").set(self._mesh_devices)
         m.gauge("stream.budget_bytes").set(self.budget.total_bytes)
         if self._slabs:
             m.gauge("stream.budget_high_water_bytes").set_max(
@@ -1954,7 +2414,8 @@ class StreamingPlan:
 
     def _streaming_stats(self, state, overlapped_wall: float, overlapped_iters: int, *,
                          staged_delta: int, phase_delta: dict, asm_delta: float,
-                         stall_delta: float, h2d_s: float, h2d_bytes: int) -> dict:
+                         stall_delta: float, folds_delta: int, shard_launches: list,
+                         h2d_s: float, h2d_bytes: int) -> dict:
         bytes_per_wave = [s.staged_bytes for s in self._slabs]
         calib = self._calibration or dict(stage_s=0.0, compute_s=0.0)
         eff = 0.0
@@ -1976,7 +2437,18 @@ class StreamingPlan:
             budget_bytes=self.budget.total_bytes,
             bytes_per_wave=bytes_per_wave,
             workspace_per_wave=[s.workspace_bytes for s in self._slabs],
-            mesh_devices=1,
+            # mesh composition: shards per wave, the worst shard's staged
+            # share (each ≤ budget_bytes; on one device bytes_per_wave),
+            # the per-shard payload that crossed the combines over the
+            # plan's life, and this run's folds (timed in
+            # phase_seconds["collective"])
+            mesh_devices=self._mesh_devices,
+            per_device_bytes=[s.per_device_bytes if self.mesh is not None
+                              else s.staged_bytes for s in self._slabs],
+            collective_bytes=int(self._collective_bytes),
+            collective_folds=int(folds_delta),
+            # this run's CUDA launches of each kernel, per shard (mesh)
+            shard_launches=shard_launches,
             csr_mode=self._csr_mode,
             csr_bytes_per_wave=[s.csr_bytes for s in self._slabs],
             csr_segments=[s.csr_segments for s in self._slabs],

@@ -68,6 +68,8 @@
 //   read conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"  // restores the caller's current device
 #include <stdint.h>
 
 #include "hopper.cuh"     // mbarrier, TMA, wgmma and tensor-map helpers
@@ -516,8 +518,8 @@ extern "C" int flash_attention_launch(int device, const void* q, const void* k,
                                       int sq, int sk, int d, int causal, float scale,
                                       int dtype, void* stream) {
   if (h_kv <= 0 || h % h_kv != 0 || (d != 64 && d != 128)) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  DeviceGuard guard(device);  // the caller's device is current again on return
+  if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = d == 128;
   switch (dtype) {

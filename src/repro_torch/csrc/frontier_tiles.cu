@@ -37,6 +37,8 @@
 // The result is exact for any T.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"  // restores the caller's current device
 #include <stdint.h>
 
 namespace {
@@ -160,8 +162,8 @@ extern "C" int frontier_tiles_launch(int device, const void* tiles, const void* 
                                      const void* rows, const void* cols, void* out,
                                      long long nq, long long nd, int t, int dtype,
                                      int fdtype, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  DeviceGuard guard(device);  // the caller's device is current again on return
+  if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
   const int* er = static_cast<const int*>(rows);

@@ -26,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"  // restores the caller's current device
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -95,8 +97,8 @@ cudaError_t launch(const void* idx, const void* valid, const void* x, void* y, i
 extern "C" int spmv_ell_launch(int device, const void* idx, const void* valid, const void* x,
                                void* y, int b, int r, int k, long long n, int dtype, int vec,
                                void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  DeviceGuard guard(device);  // the caller's device is current again on return
+  if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 2 + (vec ? 1 : 0)) {
     case 0: return launch<float, false>(idx, valid, x, y, b, r, k, n, s);

@@ -79,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"  // restores the caller's current device
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -249,8 +251,8 @@ extern "C" int spmv_tiles_launch(int device, const void* tiles, const void* xs,
                                  const void* rows, const void* cols, void* ys,
                                  long long nq, long long nd, int t, int dtype, int vec,
                                  void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  DeviceGuard guard(device);  // the caller's device is current again on return
+  if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* y = static_cast<float*>(ys);
   const int* er = static_cast<const int*>(rows);

@@ -62,6 +62,8 @@
 // aligned), zero-filling past T, one stage at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"  // restores the caller's current device
 #include <stdint.h>
 
 #include "hopper.cuh"     // mbarrier, TMA, wgmma and tensor-map helpers
@@ -410,8 +412,8 @@ cudaError_t launch(const void* tiles, const int* idx, const int* rows, const int
 extern "C" int tc_tiles_launch(int device, const void* tiles, const void* idx,
                                const void* rows, const void* cols, void* masks, void* count,
                                long long nd, long long nb, int t, int dtype, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
+  DeviceGuard guard(device);  // the caller's device is current again on return
+  if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ix = static_cast<const int*>(idx);
   const int* er = static_cast<const int*>(rows);

@@ -212,12 +212,19 @@ class GraphServer:
         for every plan built over this graph — pass ``memory_budget=``
         here to serve the graph through the budgeted streaming executor
         (that budget is the plan's *wave* budget, distinct from the
-        server's admission budget).  The device is the server's.
+        server's admission budget), and ``mesh=`` as well to shard its
+        waves over a :class:`~repro_torch.core.distributed.DeviceMesh`
+        (a batched state replicates and folds leaf-wise like any other).
+        The device is the server's; a mesh's shard 0 must lie on it.
         """
         if name in self._graphs:
             raise ValueError(f"graph {name!r} already registered")
         if "device" in plan_kw:
             raise TypeError("plans run on the server's device; pass device= to GraphServer")
+        mesh = plan_kw.get("mesh")
+        if mesh is not None and getattr(mesh, "devices", (None,))[0] != self.device:
+            raise ValueError(f"the mesh's shard-0 device must be the server's device "
+                             f"{self.device}; got {mesh!r}")
         self._graphs[name] = (store, dict(plan_kw))
 
     def _plan_key(self, name: str, entry: _AlgEntry) -> tuple:

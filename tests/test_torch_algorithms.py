@@ -156,11 +156,25 @@ def road_store():
     return _carry(rc.build_block_store(rc.grid_road(8), 2))
 
 
-@pytest.mark.parametrize("arg,value,item", [("mesh", object(), "A10")])
-def test_unported_arguments_raise(road_store, arg, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+@pytest.mark.parametrize("budget,mesh,error,match", [
+    (None, "cpu-mesh", ValueError, "memory_budget"),
+    ("64KB", object(), TypeError, "DeviceMesh"),
+], ids=["mesh-without-budget", "mesh-not-a-mesh"])
+def test_unported_arguments_raise(road_store, budget, mesh, error, match):
+    """No argument of compile_plan is left unported: ``mesh`` (ROADMAP
+    A10) is checked as the reference checks it, a ``DeviceMesh`` without
+    a ``memory_budget`` raising the reference's ``ValueError``, and
+    anything but a ``DeviceMesh`` a ``TypeError``."""
+    from repro_torch.core import DeviceMesh
+
+    if mesh == "cpu-mesh":
+        mesh = DeviceMesh(["cpu"])
+        with pytest.raises(ValueError, match="memory_budget"):
+            rc.compile_plan(r_pagerank(), rc.build_block_store(rc.grid_road(8), 2),
+                            mesh=object())
+    with pytest.raises(error, match=match):
         compile_plan(pagerank_algorithm(), road_store, device="cpu",
-                     memory_budget="64KB", **{arg: value})
+                     memory_budget=budget, mesh=mesh)
 
 
 @pytest.mark.parametrize("budget", [None, "64KB"], ids=["incore", "streamed"])

@@ -602,3 +602,92 @@ def test_graph_server_batches_on_the_card(cuda, small_store):
         solo = compile_plan(pagerank_algorithm(seeds=s), small_store, device=cuda,
                             **_PLAN_KW).run().result
         np.testing.assert_allclose(srv.result(uid).result, solo, rtol=1e-5, atol=1e-9)
+
+
+# ------------------------------------------------------------------ A10
+def _kernel_calls(dev, rng):
+    """Each kernel's call on ``dev`` and its plain version's on the same
+    inputs: name → (launch, plain)."""
+    tiles = torch.from_numpy(_tiles(rng, 3, 128, 0.1)).to(dev)
+    xs = torch.from_numpy(rng.random((3, 128)).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.random((3, 128)) < 0.3).to(dev)
+    idx = torch.tensor([[0, 1, 2], [1, 1, 2], [2, 0, 1]], dtype=torch.int32, device=dev)
+    eidx = torch.from_numpy(rng.integers(0, 500, (2, 64, 8)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((2, 64, 8)) < 0.7).to(dev)
+    x = torch.from_numpy(rng.random((2, 500)).astype(np.float32)).to(dev)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 128, 64)).astype(np.float32))
+               .to(dev, torch.bfloat16) for _ in range(3))
+    return {
+        "spmv_tiles": (lambda: spmv_tiles(tiles, xs), lambda: ref.spmv_tiles_ref(tiles, xs)),
+        "frontier_tiles": (lambda: frontier_tiles(tiles, f),
+                           lambda: ref.frontier_tiles_ref(tiles, f)),
+        "tc_tiles": (lambda: tc_tiles(tiles, idx), lambda: ref.tc_tiles_idx_ref(tiles, idx)),
+        "spmv_ell": (lambda: spmv_ell(eidx, valid, x), lambda: ref.spmv_ell_ref(eidx, valid, x)),
+        "flash_attention": (lambda: flash_attention(q, k, v).float(),
+                            lambda: ref.attention_ref(q.float(), k.float(), v.float()).float()),
+    }
+
+
+@pytest.mark.parametrize("name", ["spmv_tiles", "frontier_tiles", "tc_tiles", "spmv_ell",
+                                  "flash_attention"])
+def test_kernels_keep_the_callers_device(cuda, name):
+    """A launch on one card leaves the calling thread's current device as
+    it found it (a mesh drives several cards from one thread).  With one
+    card only the first half runs."""
+    tol = dict(rtol=2**-7, atol=2e-3) if name == "flash_attention" else dict(rtol=1e-5,
+                                                                               atol=1e-6)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    pairs = [(0, 0)] + ([(0, 1), (1, 0)] if len(cards) >= 2 else [])
+    for current, target in pairs:
+        torch.cuda.set_device(current)
+        launch, plain = _kernel_calls(cards[target], np.random.default_rng(target))[name]
+        before = registry.launch_counts()[name]
+        got = launch()
+        assert torch.cuda.current_device() == current, (name, current, target)
+        assert registry.launch_counts()[name] == before + 1
+        assert got.device == cards[target]
+        torch.testing.assert_close(got, plain(), **tol)
+    torch.cuda.set_device(0)
+
+
+def _card_mesh():
+    from repro_torch.core import DeviceMesh
+
+    n = torch.cuda.device_count()
+    return DeviceMesh.cuda(n) if n >= 2 else DeviceMesh(["cuda:0"] * 2)
+
+
+@pytest.mark.parametrize("name", ["pagerank", "bfs", "tc"])
+def test_mesh_streamed_cuda_vs_cpu(cuda, small_store, name):
+    """A mesh of the available cards (two shards on one card when there
+    is one): every shard launches the path's tile kernel, and the result
+    equals the CPU's in-core run (PageRank within 1e-4)."""
+    mesh = _card_mesh()
+    if name == "tc":
+        store, alg, kernel = (build_block_store(orient_dag(rmat(11, 16, seed=5)), 8),
+                              tc_algorithm(), "tc_tiles")
+        kw = dict(_PLAN_KW)
+    elif name == "bfs":
+        store, kernel = small_store, "frontier_tiles"
+        alg = bfs_algorithm(int(np.argmax(small_store.degrees)))
+        kw = dict(_PLAN_KW, direction="auto")
+    else:
+        store, alg, kernel, kw = small_store, pagerank_algorithm(), "spmv_tiles", dict(_PLAN_KW)
+    budget = _quarter_budget(alg, store, **_PLAN_KW)      # per shard
+    cpu = compile_plan(alg, store, device="cpu", **kw).run()
+    plan = compile_plan(alg, store, memory_budget=budget, mesh=mesh, **kw)
+    registry.reset_launch_counts()
+    got = plan.run()
+    torch.cuda.synchronize()
+    st = got.schedule_stats["streaming"]
+    assert st["mesh_devices"] == mesh.size and st["collective_bytes"] > 0
+    assert all(b + w <= budget for b, w in zip(st["per_device_bytes"], st["workspace_per_wave"]))
+    assert registry.launch_counts()[kernel] > 0
+    if name == "pagerank":
+        np.testing.assert_allclose(got.result, cpu.result, rtol=1e-4, atol=1e-7)
+    elif name == "bfs":
+        for k in ("parent", "dist"):
+            np.testing.assert_array_equal(got.result[k], cpu.result[k])
+    else:
+        assert got.result == cpu.result
+    assert torch.cuda.current_device() == 0

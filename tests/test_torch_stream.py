@@ -642,7 +642,7 @@ def test_arena_buffers_return_only_after_their_copy_landed():
     plan = _pagerank_16kb()
     slab = plan._assemble_runtime(plan._slabs[0], wave=0)
     ev = _Pending()
-    plan._park_for_recycle(slab, stream_mod._Staged({}, None, ev))
+    plan._park_for_recycle(slab, stream_mod._Staged({}, None, [ev]))
     plan._drain_recycle()
     assert plan._arena_deferred, "a buffer went back while its copy was in flight"
     ev.landed = True
@@ -704,3 +704,45 @@ def test_waves_pass_the_block_rectangles_to_the_tile_kernel(monkeypatch):
         np.testing.assert_array_equal(cols[:recipe.nd].numpy(), want_c)
         assert not rows[recipe.nd:].any() and not cols[recipe.nd:].any()
         assert int(rows.max()) <= plan.schedule.tile_dim
+
+
+#: the failing example of the reference's
+#: test_direction_property.py::test_auto_never_exceeds_memory_budget
+#: (budget "6KB", p=1): 63 vertices, vertex 0 joined to 11..62 but 19,
+#: and these 78 edges (from_edges symmetrizes them)
+_HUB_EDGES = [
+    (11, 21), (11, 32), (11, 40), (12, 23), (12, 31), (13, 25), (13, 38), (13, 57), (14, 17),
+    (14, 24), (14, 26), (14, 38), (14, 41), (15, 33), (15, 55), (16, 29), (16, 34), (16, 39),
+    (16, 42), (17, 22), (17, 23), (17, 33), (17, 44), (17, 60), (18, 19), (18, 26), (19, 23),
+    (19, 60), (20, 50), (21, 39), (21, 55), (22, 44), (23, 29), (24, 26), (24, 29), (25, 41),
+    (25, 42), (26, 48), (26, 50), (27, 35), (27, 38), (27, 44), (29, 35), (29, 60), (30, 40),
+    (31, 41), (31, 47), (32, 36), (32, 45), (34, 36), (34, 43), (34, 59), (35, 44), (35, 54),
+    (36, 56), (36, 57), (36, 61), (37, 48), (37, 56), (39, 50), (39, 60), (39, 62), (40, 43),
+    (40, 50), (40, 53), (41, 48), (41, 52), (41, 57), (43, 56), (44, 48), (45, 48), (47, 58),
+    (47, 61), (48, 60), (54, 58), (54, 60), (57, 62), (59, 61),
+]
+
+
+def test_single_task_over_budget_matches_reference():
+    """A reference fault the port reproduces (ROADMAP C): on this hub
+    graph at p=1 the one task's bucket-padded slab plus SV's prepare
+    extras exceed a 6KB budget although its modelled footprint fits, so
+    planning raises instead of staging the wave.  Both packages raise
+    the same ``ValueError`` (``repro/core/membudget.py:643``)."""
+    hub = [(0, v) for v in range(11, 63) if v != 19]
+    src, dst = np.array(hub + _HUB_EDGES).T
+    gr = rc.from_edges(src, dst, n=63)
+    assert gr.n == 63 and int(np.diff(gr.indptr)[0]) == 51 and gr.m == 258
+    with pytest.raises(ValueError, match="single task's staged bytes") as want:
+        rc.compile_plan(ra.sv_algorithm(), rc.build_block_store(gr, 1), memory_budget="6KB",
+                        direction="auto")
+    store = _carry(rc.build_block_store(gr, 1))
+    with pytest.raises(ValueError, match="single task's staged bytes") as got:
+        compile_plan(pa.sv_algorithm(), store, device="cpu", memory_budget="6KB",
+                     direction="auto")
+    assert str(got.value) == str(want.value)
+    # a budget above the padded slab runs, and equals in-core
+    res = compile_plan(pa.sv_algorithm(), store, device="cpu", memory_budget="12KB",
+                       direction="auto").run()
+    want_labels = compile_plan(pa.sv_algorithm(), store, device="cpu").run().result
+    np.testing.assert_array_equal(res.result, want_labels)
