@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-Builds the five CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version, and drives the port's two main paths
-at full configuration: the graph engine through
-``compile_plan(...).run()`` and the LM's inference path through
-``make_prefill_step`` and ``ServeEngine``:
+Builds the six CUDA kernels from ``src/repro_torch/csrc`` (the five Pallas
+kernels' counterparts and ``flash_attention``'s backward), holds each
+against its plain PyTorch version, and drives the port's main paths at
+full configuration: the graph engine through ``compile_plan(...).run()``,
+the LM's inference path through ``make_prefill_step`` and
+``ServeEngine``, and its training through ``make_train_step``,
+``TrainLoop`` and ``launch.train``:
 
 1. kernels vs plain versions on the card, at the main paths' shapes and
    at ragged ones (tile kernels: T=192, odd batch; all three also with
@@ -25,6 +27,12 @@ at full configuration: the graph engine through
    not a multiple of 4); ``spmv_tiles`` and ``frontier_tiles`` also with
    a query axis, Q in {1, 3, 8}, on the same tiles, each row equal to
    the Q=1 launch on that row bit for bit, one query's frontier empty;
+   ``phase kernels backward``: ``flash_attention``'s backward at train_4k's
+   attention cut to (2, 32 heads, 8 KV heads, 4096, 128) bf16 causal and
+   at ragged, suffix-aligned, non-causal, D=64, float32 shapes and rows
+   that see no key, each gradient against the plain version (float32:
+   LM_TOL; bf16: relative L2 ≤ 1e-2), the same bits twice, and the
+   forward's row log-sum-exp on both routes;
 2. PageRank on ``degree_order(rmat(20, 16, seed=7), ascending=False)``
    (the Graph500 Kronecker generator, A=.57 B=.19 C=.19, edge factor
    16; scale cut from Graph500's ≥26 for host build time), p=512,
@@ -72,7 +80,7 @@ at full configuration: the graph engine through
    ``spmv_tiles`` launches once per iteration of the PageRank batch,
    ``frontier_tiles`` once per pull level of the BFS batch; then
    streamed under the quarter budget with a serving budget of resident +
-   3 queries: 8 PageRank queries of 3 iterations queue, run in batches
+   3 queries: 4 PageRank queries of 3 iterations queue, run in batches
    within the budget and equal their solo streamed runs.  Prints each
    batch, amortized against solo ms, latency, priced high water beside
    the allocator's growth, and the batched kernels at Q=8 on the path's
@@ -103,7 +111,25 @@ at full configuration: the graph engine through
    2 × 4096 tokens (``prefill_32k`` cut from 32 × 32768) launches
    ``flash_attention`` once per layer and gives a loss near ln V; a
    profiled window of decode steps gives the device's idle share, and
-   ``ServeEngine(batch_slots=4, cache_len=512)`` serves 8 requests.
+   ``ServeEngine(batch_slots=4, cache_len=512)`` serves 8 requests;
+9. training exactness: granite-3-8b at full width, 2 layers, float32, TF32
+   off, batch 2 × 256: one ``make_train_step`` step with the kernels
+   against one without from the same weights (loss and grad_norm within
+   LM_TOL, every updated parameter within the reference's resume
+   tolerance), ``microbatch=2`` the same loss, and ten steps on one
+   repeated batch that lower the loss below 0.8 of its first value;
+10. training at full width: granite-3-8b, depth cut to 8 layers (2.0 B
+   parameters, 24.0 GB of bf16 weights and gradients and float32
+   moments; 40 layers would need 100 GB), bf16, seeded weights,
+   ``train_4k`` cut from 256 × 4096 to 2 × 4096 in two microbatches,
+   remat "full", the kernels on: a warm-up step, three timed steps (ms a
+   step, tokens/s, the model-FLOPs share of 989 TFLOP/s), a profiled
+   step (idle share), peak memory, and the kernels' launches a step
+   (``flash_attention`` twice a layer a microbatch under remat, its
+   backward once);
+11. ``python -m repro_torch.launch.train`` on the smoke config, then a
+   ``TrainLoop`` cut after 3 of 6 steps and resumed, equal to the
+   uninterrupted run.
 
 Each path resets the kernels' launch counts just before it is driven and
 reads them just after.  Then each kernel is timed on the inputs that
@@ -119,7 +145,8 @@ rectangle (its extents); the whole-tile bound they had before is printed
 beside.  Any failed check exits non-zero.
 
 Output: the card's name and power limit, the build time, the registers and
-spills (ptxas) of flash_attention, tc_tiles, spmv_tiles and spmv_ell, the
+spills (ptxas) of flash_attention and its backward, tc_tiles, spmv_tiles and
+spmv_ell, the
 tensor-core and TMA instructions (cuobjdump) of flash_attention (the bf16
 route must have both) and tc_tiles (every route of its count kernel must
 have HGMMA, the TMA route UTMALDG), one or more
@@ -199,6 +226,9 @@ SERVE_MAX_BATCH = 8
 SERVE_TOL = 1e-4
 SERVE_PR_ITERS = 20
 SERVE_STREAM_ITERS = 3
+#: streamed queries (of the in-core phase's seed sets), cut from 8 to 4 for run time:
+#: two batches of two and four solo runs to hold them against
+SERVE_STREAM_QUERIES = 4
 SERVE_SEEDS = (1, 3)
 #: batched PageRank rows vs their solo runs: both index_adds are atomic float
 #: adds, so the sums differ in order.  Per element the repo's PageRank
@@ -246,6 +276,42 @@ LM_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens
                prompt=(16, 64))
 #: decode steps in the profiled window of phase 6
 DECODE_PROFILE_STEPS = 8
+#: phase kernels, backward: (B, H, H_kv, S_q, S_k, D, dtype, causal).  The first is
+#: the attention of train_4k cut to 2 x 4096 at granite-3-8b's heads (phase train
+#: runs it as two microbatches of 1 x 4096); then suffix-aligned causal with
+#: S_q < S_k, S not a multiple of 128, non-causal, and S_q > S_k with rows that see
+#: no key, in float32 and bf16, D = 64 and 128
+BWD_SHAPES = ((2, 32, 8, 4096, 4096, 128, "bfloat16", True),
+              (1, 4, 4, 128, 512, 64, "float32", True),
+              (1, 4, 2, 200, 333, 64, "float32", True),
+              (1, 2, 2, 256, 256, 128, "float32", False),
+              (1, 4, 2, 384, 128, 128, "float32", True),
+              (1, 4, 4, 128, 512, 64, "bfloat16", True),
+              (2, 8, 2, 300, 300, 128, "bfloat16", True),
+              (1, 2, 2, 256, 256, 128, "bfloat16", False),
+              (1, 4, 2, 384, 128, 128, "bfloat16", True))
+#: the backward against its plain version: float32 within LM_TOL; bf16 inputs per
+#: tensor ||got - want||_2 / ||want||_2 <= BWD_BF16_REL, want in float32 from the
+#: same bf16 inputs (the kernel's float32 arithmetic on bf16 inputs and its bf16
+#: output rounding, 2^-9 relative, against a 1e-2 limit)
+BWD_BF16_REL = 1e-2
+#: the forward's lse against the plain version's (float32 sums in another order)
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+#: phase train exact: depth cut to 2 layers at full width, float32, TF32 off
+TRAIN_EXACT = dict(n_layers=2, batch=2, seq=256, steps=10)
+#: the reference's updated-parameter tolerance (its resume check,
+#: tests/test_substrates.py); an element whose gradient is within 100x Adam's eps
+#: (|g| < 1e-6, read from the first moment) is held to twice the learning rate
+STEP_TOL = dict(atol=1e-5, rtol=1e-4)
+#: ten steps on one repeated batch: the last loss below this share of the first
+#: (the reference's smoke models are held to 0.8, tests/test_archs.py)
+LOSS_DROP = 0.8
+#: phase train: train_4k cut from 256 x 4096 to 2 x 4096 in two microbatches, depth
+#: cut to 8 layers (bf16 weights and gradients and float32 moments, 12 bytes a
+#: parameter: 40 layers are 100 GB, 8 layers 24.0 GB); one warm-up step, timed steps
+TRAIN = dict(n_layers=8, batch=2, seq=4096, microbatch=2, timed=3)
+#: phase train loop: the smoke config, a run cut after `cut` steps and resumed
+TRAIN_LOOP = dict(steps=6, cut=3, batch=4, seq=64)
 #: a model with random weights predicts about as well as chance: |loss - ln V| bound
 LOSS_BAND = 1.5
 
@@ -257,6 +323,9 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attn_tile.py:82"),
     "spmv_ell": ("src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:38"),
+    # the Pallas kernel has no backward of its own: this is its gradient
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/attn_tile.py:82"),
 }
 
 
@@ -331,8 +400,16 @@ def _route(kernel: str, mangled: str) -> str:
         dtype = "bf16" if "bfloat16" in mangled else "f32"
         return f"{dtype} {'int4' if 'Lb1E' in mangled else 'scalar'}"
     if kernel == "flash_attention":
+        if "fill_inf" in mangled:
+            return "lse fill (no key)"
         d = re.search(r"kernelILi(\d+)E", mangled).group(1)
         return f"{'bf16' if 'tc6kernel' in mangled else 'f32'} D={d}"
+    if kernel == "flash_attention_bwd":
+        dtype = "bf16" if "bfloat16" in mangled else "f32"
+        if "delta_kernel" in mangled:
+            return f"delta {dtype}"
+        d = re.search(r"kernelILi(\d+)E", mangled).group(1)
+        return f"{'dkdv' if 'kv6kernel' in mangled else 'dq'} {dtype} D={d}"
     dtype = "bf16" if "bfloat16" in mangled else "f32"
     if "patch_masks" in mangled:
         return f"masks {dtype} {'16-byte' if 'Lb1E' in mangled else 'scalar'}"
@@ -341,7 +418,8 @@ def _route(kernel: str, mangled: str) -> str:
 
 def tensor_core_report(logs: dict) -> None:
     """ptxas's registers and spills per kernel and route of flash_attention,
-    tc_tiles, spmv_tiles and spmv_ell; for the first two, the register
+    its backward, tc_tiles, spmv_tiles and spmv_ell; for flash_attention
+    and tc_tiles, the register
     counts flash_attention's warpgroups set
     (``setmaxnreg``), and the tensor-core (HGMMA) and TMA (UTMALDG)
     instructions in their SASS.  Fails if flash_attention's bf16 route
@@ -351,7 +429,8 @@ def tensor_core_report(logs: dict) -> None:
 
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    for kernel in ("flash_attention", "tc_tiles", "spmv_tiles", "spmv_ell"):
+    for kernel in ("flash_attention", "flash_attention_bwd", "tc_tiles", "spmv_tiles",
+                   "spmv_ell"):
         name = ""
         for line in logs[kernel].splitlines():
             if "Compiling entry function" in line:
@@ -640,6 +719,97 @@ def phase_lm_kernels(dev, gen):
         del idx, valid, x, got, want
     torch.cuda.empty_cache()
     return rec
+
+
+def visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs an attention head computes: suffix-aligned causal
+    row i sees min(S_k, max(0, i + S_k - S_q + 1)) keys."""
+    if not causal:
+        return sq * sk
+    return int(np.clip(np.arange(sq) + sk - sq + 1, 0, sk).sum())
+
+
+def phase_attn_bwd(dev, gen) -> dict:
+    """flash_attention's backward against its plain version at BWD_SHAPES,
+    each gradient per tensor, twice for the same bits; the forward's lse on
+    both routes against the plain version's.  Times the backward on the
+    first shape beside its plain version, SDPA's backward (the one-call
+    yardstick; its forward excluded) and its bound.  Returns what the
+    backward's record needs but its launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    timing = None
+    for shape in BWD_SHAPES:
+        b, h, h_kv, sq, sk, d, dtype, causal = shape
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((b, h_kv, sk, d), generator=gen, device=dev).to(dt) for _ in "kv")
+        dout = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dt)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        w_out, w_lse = ref.attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal)
+        empty = torch.isinf(w_lse)
+        check(torch.equal(torch.isinf(lse), empty) and bool((lse[empty] > 0).all())
+              and bool(torch.isfinite(lse[~empty]).all()),
+              f"flash_attention {shape}: lse is +inf on other rows than the plain version's")
+        lse_err = float((lse[~empty] - w_lse[~empty]).abs().max()) if (~empty).any() else 0.0
+        check(torch.allclose(lse[~empty], w_lse[~empty], **LSE_TOL),
+              f"flash_attention {shape}: lse max err {lse_err} beyond {LSE_TOL}")
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+        want = ref.attention_bwd_ref(q.float(), k.float(), v.float(), w_out, w_lse,
+                                     dout.float(), causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {shape}: two runs gave different bits")
+        errs, rels = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dt and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd {shape}: {name} not finite {dtype}")
+            errs.append(float((g.float() - w).abs().max()))
+            rels.append(float((g.float() - w).norm() / w.norm().clamp_min(1e-30)))
+            if dtype == "float32":
+                check(torch.allclose(g, w, **LM_TOL),
+                      f"flash_attention_bwd {shape}: {name} max err {errs[-1]} beyond {LM_TOL}")
+            else:
+                check(rels[-1] <= BWD_BF16_REL, f"flash_attention_bwd {shape}: {name} relative "
+                      f"L2 error {rels[-1]} > {BWD_BF16_REL}")
+        if causal and sq > sk:
+            check(bool((got[0][:, :, :sq - sk] == 0).all()),
+                  "flash_attention_bwd: dq of a row with no visible key is not 0")
+        say(f"phase kernels backward: {shape} ok, dq dk dv max err "
+            f"{[f'{e:.2e}' for e in errs]}, relative L2 {[f'{r:.2e}' for r in rels]} "
+            f"({'LM_TOL' if dtype == 'float32' else f'limit {BWD_BF16_REL}'}); lse max err "
+            f"{lse_err:.2e}, {int(empty.sum())} rows +inf; the same bits twice")
+        if timing is None:
+            args = (q, k, v, out, lse, dout)
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            # S_q = S_k, so SDPA's top-left causal mask equals the suffix-aligned one
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+            library = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), dout,
+                                                          retain_graph=True), 5)
+            del o, qs, ks, vs, want, again
+            torch.cuda.empty_cache()
+            pairs = b * h * visible_pairs(sq, sk, causal)
+            timing = dict(
+                err=max(errs), ms=cuda_ms(lambda: flash_attention_bwd_cuda(*args, causal=causal), 3),
+                plain_ms=cuda_ms(lambda: ref.attention_bwd_ref(*args, causal=causal), 1),
+                library_ms=library,
+                # q, k, v, out, dout read and dq, dk, dv written once, lse read once
+                nbytes=(4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * q.element_size()
+                + lse.numel() * 4,
+                ops=5 * 2.0 * d * pairs)       # five products of 2 D flops a visible pair
+            fwd = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), 10)
+            fwd_lse = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                           return_lse=True), 10)
+            say(f"  flash_attention_bwd at {shape}: {timing['ms']:.3f} ms, plain "
+                f"{timing['plain_ms']:.2f} ms, SDPA backward {library:.3f} ms, "
+                f"{timing['ops'] / timing['ms'] / 1e9:.1f} TFLOP/s of the five products; "
+                f"the forward {fwd:.4f} ms, with lse {fwd_lse:.4f} ms")
+        del q, k, v, dout, out, lse, w_out, w_lse, got
+        torch.cuda.empty_cache()
+    return timing
 
 
 def csr_matrix(g):
@@ -1603,7 +1773,8 @@ def phase_serve(dev, store, schedule, gen, card):
     torch.cuda.reset_peak_memory_stats(dev)
     srv = GraphServer(memory_budget=budget, max_batch=SERVE_MAX_BATCH, device=dev)
     srv.register_graph("web", store, **skw)
-    uids = [srv.submit(Query("web", "pagerank", dict(spr, seeds=s))) for s in seed_sets]
+    stream_seeds = seed_sets[:SERVE_STREAM_QUERIES]
+    uids = [srv.submit(Query("web", "pagerank", dict(spr, seeds=s))) for s in stream_seeds]
     depth = srv.stats()["queue_depth"]
     check(depth > 0, "serve streamed: the budget queued nothing")
     say(f"phase serve streamed: wave budget {wave_budget / 1e9:.3f} GB, {probe.num_waves} "
@@ -1622,7 +1793,7 @@ def phase_serve(dev, store, schedule, gen, card):
             f"{b['launches']['spmv_tiles']} [{card}]")
     serve_footprint(srv, base, dev, "streamed", card)
     solo_ms, solo_launches, diffs = [], [], []
-    for s, u in zip(seed_sets, uids):
+    for s, u in zip(stream_seeds, uids):
         registry.reset_launch_counts()
         t1 = time.perf_counter()
         res = probe.run(state=pagerank_algorithm(seeds=s, **spr).init_state(store))
@@ -2063,6 +2234,221 @@ def phase_lm_full(dev, cfg):
     return rec
 
 
+def updated_params_match(got, want, opt_want, lr) -> tuple[float, float, int]:
+    """Every parameter of ``got`` within STEP_TOL of ``want``'s after one
+    AdamW step, except the elements whose first moment says 0 < |g| <
+    1e-6 (Adam's step there moves steeply with g), held to 2 lr.  Returns
+    the largest difference outside and inside that set, and its size."""
+    import torch
+
+    worst, worst_tiny, tiny_n = 0.0, 0.0, 0
+    with torch.no_grad():
+        for (name, a), b in zip(got.named_parameters(), want.parameters()):
+            diff = (a - b).abs()
+            mu = opt_want["mu"][name].abs()              # mu = (1 - 0.9) g after one step
+            tiny = (mu < 1e-7) & (mu > 0)
+            limit = torch.where(tiny, 2 * lr, STEP_TOL["atol"] + STEP_TOL["rtol"] * b.abs())
+            bad = int((diff > limit).sum())
+            check(bad == 0, f"train exact: {name} differs beyond {STEP_TOL} at {bad} elements, "
+                  f"max {float(diff.max())}")
+            worst = max(worst, float(torch.where(tiny, 0.0, diff).max()))
+            worst_tiny = max(worst_tiny, float(torch.where(tiny, diff, 0.0).max()))
+            tiny_n += int(tiny.sum())
+    return worst, worst_tiny, tiny_n
+
+
+def phase_train_exact(dev, cfg) -> None:
+    """One make_train_step step with the kernels against one without from
+    the same weights (loss, grad_norm, every updated parameter), the same
+    loss with microbatch=2, and ten steps on one repeated batch that lower
+    the loss below LOSS_DROP of its first value; float32, TF32 off."""
+    import copy
+
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    ex = TRAIN_EXACT
+    gen = torch.Generator(device=dev).manual_seed(2)
+    base = lm.LM(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (ex["batch"], ex["seq"]), generator=gen, device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    runs = {}
+    for use_kernel in (True, False):
+        model = copy.deepcopy(base)
+        opt = adamw_init(model)
+        step = make_train_step(cfg, warmup_steps=1, use_kernel=use_kernel)
+        registry.reset_launch_counts()
+        opt, m = step(model, opt, batch, 0)
+        launches = registry.launch_counts()
+        runs[use_kernel] = model, opt, {k: float(v) for k, v in m.items()}, launches
+    (km, _, kmet, kl), (pm, popt, pmet, pl) = runs[True], runs[False]
+    check(kl["flash_attention"] == 2 * cfg.n_layers and kl["flash_attention_bwd"] == cfg.n_layers
+          and pl["flash_attention"] == pl["flash_attention_bwd"] == 0,
+          f"train exact: launches with the kernels {kl}, without {pl}")
+    for key in ("loss", "grad_norm"):
+        check(np.isfinite(kmet[key]) and np.isclose(kmet[key], pmet[key], **LM_TOL),
+              f"train exact: {key} with the kernels {kmet[key]}, without {pmet[key]}")
+    worst, worst_tiny, tiny = updated_params_match(km, pm, popt, kmet["lr"])
+    say(f"phase train exact: {cfg.name} {cfg.n_layers} layers float32, batch "
+        f"{ex['batch']} x {ex['seq']}: loss {kmet['loss']:.6f} vs {pmet['loss']:.6f} without "
+        f"the kernels, grad_norm {kmet['grad_norm']:.6f} vs {pmet['grad_norm']:.6f} "
+        f"({LM_TOL}); updated parameters max |diff| {worst:.2e} ({STEP_TOL}), and "
+        f"{worst_tiny:.2e} on the {tiny} elements with 0 < |g| < 1e-6 (held to 2 lr = "
+        f"{2 * kmet['lr']:.1e}); launches {kl}")
+    del runs, km, pm, popt, model, opt
+    torch.cuda.empty_cache()
+
+    model = copy.deepcopy(base)
+    opt = adamw_init(model)
+    _, m = make_train_step(cfg, warmup_steps=1, use_kernel=True, microbatch=2)(
+        model, opt, batch, 0)
+    check(np.isclose(float(m["loss"]), pmet["loss"], rtol=1e-4),
+          f"train exact: microbatch=2 loss {float(m['loss'])} vs {pmet['loss']}")
+    say(f"phase train exact: microbatch=2 loss {float(m['loss']):.6f} vs {pmet['loss']:.6f} "
+        f"(rtol 1e-4)")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    model, opt = base, adamw_init(base)
+    step = make_train_step(cfg, warmup_steps=1, use_kernel=True)
+    losses = []
+    for i in range(ex["steps"]):
+        opt, m = step(model, opt, batch, i)
+        losses.append(float(m["nll"]))
+    check(all(np.isfinite(losses)) and losses[-1] < LOSS_DROP * losses[0],
+          f"train exact: {ex['steps']} steps on one batch, losses {losses}")
+    say(f"phase train exact: {ex['steps']} steps on one repeated batch, nll "
+        f"{[round(x, 4) for x in losses]} (last below {LOSS_DROP} of the first)")
+    del model, opt, base
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev, cfg, card: str) -> int:
+    """Training at full width, depth cut to TRAIN's layers, bf16, through
+    make_train_step with the kernels, remat "full" and two microbatches:
+    one warm-up step, timed steps, a profiled step.  Returns the backward
+    kernel's launches in one step."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline import HW, model_flops
+
+    tr = TRAIN
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    opt = adamw_init(model)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    state = n * (2 + 2 + 4 + 4)       # bf16 weights and gradients, float32 moments
+    acc = n * 4                       # the float32 microbatch accumulator
+    say(f"phase train: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {n / 1e9:.3f} B parameters "
+        f"and moments on the card in {time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    b, s = tr["batch"], tr["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    step = make_train_step(cfg, use_kernel=True, microbatch=tr["microbatch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt, m = step(model, opt, batch, 0)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    first_s = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    mb, layers = tr["microbatch"], cfg.n_layers
+    check(launches["flash_attention"] == 2 * layers * mb
+          and launches["flash_attention_bwd"] == layers * mb,
+          f"train: launches in one step {launches}, expected flash_attention "
+          f"{2 * layers * mb} (remat: twice a layer a microbatch) and its backward {layers * mb}")
+    ln_v = float(np.log(cfg.vocab))
+    check(np.isfinite(loss) and abs(loss - ln_v) <= LOSS_BAND and np.isfinite(gnorm),
+          f"train: step 0 loss {loss} (ln V {ln_v:.3f}, band {LOSS_BAND}), grad_norm {gnorm}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(1, tr["timed"] + 1):
+        opt, m = step(model, opt, batch, i)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / tr["timed"]
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)) and np.isfinite(float(m["grad_norm"])),
+          f"train: losses {losses}, grad_norm {float(m['grad_norm'])}")
+    flops = model_flops(cfg, ShapeSpec("train_4k_cut", s, b, "train"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"phase train: B={b} S={s} in {mb} microbatches, step 0 loss {loss:.4f} (ln V "
+        f"{ln_v:.4f}), grad_norm {gnorm:.4f}, first step {first_s:.2f} s; "
+        f"{tr['timed']} steps {step_s * 1e3:.1f} ms each ({b * s / step_s:.0f} tokens/s, host "
+        f"clock), losses {[round(x, 4) for x in losses]}; model FLOPs {flops:.3e} a step, "
+        f"{flops / step_s / HW().peak_flops:.3f} of 989 TFLOP/s; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB (state {state / 1e9:.2f} GB + float32 accumulator "
+        f"{acc / 1e9:.2f} GB); launches a step {launches} [{card}]")
+    _, wall, busy, top = device_profile(lambda: step(model, opt, batch, tr["timed"] + 1))
+    if busy is None:
+        say(f"phase train: device time not measured ({top})")
+    else:
+        say(f"phase train: profiled step {wall:.1f} ms wall, device busy {busy:.1f} ms (idle "
+            f"share {1 - busy / wall:.3f}); busiest kernels {top}")
+    del model, opt, batch, m
+    torch.cuda.empty_cache()
+    return launches["flash_attention_bwd"]
+
+
+def phase_train_loop(dev) -> None:
+    """``python -m repro_torch.launch.train`` on the smoke config for a few
+    steps, then a TrainLoop cut after TRAIN_LOOP["cut"] steps and resumed,
+    whose final parameters equal the uninterrupted run's (STEP_TOL, the
+    reference's resume check)."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import TrainConfig, TrainLoop
+
+    lp = TRAIN_LOOP
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--smoke",
+               "--steps", "4", "--batch", str(lp["batch"]), "--seq", str(lp["seq"]),
+               "--ckpt-dir", os.path.join(tmp, "launch"), "--ckpt-every", "2", "--use-kernel"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        check(out.returncode == 0 and "done:" in out.stdout,
+              f"launch.train exited {out.returncode}: {out.stdout[-2000:]} {out.stderr[-2000:]}")
+        say(f"phase train loop: launch.train {out.stdout.strip().splitlines()[-1]!r} in "
+            f"{time.perf_counter() - t0:.1f} s, checkpoints "
+            f"{sorted(os.listdir(os.path.join(tmp, 'launch')))}")
+        cfg = replace(get_smoke(LM_ARCH), dtype="float32")
+        tc = TrainConfig(steps=lp["steps"], batch=lp["batch"], seq=lp["seq"],
+                         ckpt_dir=os.path.join(tmp, "full"), ckpt_every=2, base_lr=1e-3,
+                         warmup_steps=2, log_every=1)
+        full = TrainLoop(cfg, tc, device=dev).run()
+        TrainLoop(cfg, replace(tc, ckpt_dir=os.path.join(tmp, "cut"), steps=lp["cut"]),
+                  device=dev).run()
+        resumed = TrainLoop(cfg, replace(tc, ckpt_dir=os.path.join(tmp, "cut")),
+                            device=dev).run()
+        steps = [m["step"] for m in resumed["history"]]
+        check(steps == list(range(lp["cut"], lp["steps"])), f"resumed steps {steps}")
+        worst = 0.0
+        with torch.no_grad():
+            for (name, a), b in zip(full["model"].named_parameters(),
+                                    resumed["model"].parameters()):
+                check(torch.allclose(a, b, **STEP_TOL), f"train loop: resumed {name} differs")
+                worst = max(worst, float((a - b).abs().max()))
+        say(f"phase train loop: TrainLoop cut after {lp['cut']} of {lp['steps']} steps and "
+            f"resumed: final parameters within {STEP_TOL} of the uninterrupted run (max |diff| "
+            f"{worst:.2e}); nll {full['history'][0]['nll']:.4f} -> "
+            f"{full['history'][-1]['nll']:.4f}")
+
+
 def run(dev, card: str) -> list[dict]:
     """The phases in order; returns the per-kernel records.  ``card`` is
     the card's name and power limit, printed beside phase serve's numbers."""
@@ -2072,6 +2458,9 @@ def run(dev, card: str) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     phase_kernels(dev, gen)
     ell = phase_lm_kernels(dev, gen)
+    t0 = time.perf_counter()
+    bwd = phase_attn_bwd(dev, gen)
+    say(f"phase kernels backward: {time.perf_counter() - t0:.1f} s")
 
     cfg = PAGERANK
     t0 = time.perf_counter()
@@ -2116,7 +2505,18 @@ def run(dev, card: str) -> list[dict]:
 
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))
     attn = phase_lm_full(dev, lm_config())
-    return [spmv, frontier, tc, attn, ell, *served]
+    t0 = time.perf_counter()
+    phase_train_exact(dev, lm_config(n_layers=TRAIN_EXACT["n_layers"], dtype="float32"))
+    say(f"phase train exact: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bwd_launches = phase_train(dev, lm_config(n_layers=TRAIN["n_layers"]), card)
+    say(f"phase train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_loop(dev)
+    say(f"phase train loop: {time.perf_counter() - t0:.1f} s")
+    bwd_rec = record("flash_attention_bwd", bwd_launches, bwd["err"], bwd["ms"], bwd["plain_ms"],
+                     bwd["nbytes"], bwd["ops"], bwd["library_ms"], rate=BF16_TC_FLOPS)
+    return [spmv, frontier, tc, attn, bwd_rec, ell, *served]
 
 
 def main() -> int:

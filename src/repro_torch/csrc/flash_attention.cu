@@ -13,6 +13,11 @@
 // 0 (acc / max(l, 1e-30)).  Ragged S_q and S_k are masked here (the Pallas
 // kernel asserted S % 128 == 0).
 //
+// With a non-null `lse` (the training forward, which saves it for the backward
+// in flash_attention_bwd.cu) each row's natural-log log-sum-exp of its scaled
+// scores is written as float32 (B, H, S_q), +inf for a row with no visible key;
+// a null `lse` (prefill, serving) writes nothing more.
+//
 // Bound on Hopper: operations.  The two products do 4*D flops for every
 // visible (query, key) pair, at most 989 TFLOP/s on the bf16 tensor cores,
 // and each q/k/v/o element is read or written once, so at the LM's shapes
@@ -68,6 +73,7 @@
 //   read conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 #include "device_guard.cuh"  // restores the caller's current device
 #include <stdint.h>
@@ -77,6 +83,17 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
+
+__global__ void fill_inf_kernel(float* p, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) p[i] = INFINITY;
+}
+
+cudaError_t fill_inf(float* p, long long n, cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  fill_inf_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p, n);
+  return cudaGetLastError();
+}
 
 // ------------------------------------------------------------ float32: CUDA cores
 
@@ -99,7 +116,8 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-       float* __restrict__ o, int h, int group, int sq, int sk, int causal, float scale) {
+       float* __restrict__ o, float* __restrict__ lse, int h, int group, int sq, int sk,
+       int causal, float scale) {
   constexpr int kLd = D + 1;                // padded row stride of the q and k tiles
   constexpr int kDc = D / kColThreads;      // output columns per thread
   extern __shared__ float smem[];
@@ -219,12 +237,16 @@ kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kDc; ++c) op[(long long)r * D + tx + kColThreads * c] = acc[i][c] / den;
+    // m is in natural units here (q was scaled), l the full row sum
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-                   int h_kv, int sq, int sk, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int h, int h_kv, int sq, int sk, int causal, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -232,7 +254,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)(b * h));
   kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), h, h / h_kv, sq, sk, causal, scale);
+      static_cast<float*>(o), lse, h, h / h_kv, sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -249,6 +271,7 @@ constexpr int kThreads = 384;               // consumer warpgroups 0 and 1, prod
 constexpr int kConsumerWarps = 8;           // arrivals that free a stage
 constexpr int kPanel = 128 * 128;           // bytes of 128 rows x 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a 1024-byte aligned base: Q, K[kStages], V[kStages],
 // each a 128 x D tile stored as D/64 panels of 128 rows x 128 bytes (the
@@ -315,8 +338,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int h,
-       int group, int sq, int sk, int causal, float scale_log2) {
+       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+       float* __restrict__ lse, int h, int group, int sq, int sk, int causal,
+       float scale_log2) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -467,6 +491,9 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const float den = fmaxf(l[r], 1e-30f);
       const int row = r_lo + 8 * r;
+      // m is in the exp2 domain of the scaled scores: lse = (m + log2 l) ln 2
+      if (lse != nullptr && row < sq && lane % 4 == 0)
+        lse[(long long)bh * sq + row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : INFINITY;
       if (row < sq) {
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
@@ -488,10 +515,16 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int d, int rows, int h
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-                   int h_kv, int sq, int sk, int causal, float scale, cudaStream_t stream) {
-  if (sk == 0)   // no key at all: every row is empty and writes 0
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int h, int h_kv, int sq, int sk, int causal, float scale,
+                   cudaStream_t stream) {
+  if (sk == 0) {   // no key at all: every row is empty, writes 0 and has lse +inf
+    if (lse != nullptr) {
+      cudaError_t e = fill_inf(lse, (long long)b * h * sq, stream);
+      if (e != cudaSuccess) return e;
+    }
     return cudaMemsetAsync(o, 0, (size_t)b * h * sq * D * sizeof(__nv_bfloat16), stream);
+  }
   CUtensorMap mq, mk, mv;
   cudaError_t e;
   if ((e = tensor_map(&mq, q, D, sq, b * h)) != cudaSuccess) return e;
@@ -501,8 +534,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   e = cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)(b * h));
-  kernel<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), h,
-                                               h / h_kv, sq, sk, causal, scale * kLog2e);
+  kernel<D><<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse,
+                                               h, h / h_kv, sq, sk, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -513,22 +546,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
 // q, o: (b, h, sq, d); k, v: (b, h_kv, sk, d); all contiguous and of one
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, all four
 // 16-byte aligned for TMA).  d must be 64 or 128, h a multiple of h_kv.
+// lse: null, or float32 (b, h, sq), written with each row's log-sum-exp.
 extern "C" int flash_attention_launch(int device, const void* q, const void* k,
-                                      const void* v, void* o, int b, int h, int h_kv,
-                                      int sq, int sk, int d, int causal, float scale,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, void* lse, int b, int h,
+                                      int h_kv, int sq, int sk, int d, int causal,
+                                      float scale, int dtype, void* stream) {
   if (h_kv <= 0 || h % h_kv != 0 || (d != 64 && d != 128)) return cudaErrorInvalidValue;
   DeviceGuard guard(device);  // the caller's device is current again on return
   if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   const bool wide = d == 128;
   switch (dtype) {
     case 0:
-      return wide ? f32::launch<128>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s)
-                  : f32::launch<64>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s);
+      return wide ? f32::launch<128>(q, k, v, o, l, b, h, h_kv, sq, sk, causal, scale, s)
+                  : f32::launch<64>(q, k, v, o, l, b, h, h_kv, sq, sk, causal, scale, s);
     case 1:
-      return wide ? tc::launch<128>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s)
-                  : tc::launch<64>(q, k, v, o, b, h, h_kv, sq, sk, causal, scale, s);
+      return wide ? tc::launch<128>(q, k, v, o, l, b, h, h_kv, sq, sk, causal, scale, s)
+                  : tc::launch<64>(q, k, v, o, l, b, h, h_kv, sq, sk, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,8 +7,13 @@ the state of a run.  :func:`store_from_numpy` rebuilds the port's
 of a block store (the JAX package's ``BlockStore`` has the same
 fields), and :func:`state_from_numpy` puts an algorithm state on a
 device.  :func:`lm_params_from_numpy` turns the JAX LM's parameter tree,
-taken to numpy, into the port's :class:`~repro_torch.models.lm.LM`.
-Tests use them to run the two packages on the same inputs.
+taken to numpy, into the port's :class:`~repro_torch.models.lm.LM`, and
+:func:`lm_params_to_numpy` carries it back; :func:`opt_state_to_numpy`
+and :func:`opt_state_from_numpy` do the same for an optimizer state
+(``mu``, ``nu``, ``count``).  Tests use them to run the two packages on
+the same inputs and compare their states; the port's ``TrainLoop``
+writes its checkpoints in this layout, so either package resumes the
+other's.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from .configs.base import ArchConfig
 from .models.lm import LM
 
 __all__ = ["STORE_FIELDS", "TILE_FIELDS", "store_from_numpy", "state_from_numpy",
-           "lm_params_from_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy", "load_lm_params",
+           "opt_state_to_numpy", "opt_state_from_numpy"]
 
 #: arrays every store carries (``cuts`` is the layout's cut vector)
 STORE_FIELDS = ("src", "dst", "edge_block", "block_ptr", "indptr", "indices",
@@ -78,6 +84,99 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return flat
 
 
+def _stacked_key(name: str) -> tuple[str, int | None]:
+    """A parameter name of :class:`LM` as (key of the reference's flattened
+    tree, layer index or None): ``layers.<i>.attn.wq`` → (``layers.attn.wq``, i)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ".".join(["layers", *parts[2:]]), int(parts[1])
+    return name, None
+
+
+def _stack(named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """Tensors keyed by parameter name → the reference's nested tree of
+    float32 numpy arrays, per-layer arrays stacked on a leading L axis
+    (exact for bfloat16)."""
+    flat: dict[str, Any] = {}
+    for name, t in named.items():
+        key, layer = _stacked_key(name)
+        a = t.detach().float().cpu().numpy()
+        if layer is None:
+            flat[key] = a
+        else:
+            flat.setdefault(key, []).append((layer, a))
+    tree: dict[str, Any] = {}
+    for key, a in flat.items():
+        if isinstance(a, list):
+            a = np.stack([x for _, x in sorted(a, key=lambda p: p[0])])
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return tree
+
+
+def _unstack_into(targets: Mapping[str, torch.Tensor], tree: Mapping[str, Any],
+                  what: str) -> None:
+    """Copy the reference's stacked tree ``tree`` into the tensors
+    ``targets`` (keyed by parameter name), each cast to its dtype."""
+    flat = _flatten(tree)
+    used = set()
+    with torch.no_grad():
+        for name, t in targets.items():
+            key, layer = _stacked_key(name)
+            a = flat[key] if layer is None else flat[key][layer]
+            used.add(key)
+            a = np.asarray(a, dtype=np.float32)
+            if a.shape != tuple(t.shape):
+                raise ValueError(f"{what}: {name} is {a.shape}, expected {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(t.dtype))
+    if set(flat) - used:
+        raise KeyError(f"{what}: no place for {sorted(set(flat) - used)}")
+
+
+def lm_params_to_numpy(cfg: ArchConfig, model: LM) -> dict:
+    """The reference's parameter tree of ``model``'s weights: nested dicts
+    of float32 numpy arrays (exact for bfloat16), per-layer arrays
+    stacked on a leading ``(L, ...)`` axis, ``(d_in, d_out)`` kept."""
+    return _stack(dict(model.named_parameters()))
+
+
+def load_lm_params(cfg: ArchConfig, model: LM, params: Mapping[str, Any]) -> LM:
+    """Copy the reference's parameter tree ``params`` into ``model`` in
+    place (the inverse of :func:`lm_params_to_numpy`); returns ``model``."""
+    _unstack_into(dict(model.named_parameters()), params, "lm_params_from_numpy")
+    return model
+
+
+def opt_state_to_numpy(cfg: ArchConfig, state: Mapping[str, Any]) -> dict:
+    """An optimizer state of :mod:`repro_torch.optim` (``mu``/``nu`` or
+    ``mom`` keyed by parameter name, and ``count``) in the reference's
+    layout: each moment as a stacked tree like the parameters', float32,
+    and ``count`` a 0-d int32 array."""
+    return {k: _stack(v) if isinstance(v, Mapping) else
+            np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+                       dtype=np.int32)
+            for k, v in state.items()}
+
+
+def opt_state_from_numpy(cfg: ArchConfig, state: Mapping[str, Any], model: LM) -> dict:
+    """The reference's optimizer state ``state`` as the port's, for
+    ``model``'s parameters: float32 moments keyed by parameter name on
+    the model's device, ``count`` a 0-d int32 tensor there."""
+    out: dict[str, Any] = {}
+    for k, v in state.items():
+        if isinstance(v, Mapping):
+            moments = {name: torch.empty(p.shape, dtype=torch.float32, device=p.device)
+                       for name, p in model.named_parameters()}
+            _unstack_into(moments, v, "opt_state_from_numpy")
+            out[k] = moments
+        else:
+            out[k] = torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=model.device)
+    return out
+
+
 def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
                          device: "str | torch.device | None" = None) -> LM:
     """The port's :class:`LM` holding the weights of the reference's
@@ -90,23 +189,4 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     orientation is kept.  Values go through float32 (exact for bfloat16
     both ways) and are cast to the parameter dtype of ``cfg``.
     """
-    flat = _flatten(params)
-    model = LM(cfg, device=resolve_device(device))
-    used = set()
-    for name, param in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":           # layers.<i>.attn.wq ← layers.attn.wq[i]
-            key = ".".join(["layers", *parts[2:]])
-            a = flat[key][int(parts[1])]
-        else:
-            key = name
-            a = flat[key]
-        used.add(key)
-        a = np.asarray(a, dtype=np.float32)
-        if a.shape != tuple(param.shape):
-            raise ValueError(f"lm_params_from_numpy: {name} is {a.shape}, "
-                             f"expected {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(param.dtype))
-    if set(flat) - used:
-        raise KeyError(f"lm_params_from_numpy: no place for {sorted(set(flat) - used)}")
-    return model
+    return load_lm_params(cfg, LM(cfg, device=resolve_device(device)), params)

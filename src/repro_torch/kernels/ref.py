@@ -41,7 +41,8 @@ HOST_EXECUTABLE = ("spmv_tiles", "frontier_tiles", "tc_tiles")
 
 __all__ = [
     "INT_MAX", "NEG", "HOST_EXECUTABLE", "spmv_tiles_ref", "frontier_tiles_ref", "tc_tiles_ref",
-    "tc_tiles_idx_ref", "spmv_ell_ref", "attention_ref",
+    "tc_tiles_idx_ref", "spmv_ell_ref", "attention_ref", "attention_fwd_ref",
+    "attention_bwd_ref",
 ]
 
 
@@ -154,3 +155,84 @@ def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
     probs = torch.where(logits > NEG / 2, torch.exp(logits - m), 0.0)
     den = probs.sum(-1, keepdim=True).clamp_min(1e-30)
     return (torch.einsum("bhqk,bhkd->bhqd", probs, v.float()) / den).to(q.dtype)
+
+
+def _visible(s_q: int, s_k: int, causal: bool, device) -> torch.Tensor:
+    """(S_q, S_k) bool: key j is visible to row i (suffix-aligned causal)."""
+    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
+    return mask.tril(diagonal=s_k - s_q) if causal else mask
+
+
+def _work_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32 for float32 and bf16 inputs; float64 stays float64 (gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _grouped(q, k):
+    """q (B,H,S,D) as (B,H_kv,G,S,D) in the working dtype, and the scale."""
+    b, h, s, d = q.shape
+    h_kv = k.shape[1]
+    return q.to(_work_dtype(q)).reshape(b, h_kv, h // h_kv, s, d), d ** -0.5
+
+
+def attention_fwd_ref(q, k, v, *, causal: bool = True):
+    """The forward of :func:`attention_ref` with the row statistics the
+    backward needs: ``(out, lse)``, out (B,H,S_q,D) in q's dtype and lse
+    (B,H,S_q) the natural-log log-sum-exp of each row's scaled scores,
+    in float32 (float64 for float64 inputs).
+
+    A row with no visible key gives out 0, as the kernel does, and lse
+    ``+inf``, so that its probabilities exp(s − lse), and every gradient
+    it sends, are exactly 0.  Batch elements are taken one at a time so
+    that the (H, S_q, S_k) score temporaries stay bounded."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    wt = _work_dtype(q)
+    mask = _visible(s_q, s_k, causal, q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s_q), dtype=wt, device=q.device)
+    for i in range(b):
+        qg, scale = _grouped(q[i:i + 1], k)
+        logits = torch.einsum("bngqd,bnkd->bngqk", qg, k[i:i + 1].to(wt)) * scale
+        logits = logits.masked_fill(~mask, float("-inf"))
+        row = torch.logsumexp(logits, -1)
+        row = torch.where(torch.isneginf(row), float("inf"), row)
+        probs = torch.exp(logits - row[..., None])
+        o = torch.einsum("bngqk,bnkd->bngqd", probs, v[i:i + 1].to(wt))
+        out[i] = o.reshape(h, s_q, d).to(q.dtype)
+        lse[i] = row.reshape(h, s_q)
+    return out, lse
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of :func:`attention_fwd_ref` for the
+    output gradient ``dout``, from the saved ``out`` and ``lse``, written
+    as the explicit formulas (scale = D^-½):
+
+        P = exp(scale·QKᵀ − lse), masked;   dV = Pᵀ dO;   dP = dO Vᵀ;
+        Δ = rowsum(dO ∘ O);   dS = P ∘ (dP − Δ);
+        dQ = scale·dS K;   dK = scale·dSᵀ Q,
+
+    dK and dV summed over the H/H_kv query heads that share a K/V head.
+    Float32 work (float64 for float64 inputs), cast to the input dtype;
+    one batch element at a time."""
+    b, h, s_q, d = q.shape
+    h_kv, s_k = k.shape[1], k.shape[2]
+    wt = _work_dtype(q)
+    mask = _visible(s_q, s_k, causal, q.device)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    for i in range(b):
+        qg, scale = _grouped(q[i:i + 1], k)
+        kf, vf = k[i:i + 1].to(wt), v[i:i + 1].to(wt)
+        og, _ = _grouped(out[i:i + 1].to(wt), k)
+        dog, _ = _grouped(dout[i:i + 1].to(wt), k)
+        row = lse[i:i + 1].to(wt).reshape(1, h_kv, h // h_kv, s_q, 1)
+        logits = torch.einsum("bngqd,bnkd->bngqk", qg, kf) * scale
+        p = torch.where(mask, torch.exp(logits - row), 0.0)
+        dv[i] = torch.einsum("bngqk,bngqd->bnkd", p, dog)[0].to(v.dtype)
+        dp = torch.einsum("bngqd,bnkd->bngqk", dog, vf)
+        delta = (dog * og).sum(-1, keepdim=True)
+        ds = p * (dp - delta)
+        dq[i] = (scale * torch.einsum("bngqk,bnkd->bngqd", ds, kf)).reshape(h, s_q, d).to(q.dtype)
+        dk[i] = (scale * torch.einsum("bngqk,bngqd->bnkd", ds, qg))[0].to(k.dtype)
+    return dq, dk, dv

@@ -11,7 +11,9 @@ from __future__ import annotations
 from typing import Callable
 
 from . import ref
-from .flash_attention import flash_attention, flash_attention_cuda
+from .flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_cuda, flash_attention_cuda,
+)
 from .frontier_tiles import frontier_tiles, frontier_tiles_cuda
 from .spmv_ell import spmv_ell, spmv_ell_cuda
 from .spmv_tiles import spmv_tiles, spmv_tiles_cuda
@@ -34,6 +36,8 @@ KERNELS: dict[str, tuple[Callable, Callable, Callable]] = {
     "tc_tiles": (tc_tiles, tc_tiles_cuda, ref.tc_tiles_idx_ref),
     "spmv_ell": (spmv_ell, spmv_ell_cuda, ref.spmv_ell_ref),
     "flash_attention": (flash_attention, flash_attention_cuda, ref.attention_ref),
+    "flash_attention_bwd": (flash_attention_bwd, flash_attention_bwd_cuda,
+                            ref.attention_bwd_ref),
 }
 
 

@@ -1,1 +1,1 @@
-"""Launchers: the serve driver."""
+"""Launchers: the serve and train drivers."""

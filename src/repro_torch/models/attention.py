@@ -4,10 +4,12 @@ single-token decode against a KV cache.
 Port of ``repro/models/attention.py``.  The weights of one attention
 block are an :class:`Attention` module (the reference's ``init_attn``)
 with the reference's parameter names (``wq``, ``wk``, ``wv``, ``wo`` in
-``(d_in, d_out)`` orientation, ``bq``, ``bk``, ``bv`` with a QKV bias).  ``self_attention`` runs the
-hand-written ``flash_attention`` kernel under the reference's guard
-(``use_kernel`` in place of ``use_pallas``); every other branch is plain
-torch, as the reference's is plain XLA.  Cross-attention waits for the
+``(d_in, d_out)`` orientation, ``bq``, ``bk``, ``bv`` with a QKV bias); they are
+trainable.  ``self_attention`` runs the hand-written ``flash_attention``
+kernel under the reference's guard (``use_kernel`` in place of
+``use_pallas``), under autograd through its hand-written backward when a
+gradient is wanted; every other branch is plain torch, as the
+reference's is plain XLA.  Cross-attention waits for the
 vlm and audio families (ROADMAP A13).
 """
 from __future__ import annotations
@@ -29,19 +31,15 @@ class Attention(nn.Module):
                  bias: bool, dtype: torch.dtype, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
-
-        def param(t):
-            return nn.Parameter(t, requires_grad=False)
-
         kw = dict(generator=generator, device=device)
-        self.wq = param(dense_init((d_model, n_heads * d_head), dtype, **kw))
-        self.wk = param(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
-        self.wv = param(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
-        self.wo = param(dense_init((n_heads * d_head, d_model), dtype, **kw))
+        self.wq = nn.Parameter(dense_init((d_model, n_heads * d_head), dtype, **kw))
+        self.wk = nn.Parameter(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
+        self.wv = nn.Parameter(dense_init((d_model, n_kv_heads * d_head), dtype, **kw))
+        self.wo = nn.Parameter(dense_init((n_heads * d_head, d_model), dtype, **kw))
         if bias:
             for name, width in (("bq", n_heads), ("bk", n_kv_heads), ("bv", n_kv_heads)):
-                setattr(self, name, param(torch.zeros(width * d_head, dtype=dtype,
-                                                      device=device)))
+                setattr(self, name, nn.Parameter(
+                    torch.zeros(width * d_head, dtype=dtype, device=device)))
 
 
 def _project_qkv(p, x, n_heads, n_kv_heads, d_head):

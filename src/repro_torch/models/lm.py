@@ -1,17 +1,25 @@
 """The LM, dense family: pre-RMSNorm GQA decoder with a SwiGLU or GELU
 MLP, RoPE and an optional QKV bias.
 
-Port of ``repro/models/lm.py`` for inference.  The reference's stacked
-parameter tree becomes an :class:`LM` module whose names follow the
-reference's dict (``embed``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``,
-``layers.<i>.mlp.w_gate``, ``final_norm``, ``lm_head``); a Python loop
-over the layers replaces ``lax.scan``.  What the reference does and this
-module does not:
+Port of ``repro/models/lm.py``.  The reference's stacked parameter tree
+becomes an :class:`LM` module of trainable parameters whose names follow
+the reference's dict (``embed``, ``layers.<i>.ln1``,
+``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate``, ``final_norm``,
+``lm_head``); a Python loop over the layers replaces ``lax.scan``.
 
-* remat (``jax.checkpoint``) is dropped — inference keeps no activations
-  for a backward, and the parameters carry no gradient until the train
-  step is ported (ROADMAP A13b);
-* ``sharding.constrain`` is a no-op on one device and is not ported;
+Remat follows ``cfg.remat_policy`` as the reference's ``jax.checkpoint``
+does, through ``torch.utils.checkpoint`` (non-reentrant), and only where a
+backward will follow (grad mode on and trainable parameters): ``"full"``
+keeps each decoder layer's input and recomputes the layer in the
+backward; ``"save_attn"`` keeps the attention block's output as well and
+recomputes the attention and MLP blocks each on its own.  The chunked loss
+recomputes each chunk's float32 logits in the backward, as the
+reference's checkpointed chunk body does, so a step never holds every
+chunk's logits at once.  Prefill and decode run without grad and take
+none of this.  What the reference does and this module does not:
+
+* ``sharding.constrain`` is a no-op on one device and is not ported
+  (ROADMAP A13b, second half);
 * the decode caches are updated in place (see ``decode_attention``).
 
 The other families raise ``NotImplementedError`` naming their ROADMAP item.
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
@@ -50,10 +59,6 @@ def check_family(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP {item})")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class MLP(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
         super().__init__()
@@ -61,14 +66,14 @@ class MLP(nn.Module):
         d, f = cfg.d_model, cfg.d_ff
         self.gated = cfg.mlp_type == "swiglu"
         if self.gated:
-            self.w_gate = _param(dense_init((d, f), dtype, **kw))
-            self.w_up = _param(dense_init((d, f), dtype, **kw))
-            self.w_down = _param(dense_init((f, d), dtype, **kw))
+            self.w_gate = nn.Parameter(dense_init((d, f), dtype, **kw))
+            self.w_up = nn.Parameter(dense_init((d, f), dtype, **kw))
+            self.w_down = nn.Parameter(dense_init((f, d), dtype, **kw))
         else:
-            self.w_up = _param(dense_init((d, f), dtype, **kw))
-            self.b_up = _param(torch.zeros(f, dtype=dtype, device=device))
-            self.w_down = _param(dense_init((f, d), dtype, **kw))
-            self.b_down = _param(torch.zeros(d, dtype=dtype, device=device))
+            self.w_up = nn.Parameter(dense_init((d, f), dtype, **kw))
+            self.b_up = nn.Parameter(torch.zeros(f, dtype=dtype, device=device))
+            self.w_down = nn.Parameter(dense_init((f, d), dtype, **kw))
+            self.b_down = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
 
     def forward(self, x):
         if self.gated:
@@ -79,11 +84,11 @@ class MLP(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
         super().__init__()
-        self.ln1 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                               bias=cfg.qkv_bias, dtype=dtype, generator=generator,
                               device=device)
-        self.ln2 = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.mlp = MLP(cfg, dtype, generator=generator, device=device)
 
 
@@ -102,11 +107,13 @@ class LM(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         dtype = Dtype(cfg.dtype).param
         kw = dict(generator=generator, device=device)
-        self.embed = _param(dense_init((cfg.vocab, cfg.d_model), dtype, scale=0.02, **kw))
-        self.final_norm = _param(torch.ones(cfg.d_model, dtype=dtype, device=device))
-        if not cfg.tie_embeddings:
-            self.lm_head = _param(dense_init((cfg.d_model, cfg.vocab), dtype, **kw))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, **kw) for _ in range(cfg.n_layers))
+        with torch.no_grad():
+            self.embed = nn.Parameter(dense_init((cfg.vocab, cfg.d_model), dtype, scale=0.02, **kw))
+            self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+            if not cfg.tie_embeddings:
+                self.lm_head = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), dtype, **kw))
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, **kw)
+                                        for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -120,19 +127,38 @@ class LM(nn.Module):
 # prefill / eval forward
 
 
-def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, *, use_kernel):
-    x = rms_norm(h, layer.ln1)
-    h = h + self_attention(
-        layer.attn, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
-        rope_theta=cfg.rope_theta, causal=True, window=cfg.attn_window, use_kernel=use_kernel,
-        impl=cfg.attn_impl,
+def _attn_block(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
+    return self_attention(
+        layer.attn, rms_norm(h, layer.ln1), n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.d_head, rope_theta=cfg.rope_theta, causal=True, window=cfg.attn_window,
+        use_kernel=use_kernel, impl=cfg.attn_impl,
         probs_dtype=torch.bfloat16 if cfg.attn_probs_dtype == "bfloat16" else None)
-    return h + layer.mlp(rms_norm(h, layer.ln2))
+
+
+def _mlp_block(layer: DecoderLayer, h):
+    return layer.mlp(rms_norm(h, layer.ln2))
+
+
+def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
+    h = h + _attn_block(cfg, layer, h, use_kernel)
+    return h + _mlp_block(layer, h)
+
+
+def _remat(model: LM) -> bool:
+    """Whether a backward will follow: grad mode on and trainable weights."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
 
 
 def _run_decoder(cfg: ArchConfig, model: LM, h, *, use_kernel=False):
+    remat = _remat(model)
     for layer in model.layers:
-        h = _decoder_layer(cfg, layer, h, use_kernel=use_kernel)
+        if not remat:
+            h = _decoder_layer(cfg, layer, h, use_kernel)
+        elif cfg.remat_policy == "save_attn":
+            h = h + checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
+            h = h + checkpoint(_mlp_block, layer, h, use_reentrant=False)
+        else:
+            h = checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
     return h
 
 
@@ -144,20 +170,30 @@ def _chunked_loss(cfg: ArchConfig, model: LM, h, labels):
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
     head = model.head()
+    remat = _remat(model)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
-        logits = (h[:, i:i + chunk] @ head).float()
-        gold = logits.gather(-1, labels[:, i:i + chunk, None].long())[..., 0]
-        total = total + (torch.logsumexp(logits, -1) - gold).sum()
+        args = (h[:, i:i + chunk], head, labels[:, i:i + chunk])
+        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+                         else _chunk_nll(*args))
     return total / (b * s)
+
+
+def _chunk_nll(h, head, labels):
+    """Summed NLL of one chunk: h (B,c,d), labels (B,c)."""
+    logits = (h @ head).float()
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
 
 
 def _embed(model: LM, tokens):
     return F.embedding(tokens.long(), model.embed)
 
 
+@torch.no_grad()
 def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
-    """Full (B,S,V) float32 logits — test/eval only."""
+    """Full (B,S,V) float32 logits — test/eval only, so without grad
+    (training takes :func:`forward_loss`)."""
     h = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
     return (rms_norm(h, model.final_norm) @ model.head()).float()
 

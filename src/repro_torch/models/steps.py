@@ -1,24 +1,30 @@
-"""Prefill and serve steps, and the input shapes of each (arch × shape) cell.
+"""Train, prefill and serve steps, and the input shapes of each (arch ×
+shape) cell.
 
-Port of ``repro/models/steps.py`` for inference.  ``make_prefill_step``
-returns ``(model, batch) -> metrics`` (the forward-only loss at prefill
-shape) and ``make_serve_step`` returns ``(model, state, batch) ->
-(logits, state)``; both run under ``torch.inference_mode``.
-``input_specs`` gives the shape and dtype of every model input of a
-cell.  The train step waits for ROADMAP A13b.
+Port of ``repro/models/steps.py``.  ``make_train_step`` returns
+``(model, opt_state, batch, step) -> (opt_state, metrics)``: loss →
+gradients → AdamW, the model's parameters and ``opt_state`` updated in
+place (the reference's jitted step returns new trees instead; there is no
+jit or donation to port).  ``make_prefill_step`` returns ``(model, batch)
+-> metrics`` (the forward-only loss at prefill shape) and
+``make_serve_step`` returns ``(model, state, batch) -> (logits, state)``;
+both run under ``torch.inference_mode``.  ``input_specs`` gives the shape
+and dtype of every model input of a cell.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..optim import adamw_update, cosine_schedule
 from . import lm
 from .common import Dtype
 
-__all__ = ["TensorSpec", "input_specs", "supports_shape", "make_prefill_step",
-           "make_serve_step"]
+__all__ = ["TensorSpec", "input_specs", "supports_shape", "make_train_step",
+           "make_prefill_step", "make_serve_step"]
 
 
 class TensorSpec(NamedTuple):
@@ -52,6 +58,65 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, TensorSpec]:
     if cfg.is_encdec:
         out["memory"] = TensorSpec((b, cfg.encoder_frames, cfg.d_model), dt)
     return out
+
+
+def _on(model: lm.LM, batch) -> dict:
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+            .to(model.device) for k, v in batch.items()}
+
+
+def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup_steps=200,
+                    use_kernel=False, grad_compress=False, microbatch: int = 0):
+    """``(model, opt_state, batch, step) -> (opt_state, metrics)``: one AdamW
+    step on the mean NLL of ``batch`` (tokens, labels (B,S), tensors or
+    numpy), learning rate ``cosine_schedule(base_lr, warmup_steps,
+    total_steps)(step)``.  ``metrics`` holds ``loss``, ``nll`` and
+    ``grad_norm`` (0-d tensors on the model's device) and ``lr``.
+
+    With ``microbatch > 1`` the batch is cut into that many consecutive
+    slices (the reference's reshape), their gradients summed in float32
+    and divided by their count, as the reference's scan does.
+    ``use_kernel`` runs the attention through the hand-written
+    ``flash_attention`` forward and backward where the reference's guard
+    allows (``use_pallas``)."""
+    if grad_compress:
+        raise NotImplementedError(
+            "grad_compress (int8 compressed_psum over a data-parallel mesh) is not ported "
+            "yet (ROADMAP A13b, second half)")
+    sched = cosine_schedule(base_lr, warmup_steps, total_steps)
+
+    def train_step(model, opt_state, batch, step):
+        params = dict(model.named_parameters())
+        batch = _on(model, batch)
+        if microbatch and microbatch > 1:
+            b = batch["tokens"].shape[0]
+            if b % microbatch:
+                raise ValueError(f"batch {b} is not a multiple of microbatch {microbatch}")
+            m = b // microbatch
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in params.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(microbatch):
+                loss, _ = lm.forward_loss(cfg, model, {k: v[i * m:(i + 1) * m]
+                                                       for k, v in batch.items()},
+                                          use_kernel=use_kernel)
+                for acc, g in zip(grads.values(),
+                                  torch.autograd.grad(loss, list(params.values()))):
+                    acc.add_(g)
+                lsum += loss.detach()
+            for acc in grads.values():
+                acc.div_(microbatch)
+            loss = lsum / microbatch
+            metrics = dict(loss=loss, nll=loss)
+        else:
+            loss, metrics = lm.forward_loss(cfg, model, batch, use_kernel=use_kernel)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        lr = sched(step)
+        _, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr)
+        return opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, use_kernel=False):

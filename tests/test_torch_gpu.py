@@ -9,6 +9,8 @@ PyTorch is installed::
 
 (``--noconftest`` because ``tests/conftest.py`` imports the JAX package.)
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -25,12 +27,16 @@ from repro_torch.core import (
 )
 from repro_torch.kernels import ref, registry
 from repro_torch.configs import get_smoke
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_cuda,
+)
 from repro_torch.kernels.frontier_tiles import frontier_tiles
 from repro_torch.kernels.spmv_ell import spmv_ell
 from repro_torch.kernels.spmv_tiles import spmv_tiles
 from repro_torch.kernels.tc_tiles import tc_tiles
 from repro_torch.models import lm
+from repro_torch.models.steps import make_train_step
+from repro_torch.optim import adamw_init
 from repro_torch.serve import GraphServer, Query, Request, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -273,6 +279,103 @@ def test_flash_attention_cuda_rejects_a_misaligned_tensor(cuda):
     k = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, k, k)
+
+
+#: the backward's shapes: those of the forward but the two largest, and one with
+#: S not a multiple of 64 on either axis
+BWD_CASES = ATTN_CASES[:6] + [(1, 4, 2, 200, 333, 64, True)]
+
+
+def _attn_inputs(cuda, b, h, h_kv, sq, sk, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    q, dout = (torch.randn((b, h, sq, d), generator=gen, device=cuda).to(dtype) for _ in "qg")
+    k, v = (torch.randn((b, h_kv, sk, d), generator=gen, device=cuda).to(dtype) for _ in "kv")
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_cuda_vs_plain(cuda, b, h, h_kv, sq, sk, d, causal, dtype):
+    q, k, v, dout = _attn_inputs(cuda, b, h, h_kv, sq, sk, d, dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    before = registry.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert registry.launch_counts()["flash_attention_bwd"] == before + 1
+    w_out, w_lse = ref.attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal)
+    want = ref.attention_bwd_ref(q.float(), k.float(), v.float(), w_out, w_lse, dout.float(),
+                                 causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        if dtype == torch.float32:   # the same sums in another order (LM_TOL)
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-4)
+        else:                        # float32 arithmetic on bf16 inputs, bf16 output
+            assert float((g.float() - w).norm() / w.norm()) <= 1e-2
+    if causal and sq > sk:
+        assert bool((got[0][:, :, :sq - sk] == 0).all())
+
+
+@pytest.mark.parametrize("b,h,h_kv,sq,sk,d,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_on_both_routes(cuda, b, h, h_kv, sq, sk, d, causal, dtype):
+    q, k, v, _ = _attn_inputs(cuda, b, h, h_kv, sq, sk, d, dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal))
+    _, want = ref.attention_fwd_ref(q.float(), k.float(), v.float(), causal=causal)
+    empty = torch.isinf(want)
+    assert lse.dtype == torch.float32 and torch.equal(torch.isinf(lse), empty)
+    assert bool((lse[empty] > 0).all())
+    torch.testing.assert_close(lse[~empty], want[~empty], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_gives_the_same_bits_twice(cuda, dtype):
+    q, k, v, dout = _attn_inputs(cuda, 1, 8, 2, 1000, 1000, 128, dtype)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_fn_launches_both_kernels_on_the_card(cuda):
+    q, k, v, dout = _attn_inputs(cuda, 1, 4, 2, 256, 256, 64, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    registry.reset_launch_counts()
+    out = flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    counts = registry.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*plain), plain, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-4)
+
+
+def test_train_step_kernel_vs_plain_on_the_card(cuda):
+    # d_head 128 at S = 128 passes the kernel guard; float32, TF32 off (the default)
+    cfg = replace(get_smoke("granite-3-8b"), d_model=256, n_heads=2, n_kv_heads=1,
+                  dtype="float32")
+    base = lm.LM(cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, 1))
+    runs = {}
+    for use_kernel in (True, False):
+        model = copy.deepcopy(base)
+        opt = adamw_init(model)
+        registry.reset_launch_counts()
+        opt, m = make_train_step(cfg, warmup_steps=1, use_kernel=use_kernel)(model, opt, batch, 0)
+        runs[use_kernel] = model, opt, m, registry.launch_counts()
+    (km, _, kmet, kl), (pm, popt, pmet, pl) = runs[True], runs[False]
+    assert (kl["flash_attention"], kl["flash_attention_bwd"]) == (2 * cfg.n_layers, cfg.n_layers)
+    assert (pl["flash_attention"], pl["flash_attention_bwd"]) == (0, 0)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(kmet[key], pmet[key], rtol=1e-3, atol=2e-4)
+    with torch.no_grad():   # the reference's resume tolerance; 0 < |g| < 1e-6: Adam's steep region
+        for (name, a), b in zip(km.named_parameters(), pm.parameters()):
+            mu = popt["mu"][name].abs()
+            tiny = (mu < 1e-7) & (mu > 0)
+            limit = torch.where(tiny, 2 * kmet["lr"], 1e-5 + 1e-4 * b.abs())
+            assert bool(((a - b).abs() <= limit).all()), name
 
 
 #: (B, R, K, N): K a multiple of 4 takes the int4 route (K = 4: one lane a row;

@@ -258,9 +258,9 @@ def test_lm_params_from_numpy_carries_every_weight(lm_pair):
     rcfg, cfg, params, model, _, _ = lm_pair
     assert sum(p.numel() for p in model.parameters()) == \
         sum(a.size for a in jax.tree.leaves(params))
-    np.testing.assert_array_equal(model.layers[1].attn.wk.numpy(),
+    np.testing.assert_array_equal(model.layers[1].attn.wk.detach().numpy(),
                                   params["layers"]["attn"]["wk"][1])
-    np.testing.assert_array_equal(model.lm_head.numpy(), params["lm_head"])
+    np.testing.assert_array_equal(model.lm_head.detach().numpy(), params["lm_head"])
     with pytest.raises(KeyError, match="no place"):
         interop.lm_params_from_numpy(cfg, dict(params, extra=np.zeros(3)), device="cpu")
 
