@@ -288,53 +288,6 @@ struct Smem {
 
 using namespace hopper;
 
-// d (m64 x n128, f32) (+)= A (m64 x k16, shared, K-major) B (k16 x n128, shared, K-major)
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64 "}, %64, %65, p, 1, 1, 0, 0;\n}"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (m64 x n128, f32) += A (m64 x k16 bf16, registers) B (k16 x n128, shared, MN-major)
-__device__ __forceinline__ void mma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-// d (m64 x n64, f32) += A (m64 x k16 bf16, registers) B (k16 x n64, shared, MN-major)
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-                                           uint32_t a2, uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 2], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint64_t b) {
-  if constexpr (D == 128) mma_rs_n128(acc, a0, a1, a2, a3, b);
-  else mma_rs_n64(acc, a0, a1, a2, a3, b);
-}
-
-// Two floats rounded to bf16 and packed, `lo` in the low half (the element
-// of the lower column, as the wgmma A fragment and a bf16x2 store want).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -471,8 +424,8 @@ kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtenso
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t b = desc(v_s(s) + kk * 2048, kPanel);
-        mma_pv<D>(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3], b);
-        mma_pv<D>(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3], b);
+        mma_rs<D>(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3], b);
+        mma_rs<D>(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3], b);
       }
       wgmma_commit();
       wgmma_wait<0>();

@@ -1,6 +1,7 @@
 // hopper.cuh: inline-PTX helpers for Hopper (sm_90a) kernels shared by
-// flash_attention.cu and tc_tiles.cu -- mbarriers, TMA loads and their
-// tensor maps, wgmma shared-memory descriptors and the wgmma fences.
+// flash_attention.cu, flash_attention_bwd.cu and tc_tiles.cu -- mbarriers,
+// TMA loads and their tensor maps, wgmma shared-memory descriptors, the
+// wgmma fences, and the bf16 wgmma shapes the two attention files issue.
 //
 // Each kernel is its own shared library with a plain C interface, so this
 // header is compiled once into each; everything here is inline.  Tensor
@@ -107,6 +108,64 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define D64 D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
             "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
             "%62, %63"
+
+// d (m64 x n128, f32) (+)= A (m64 x k16, shared, K-major) B (k16 x n128, shared, K-major)
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64 "}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n64, f32) (+)= A (m64 x k16, shared, K-major) B (k16 x n64, shared, K-major)
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32 "}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64 x n128, f32) += A (m64 x k16 bf16, registers) B (k16 x n128, shared, MN-major)
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (m64 x n64, f32) += A (m64 x k16 bf16, registers) B (k16 x n64, shared, MN-major)
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                           uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (m64 x nN) += A (registers) B (MN-major) for a head width N of 64 or 128
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  if constexpr (N == 128) mma_rs_n128(d, a0, a1, a2, a3, b);
+  else mma_rs_n64(d, a0, a1, a2, a3, b);
+}
+
+// Two floats rounded to bf16 and packed, `lo` in the low half (the element
+// of the lower column, as the wgmma A fragment and a bf16x2 store want).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 
 // ------------------------------------------------------------ tensor maps (host)
 

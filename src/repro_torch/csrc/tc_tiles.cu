@@ -165,12 +165,7 @@ __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int 
         : F8(0), F8(8), F8(16), F8(24)
         : "l"(a), "l"(b), "r"(accumulate));
   } else {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32
-        "}, %32, %33, p, 1, 1, 0, 0;\n}"
-        : F8(0), F8(8), F8(16), F8(24)
-        : "l"(a), "l"(b), "r"(accumulate));
+    mma_ss_n64(d, a, b, accumulate);
   }
 }
 

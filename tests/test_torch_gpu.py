@@ -281,9 +281,10 @@ def test_flash_attention_cuda_rejects_a_misaligned_tensor(cuda):
         flash_attention(q, k, k)
 
 
-#: the backward's shapes: those of the forward but the two largest, and one with
-#: S not a multiple of 64 on either axis
-BWD_CASES = ATTN_CASES[:6] + [(1, 4, 2, 200, 333, 64, True)]
+#: the backward's shapes: those of the forward, among them the two with many ring
+#: stages (S = 2048 with a GQA group of 4, and S = 1000 ragged at D = 128), and one
+#: with S not a multiple of 64 on either axis
+BWD_CASES = ATTN_CASES + [(1, 4, 2, 200, 333, 64, True)]
 
 
 def _attn_inputs(cuda, b, h, h_kv, sq, sk, d, dtype):
@@ -308,7 +309,7 @@ def test_flash_attention_bwd_cuda_vs_plain(cuda, b, h, h_kv, sq, sk, d, causal, 
         assert g.dtype == dtype and bool(torch.isfinite(g).all())
         if dtype == torch.float32:   # the same sums in another order (LM_TOL)
             torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-4)
-        else:                        # float32 arithmetic on bf16 inputs, bf16 output
+        else:                        # bf16 products, P and dS rounded to bf16, bf16 output
             assert float((g.float() - w).norm() / w.norm()) <= 1e-2
     if causal and sq > sk:
         assert bool((got[0][:, :, :sq - sk] == 0).all())
@@ -334,6 +335,26 @@ def test_flash_attention_bwd_gives_the_same_bits_twice(cuda, dtype):
     first = flash_attention_bwd(q, k, v, out, lse, dout)
     second = flash_attention_bwd(q, k, v, out, lse, dout)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_bwd_bf16_same_bits_twice_over_many_tiles(cuda):
+    # 16 key tiles of dK/dV and 16 query tiles of dQ a head, each walking a ring of many stages
+    q, k, v, dout = _attn_inputs(cuda, 2, 16, 4, 2048, 2048, 128, torch.bfloat16)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_bwd_cuda_rejects_a_misaligned_tensor(cuda):
+    # the bf16 route reads q, k, v and dout with TMA: a view one element in raises
+    q, k, v, dout = _attn_inputs(cuda, 1, 2, 2, 128, 128, 64, torch.bfloat16)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    shifted = torch.zeros(dout.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    shifted = shifted.view(dout.shape)
+    shifted.copy_(dout)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, out, lse, shifted)
 
 
 def test_flash_attention_fn_launches_both_kernels_on_the_card(cuda):
