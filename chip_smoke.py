@@ -102,6 +102,23 @@ the LM's inference path through ``make_prefill_step`` and
    combine's time per wave (CUDA events);
 6. triangle counting on ``orient_dag(rmat(16, 16, seed=7))``, p=256,
    tile_dim=512, dense_density=0.001, against an exact scipy count;
+   ``phase suite``: ``benchmark_suite("bench")`` (the paper's seven graph
+   classes, 0.13-0.94 M arcs) at table 1's plan settings
+   (``benchmarks/table1_graphs.py``: p=4, hybrid, dense_density=0.001,
+   tile_dim=512): PageRank, SV, Afforest, BFS from 0 and TC (on the DAG) on
+   every graph, 35 runs, each against float64 scipy or scipy's exact answer
+   (none takes the dense path there); then kron, social and twitter at the
+   chip layout (descending degree order, p = n / 512, tile_dim 512,
+   dense_density 0.005, TC 0.001): PageRank, BFS auto and TC, each equal to
+   its table-1 run through the permutation, with ``spmv_tiles``,
+   ``frontier_tiles`` and ``tc_tiles`` each launched; then one streamed
+   PageRank on kron (3 iterations, at least 4 waves, pipeline depth 2)
+   traced, exported with ``repro_torch.obs.export.write_chrome_trace`` into
+   a temporary directory and validated (lanes main, staging, device/0;
+   every wave in each phase), the device lane's span ms beside
+   ``torch.profiler``'s device busy ms.  Its numbers print as one
+   ``run_report("chip_suite", ...)`` JSON line; the phase must take at
+   most 60 s;
 7. LM exactness: granite-3-8b at full width, depth cut to 2 layers,
    float32, TF32 off: the prefill logits with the kernel equal those
    without it, cached decode reproduces them over 16 positions, and
@@ -150,7 +167,7 @@ spmv_ell, the
 tensor-core and TMA instructions (cuobjdump) of flash_attention (the bf16
 route must have both) and tc_tiles (every route of its count kernel must
 have HGMMA, the TMA route UTMALDG), one or more
-lines per phase,
+lines per phase, phase suite's run report as a JSON line,
 a JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root::
 
@@ -245,6 +262,17 @@ MESH_PR_ITERS = 3
 MESH_PR_RTOL, MESH_PR_ATOL, MESH_PR_L1 = 1e-5, 1e-7, SERVE_PR_L1
 MESH_DIST_ITERS = 20
 MESH_DIST_TOL = 1e-5
+#: phase suite: table 1's plan settings (benchmarks/table1_graphs.py:31-38) on
+#: benchmark_suite("bench"); the chip layout (section 4 of PERF.md: descending
+#: degree order, p = ceil(n / tile_dim)) on the skewed classes; the traced
+#: streamed PageRank (its budget the footprint over STREAM_SPLIT); the chip
+#: layout's PageRank against table 1's; the phase's own time limit
+SUITE_TABLE1 = dict(p=4, mode="hybrid", dense_density=0.001, tile_dim=512)
+SUITE_CHIP = dict(tile_dim=512, dense_density=0.005, tc_dense_density=0.001)
+SUITE_CHIP_GRAPHS = ("kron", "social", "twitter")
+SUITE_TRACE = dict(graph="kron", iterations=3, pipeline_depth=2, min_waves=4)
+SUITE_PR_RTOL = 1e-5
+SUITE_SECONDS = 60.0
 
 #: flash_attention checks: (B, H, H_kv, S_q, S_k, D, dtype, causal); the first is
 #: the LM prefill's shape; then suffix-aligned causal with S_q < S_k, non-causal,
@@ -852,6 +880,22 @@ def pagerank64(g, iterations):
     return x
 
 
+def bfs64(g, src):
+    """scipy's unweighted distances from ``src``, INT_MAX where unreached."""
+    import scipy.sparse.csgraph as csgraph
+
+    want = csgraph.shortest_path(csr_matrix(g), method="D", unweighted=True, indices=src)
+    return np.where(np.isinf(want), INT_MAX, want).astype(np.int64)
+
+
+def tc64(dag) -> int:
+    """scipy's exact triangle count of a DAG: the sum of (A @ A) ∘ A."""
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix((np.ones(dag.m, np.int64), dag.indices, dag.indptr), shape=(dag.n, dag.n))
+    return int((a @ a).multiply(a).sum())
+
+
 def phase_pagerank(dev, store):
     import torch
     from repro_torch.algorithms import pagerank_algorithm
@@ -967,7 +1011,6 @@ def frontier_needed(f, want, rows) -> float:
 
 
 def phase_bfs(dev, store, schedule):
-    import scipy.sparse.csgraph as csgraph
     import torch
     from repro_torch.algorithms import bfs_algorithm
     from repro_torch.core import compile_plan
@@ -994,9 +1037,7 @@ def phase_bfs(dev, store, schedule):
     for d in ("pull", "auto"):
         check(np.array_equal(runs[d].result["dist"], dist)
               and np.array_equal(runs[d].result["parent"], parent), f"bfs {d} != push")
-    want = csgraph.shortest_path(csr_matrix(g), method="D", unweighted=True, indices=src)
-    want = np.where(np.isinf(want), INT_MAX, want).astype(np.int64)
-    check(np.array_equal(dist.astype(np.int64), want), "bfs dist != scipy distances")
+    check(np.array_equal(dist.astype(np.int64), bfs64(g, src)), "bfs dist != scipy distances")
     v = np.flatnonzero((dist > 0) & (dist != INT_MAX))
     pv = parent[v].astype(np.int64)
     keys = np.repeat(np.arange(g.n, dtype=np.int64), g.degrees) * g.n + g.indices
@@ -1043,7 +1084,6 @@ def phase_bfs(dev, store, schedule):
 
 
 def phase_tc(dev):
-    import scipy.sparse as sp
     import torch
     from repro_torch.algorithms import tc_algorithm
     from repro_torch.algorithms.tc import orient_dag
@@ -1067,8 +1107,7 @@ def phase_tc(dev):
     launches = registry.launch_counts()
     no_recovery(plan, "tc")
     check(launches["tc_tiles"] > 0, "tc_tiles never launched on the TC path")
-    a = sp.csr_matrix((np.ones(dag.m, np.int64), dag.indices, dag.indptr), shape=(dag.n, dag.n))
-    want = int((a @ a).multiply(a).sum())
+    want = tc64(dag)
     check(res.result == want, f"triangle count {res.result} != scipy {want}")
     say(f"phase tc: {res.result} triangles in {res.seconds * 1e3:.1f} ms (scipy {want}), "
         f"launches {launches}")
@@ -2053,6 +2092,227 @@ def phase_mesh_tc(store, schedule, incore, single, mesh, card):
     say(f"phase mesh tc: {res.result} triangles, equal to in-core")
 
 
+def synced_run(plan):
+    """``plan.run()`` on the host clock between two synchronizations:
+    (result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan.run()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def suite_oracles(g, dag) -> dict:
+    """scipy's answers on ``g``: components, BFS distances from vertex 0,
+    and the exact triangle count of its DAG ``dag``."""
+    import scipy.sparse.csgraph as csgraph
+
+    return dict(comp=csgraph.connected_components(csr_matrix(g), directed=False)[1],
+                dist=bfs64(g, 0), triangles=tc64(dag))
+
+
+def suite_check(name, algo, g, res, want) -> None:
+    """One table-1 result against float64 scipy (PageRank at the run's
+    iteration count) or scipy's exact answer."""
+    if algo == "pr":
+        check(bool(np.isfinite(res.result).all()) and res.result.shape == (g.n,),
+              f"suite {name} pr: result shape/finite")
+        l1 = float(np.abs(res.result.astype(np.float64) - pagerank64(g, res.iterations)).sum())
+        check(l1 <= PAGERANK_L1_TOL, f"suite {name} pr: L1 to float64 {l1} > {PAGERANK_L1_TOL}")
+    elif algo in ("sv", "cc"):
+        check(same_partition(res.result, want["comp"]), f"suite {name} {algo}: components")
+    elif algo == "bfs":
+        check(np.array_equal(res.result["dist"].astype(np.int64), want["dist"]),
+              f"suite {name} bfs: dist != scipy distances")
+    else:
+        check(res.result == want["triangles"],
+              f"suite {name} tc: {res.result} triangles != scipy {want['triangles']}")
+
+
+def phase_suite(dev, card: str) -> None:
+    """``benchmark_suite("bench")`` at table 1's plan settings (35 runs, each
+    against scipy), the skewed classes at the chip layout (against their
+    table-1 runs through the permutation; the three tile kernels must
+    launch), and one traced streamed PageRank exported as a Chrome trace;
+    prints the phase's numbers as one run report."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.algorithms import (
+        afforest_algorithm, bfs_algorithm, pagerank_algorithm, sv_algorithm, tc_algorithm,
+    )
+    from repro_torch.algorithms.tc import orient_dag
+    from repro_torch.core import build_block_store, compile_plan, degree_order
+    from repro_torch.data import benchmark_suite
+    from repro_torch.kernels import registry
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    graphs = benchmark_suite("bench")
+    gen_s = time.perf_counter() - t0
+    say(f"phase suite: benchmark_suite('bench') built {len(graphs)} graphs in {gen_s:.2f} s "
+        f"(host)")
+    report = dict(card=card, generate_s=gen_s, graphs={}, table1=[], chip=[])
+
+    # table 1: p=4, hybrid, density 0.001, tile_dim 512 (benchmarks/table1_graphs.py)
+    t1 = SUITE_TABLE1
+    algos = dict(pr=pagerank_algorithm, sv=sv_algorithm, cc=afforest_algorithm,
+                 bfs=lambda: bfs_algorithm(0), tc=tc_algorithm)
+    table1 = {}
+    for name, g in graphs.items():
+        t0 = time.perf_counter()
+        dag = orient_dag(g)
+        stores = dict(graph=build_block_store(g, t1["p"]), dag=build_block_store(dag, t1["p"]))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = suite_oracles(g, dag)
+        oracle_s = time.perf_counter() - t0
+        report["graphs"][name] = dict(n=g.n, arcs=g.m, dag_arcs=dag.m, stores_s=build_s)
+        cells = []
+        for algo, make in algos.items():
+            plan = compile_plan(make(), stores["dag" if algo == "tc" else "graph"], device=dev,
+                                mode=t1["mode"], dense_density=t1["dense_density"],
+                                tile_dim=t1["tile_dim"])
+            plan.run()                      # warm: the timed run is the second
+            res, ms = synced_run(plan)
+            no_recovery(plan, f"suite {name} {algo}")
+            suite_check(name, algo, g, res, want)
+            dense = int(plan.schedule.stats["dense_tasks"])
+            table1[name, algo] = res
+            report["table1"].append(dict(graph=name, algo=algo, ms=ms, iterations=res.iterations,
+                                         dense_tasks=dense))
+            cells.append(f"{algo} {ms:.1f} ms {res.iterations} it {dense} dense")
+        say(f"phase suite table1 {name}: n {g.n}, arcs {g.m}, stores {build_s:.2f} s, scipy "
+            f"{oracle_s:.2f} s (host); " + "; ".join(cells) + " (host clock, synchronized); "
+            f"equal to scipy")
+    dense_runs = sum(r["dense_tasks"] > 0 for r in report["table1"])
+    say(f"phase suite table1: {len(report['table1'])} runs, {dense_runs} with a dense task")
+
+    # the chip layout on the skewed classes: hub corners go dense
+    cfg = SUITE_CHIP
+    kernels = ("spmv_tiles", "frontier_tiles", "tc_tiles")
+    registry.reset_launch_counts()
+    chip_stores = {}
+    for name in SUITE_CHIP_GRAPHS:
+        t0 = time.perf_counter()
+        go, perm = degree_order(graphs[name], ascending=False)
+        p = -(-go.n // cfg["tile_dim"])
+        store = build_block_store(go, p)
+        chip_stores[name] = store
+        runs = (("pr", pagerank_algorithm(), store, dict(dense_density=cfg["dense_density"])),
+                ("bfs", bfs_algorithm(int(perm[0])), store,
+                 dict(dense_density=cfg["dense_density"], direction="auto")),
+                ("tc", tc_algorithm(), build_block_store(orient_dag(go), p),
+                 dict(dense_density=cfg["tc_dense_density"])))
+        build_s = time.perf_counter() - t0
+        cells = []
+        for algo, alg, st, kw in runs:
+            plan = compile_plan(alg, st, device=dev, tile_dim=cfg["tile_dim"], **kw)
+            plan.run()
+            before = registry.launch_counts()
+            res, ms = synced_run(plan)
+            after = registry.launch_counts()
+            no_recovery(plan, f"suite chip {name} {algo}")
+            launched = {k: after[k] - before[k] for k in kernels if after[k] > before[k]}
+            base = table1[name, algo]
+            check(res.iterations == base.iterations,
+                  f"suite chip {name} {algo}: {res.iterations} iterations != table 1's "
+                  f"{base.iterations}")
+            if algo == "pr":
+                got = res.result[perm]
+                worst = float(np.max(np.abs(got - base.result) / np.abs(base.result)))
+                check(np.allclose(got, base.result, rtol=SUITE_PR_RTOL, atol=0.0),
+                      f"suite chip {name} pr: ranks differ from table 1's by rtol {worst}")
+                extra = f"rtol to table 1 {worst:.2e}"
+            elif algo == "bfs":
+                check(np.array_equal(res.result["dist"][perm], base.result["dist"]),
+                      f"suite chip {name} bfs: dist != table 1's")
+                extra = f"decisions {res.schedule_stats['direction']['decisions']}"
+            else:
+                check(res.result == base.result,
+                      f"suite chip {name} tc: {res.result} != table 1's {base.result}")
+                extra = f"{res.result} triangles"
+            dense = int(plan.schedule.stats["dense_tasks"])
+            report["chip"].append(dict(graph=name, algo=algo, p=p, ms=ms,
+                                       iterations=res.iterations, dense_tasks=dense,
+                                       launches=launched))
+            cells.append(f"{algo} {ms:.1f} ms {res.iterations} it {dense} dense, launches "
+                         f"{launched}, {extra}")
+        say(f"phase suite chip {name}: p {p}, stores {build_s:.2f} s (host); " + "; ".join(cells))
+    launches = registry.launch_counts()
+    for k in kernels:
+        check(launches[k] > 0, f"suite chip layout: {k} never launched")
+    say(f"phase suite chip: launches {dict((k, launches[k]) for k in kernels)}; every result "
+        f"equals its table-1 run through the permutation")
+
+    # one traced streamed PageRank, exported and validated
+    tr_cfg = SUITE_TRACE
+    store = chip_stores[tr_cfg["graph"]]
+    alg = pagerank_algorithm(max_iters=tr_cfg["iterations"], tol=0.0)
+    incore = compile_plan(alg, store, device=dev, tile_dim=cfg["tile_dim"],
+                          dense_density=cfg["dense_density"])
+    budget = quarter_budget(alg, store, incore.schedule, STREAM_SPLIT)
+    del incore
+    splan = compile_plan(alg, store, device=dev, tile_dim=cfg["tile_dim"],
+                         dense_density=cfg["dense_density"], memory_budget=budget,
+                         pipeline_depth=tr_cfg["pipeline_depth"])
+    plain = splan.run()
+    with obs.tracing() as tr:
+        traced, wall, busy, top = device_profile(splan.run)
+        events = tr.events()
+        dropped = tr.dropped
+    no_recovery(splan, "suite trace")
+    check(dropped == 0, f"suite trace: {dropped} spans dropped")
+    waves = traced.schedule_stats["streaming"]["num_waves"]
+    check(waves >= tr_cfg["min_waves"], f"suite trace: {waves} waves < {tr_cfg['min_waves']}")
+    check(traced.iterations == plain.iterations == tr_cfg["iterations"],
+          f"suite trace: iterations {traced.iterations}, {plain.iterations}")
+    check(np.allclose(traced.result, plain.result, rtol=SUITE_PR_RTOL, atol=0.0),
+          "suite trace: the traced ranks differ from the untraced run's")
+    phases = ("assemble", "device_put", "compute", "iteration")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "suite.perfetto.json")
+        obs.export.write_chrome_trace(path, events)
+        with open(path) as f:
+            info = obs.export.validate_chrome_trace(
+                json.load(f), require_lanes=("main", "staging", "device/0"),
+                require_phases=phases)
+        trace_bytes = os.path.getsize(path)
+    for ph in phases[:3]:
+        seen = {e.args.get("wave") for e in events if e.name == ph}
+        check(seen >= set(range(waves)), f"suite trace: {ph} misses waves "
+              f"{sorted(set(range(waves)) - seen)}")
+    lane_ms = {}
+    for e in events:
+        lane_ms[e.lane] = lane_ms.get(e.lane, 0.0) + e.dur_ns / 1e6
+    device_ms = {ph: sum(e.dur_ns for e in events if e.lane == "device" and e.name == ph) / 1e6
+                 for ph in ("device_put", "compute")}
+    st = traced.schedule_stats["streaming"]
+    report["trace"] = dict(graph=tr_cfg["graph"], budget=budget, waves=waves,
+                           iterations=traced.iterations, lanes=info["lanes"],
+                           span_counts=info["span_counts"], trace_bytes=trace_bytes,
+                           lane_ms=lane_ms, device_lane_ms=device_ms, wall_ms=wall,
+                           profiler_busy_ms=busy, h2d_bytes=st["h2d_bytes"],
+                           h2d_ms=st["h2d_seconds"] * 1e3)
+    busy_txt = f"{busy:.1f} ms" if busy is not None else f"not measured ({top})"
+    say(f"phase suite trace: {tr_cfg['graph']} streamed PageRank, budget {budget / 1e6:.2f} MB, "
+        f"{waves} waves, pipeline depth {tr_cfg['pipeline_depth']}, {traced.iterations} "
+        f"iterations within rtol {SUITE_PR_RTOL} of the untraced run; trace {trace_bytes} bytes, "
+        f"lanes {info['lanes']}, span counts {info['span_counts']}; every wave in each phase")
+    say(f"phase suite trace: device lane spans {sum(device_ms.values()):.1f} ms (device_put "
+        f"{device_ms['device_put']:.1f}, compute {device_ms['compute']:.1f}: the host's enqueue) "
+        f"beside torch.profiler's device busy {busy_txt}, wall {wall:.1f} ms; lane ms "
+        f"{ {k: round(v, 1) for k, v in lane_ms.items()} }; copies {st['h2d_bytes'] / 1e9:.3f} "
+        f"GB in {st['h2d_seconds'] * 1e3:.1f} ms on the copy stream; busiest {top}")
+    seconds = time.perf_counter() - t_phase
+    report["seconds"] = seconds
+    say(json.dumps(obs.export.run_report("chip_suite", report)))
+    say(f"phase suite: {seconds:.1f} s (limit {SUITE_SECONDS:.0f})")
+    check(seconds <= SUITE_SECONDS, f"phase suite took {seconds:.1f} s > {SUITE_SECONDS} s")
+
+
 def lm_config(**changes):
     from dataclasses import replace
 
@@ -2518,6 +2778,8 @@ def run(dev, card: str) -> list[dict]:
     phase_mesh_tc(tc_store, tc_schedule, tc_res, tc_single, mesh, card)
     say(f"phase mesh: {mesh_s + time.perf_counter() - t0:.1f} s")
     del tc_store, tc_schedule
+    torch.cuda.empty_cache()
+    phase_suite(dev, card)
     torch.cuda.empty_cache()
 
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))

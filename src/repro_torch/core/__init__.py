@@ -20,7 +20,8 @@ from .direction import (
     DIRECTIONS, DirectionController, direction_spec, resolve_direction,
 )
 from .engine import (
-    Plan, RunResult, batch_states, compile_plan, resolve_device, unbatch_state,
+    Engine, Plan, RunResult, batch_states, compile_plan, resolve_device, run,
+    unbatch_state,
 )
 from .membudget import (
     MemoryBudget, PIPELINE_DEPTH, TenantLedger, arena_model_bytes,
@@ -58,4 +59,5 @@ __all__ = [
     "FaultPlan", "InjectedFault", "InjectedOOM",
     "HostTaskError", "ResilienceStats", "RetryPolicy", "WorkerDeath",
     "env_flag", "env_float", "env_int", "env_str",
+    "Engine", "run",
 ]

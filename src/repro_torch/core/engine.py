@@ -31,10 +31,14 @@ recovery ladder, :mod:`repro_torch.core.resilience`) and
 :class:`~repro_torch.core.distributed.DeviceMesh`, streaming only) runs
 each wave's tasks sharded over the mesh's devices from one controller
 (:mod:`repro_torch.core.distributed`).
+
+:func:`run` compiles and executes in one call; :class:`Engine` is the
+reference's deprecated shim over :func:`compile_plan`.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, replace
 from typing import TYPE_CHECKING, Any
 
@@ -57,7 +61,7 @@ from .scheduler import Schedule, build_schedule
 if TYPE_CHECKING:  # pragma: no cover — import cycle guard, typing only
     from .stream import StreamingPlan
 
-__all__ = ["Plan", "compile_plan", "RunResult", "resolve_device",
+__all__ = ["Plan", "compile_plan", "RunResult", "Engine", "run", "resolve_device",
            "resilience_config", "batch_states", "unbatch_state", "context_bytes"]
 
 
@@ -576,3 +580,58 @@ def compile_plan(
         tile_dim=tile_dim, dense_frac=dense_frac,
         dense_density=dense_density, share=share, direction=direction,
         **resilience)
+
+
+# ----------------------------------------------------------------------
+# Legacy shim
+_NO_BACKEND_SWITCH = object()
+
+
+class Engine:
+    """Deprecated: use :func:`compile_plan` → :meth:`Plan.run`.
+
+    Takes the reference's arguments with ``device=`` in place of
+    ``backend=``/``use_pallas=``: the port picks each kernel by the
+    device of its tensors and has no backend switch, so either of those
+    raises ``TypeError``.
+    """
+
+    def __init__(
+        self,
+        alg: BlockAlgorithm,
+        store: BlockStore,
+        schedule: Schedule | None = None,
+        *,
+        num_devices: int = 1,
+        mode: str = "hybrid",
+        tile_dim: int = 512,
+        dense_frac: float = 0.5,
+        dense_density: float = 0.005,
+        device: "str | torch.device | None" = None,
+        backend: Any = _NO_BACKEND_SWITCH,
+        use_pallas: Any = _NO_BACKEND_SWITCH,
+    ) -> None:
+        if backend is not _NO_BACKEND_SWITCH or use_pallas is not _NO_BACKEND_SWITCH:
+            raise TypeError(
+                "Engine takes no backend= or use_pallas=: the port has no backend switch; "
+                "it launches each kernel on the device of its tensors, so pass device= "
+                "(the current CUDA device by default, or \"cpu\") instead")
+        warnings.warn("Engine is deprecated; use compile_plan(alg, store, ...).run()",
+                      DeprecationWarning, stacklevel=2)
+        self.plan = compile_plan(
+            alg, store, schedule, device=device, num_devices=num_devices, mode=mode,
+            tile_dim=tile_dim, dense_frac=dense_frac, dense_density=dense_density)
+        self.alg = alg
+        self.store = store
+
+    @property
+    def schedule(self) -> Schedule:
+        return self.plan.schedule
+
+    def run(self, state: Any | None = None) -> RunResult:
+        return self.plan.run(state=state)
+
+
+def run(alg: BlockAlgorithm, store: BlockStore, **kw) -> RunResult:
+    """One-shot convenience: compile a plan and execute it."""
+    return compile_plan(alg, store, **kw).run()

@@ -1,5 +1,6 @@
-"""Data substrates: the deterministic synthetic token pipeline.  The
-graph datasets (``repro/data/graphs.py``) wait for ROADMAP A12a."""
+"""Data substrates: the deterministic synthetic token pipeline and the
+graph benchmark suite."""
 from .tokens import TokenPipeline, synthetic_batch
+from .graphs import benchmark_suite
 
-__all__ = ["TokenPipeline", "synthetic_batch"]
+__all__ = ["TokenPipeline", "synthetic_batch", "benchmark_suite"]

@@ -10,7 +10,11 @@
   process-wide registry (:data:`metrics`) of counters, gauges and
   fixed-bucket histograms.  ``obs.metrics.snapshot()`` renders it as one
   flat dict.
+* **Exporters** (:mod:`repro_torch.obs.export`) — Chrome-trace/Perfetto
+  JSON timelines (``main``, ``staging``, one lane per mesh device) and the
+  schema-versioned run-report, both as the reference writes them.
 """
+from . import export
 from .metrics import (
     Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
     exp_bucket_edges, latency_bucket_edges, metrics,
@@ -26,4 +30,5 @@ __all__ = [
     "metrics", "REGISTRY", "MetricsRegistry",
     "Counter", "Gauge", "Histogram",
     "exp_bucket_edges", "latency_bucket_edges",
+    "export",
 ]

@@ -201,7 +201,8 @@ def test_workspace_estimators_match(kernel, nd, tile_dim, devices):
 
 
 def _py_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: p.name)
