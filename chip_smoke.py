@@ -129,6 +129,21 @@ the LM's inference path through ``make_prefill_step`` and
    ``flash_attention`` once per layer and gives a loss near ln V; a
    profiled window of decode steps gives the device's idle share, and
    ``ServeEngine(batch_slots=4, cache_len=512)`` serves 8 requests;
+8a. MoE exactness (``phase moe exact``): deepseek-moe-16b at full width,
+   depth cut to 2 layers, float32, TF32 off, capacity factor 16 (no slot
+   dropped): the kernel path routes every token as the plain path does
+   (each differing token's router margin printed) and its logits equal
+   the plain path's, cached decode routes and reproduces the prefill over
+   16 positions, batched serving equals solo; then one forward at the
+   config's own factor 1.25 prints the share of dropped slots per layer;
+8b. MoE at full size (``phase moe``): deepseek-moe-16b, 28 layers, bf16,
+   16.9 B seeded parameters (33.8 GB) drawn on the card:
+   ``make_prefill_step(use_kernel=True)`` on 2 × 4096 tokens (28
+   ``flash_attention`` launches, nll near ln V, the load-balance and
+   z-loss terms, tokens/s, idle share, peak memory beside the weights),
+   a profiled decode window, and ``ServeEngine`` serving 8 requests × 32
+   tokens through 4 slots, ms per step beside the 9.3 ms it takes to read
+   every routed expert's weights once;
 9. training exactness: granite-3-8b at full width, 2 layers, float32, TF32
    off, batch 2 × 256: one ``make_train_step`` step with the kernels
    against one without from the same weights (loss and grad_norm within
@@ -302,8 +317,18 @@ LM_TOL = dict(atol=2e-4, rtol=1e-3)
 #: phase 6: prefill_32k cut to 2 x 4096; 8 requests through 4 slots
 LM_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens=32,
                prompt=(16, 64))
-#: decode steps in the profiled window of phase 6
+#: decode steps in the profiled window of phase 6 and of phase moe
 DECODE_PROFILE_STEPS = 8
+MOE_ARCH = "deepseek-moe-16b"
+#: phase moe exact: depth cut to 2 layers at full width, float32, TF32 off, and a
+#: capacity factor that drops no slot (cap >= T needs cf >= E/K = 10.7; the
+#: reference's own decode test runs its MoE smoke configs at 8.0 for the same end)
+MOE_EXACT = dict(n_layers=2, batch=2, seq=256, decode=16, requests=4, new_tokens=8,
+                 capacity_factor=16.0)
+#: phase moe: full width and depth, bf16: a prefill of 2 x 4096, then 8 requests
+#: through 4 slots, as phase 6 serves granite-3-8b
+MOE_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens=32,
+                prompt=(16, 64))
 #: phase kernels, backward: (B, H, H_kv, S_q, S_k, D, dtype, causal).  The first is
 #: the attention of train_4k cut to 2 x 4096 at granite-3-8b's heads (phase train
 #: runs it as two microbatches of 1 x 4096); then suffix-aligned causal with
@@ -2336,6 +2361,116 @@ def serve(cfg, model, dev, reqs, slots, cache_len):
     return {r.uid: r for r in done}, eng.steps_executed, time.perf_counter() - t0
 
 
+def batched_equals_solo(what, cfg, model, dev, ex, seed) -> None:
+    """ServeEngine's greedy outputs of ``ex``'s requests in one batch equal
+    each request's solo run."""
+    rng = np.random.default_rng(seed)
+    reqs = [(p, ex["new_tokens"]) for p in prompts(rng, ex["requests"], 2, 8, cfg.vocab)]
+    batched, _, _ = serve(cfg, model, dev, reqs, ex["requests"], 32)
+    for uid, req in enumerate(reqs):
+        solo, _, _ = serve(cfg, model, dev, [req], 1, 32)
+        check(batched[uid].output == solo[0].output,
+              f"{what}: request {uid}: batched {batched[uid].output} != solo "
+              f"{solo[0].output}")
+    say(f"{what}: ServeEngine greedy outputs of {len(reqs)} batched requests equal their "
+        f"solo runs")
+
+
+def prefill_runs(what, cfg, model, dev, fu, gen, first=None):
+    """make_prefill_step with the kernel on a seeded batch of ``fu``'s shape:
+    a first run (inside ``first``, a context manager, when given), whose
+    launches are counted and checked (flash_attention once per layer) and
+    whose metrics are checked (finite, nll within LOSS_BAND of ln V), then a
+    second run timed on the host clock.  Returns (tokens, the first run's
+    metrics as floats, its launches, both runs' seconds)."""
+    import contextlib
+
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models.steps import make_prefill_step
+
+    tokens = torch.randint(0, cfg.vocab, (fu["batch"], fu["seq"]), generator=gen, device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    step = make_prefill_step(cfg, use_kernel=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    with first or contextlib.nullcontext():
+        metrics = {k: float(v) for k, v in step(model, batch).items()}
+    first_s = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{what}: launched flash_attention {launches['flash_attention']} times, not once per "
+          f"layer ({cfg.n_layers})")
+    ln_v = float(np.log(cfg.vocab))
+    check(all(np.isfinite(v) for v in metrics.values())
+          and abs(metrics["nll"] - ln_v) <= LOSS_BAND,
+          f"{what}: metrics {metrics}, nll not within {LOSS_BAND} of ln V = {ln_v:.3f}")
+    t0 = time.perf_counter()
+    step(model, batch)
+    torch.cuda.synchronize()
+    return tokens, metrics, launches, first_s, time.perf_counter() - t0
+
+
+def prefill_profile(what, cfg, model, tokens, note="") -> None:
+    """One more prefill of ``tokens`` under torch.profiler: wall and busy ms,
+    idle share, the busiest kernels."""
+    from repro_torch.models.steps import make_prefill_step
+
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    step = make_prefill_step(cfg, use_kernel=True)
+    _, wall, busy, top = device_profile(lambda: step(model, batch))
+    if busy is None:
+        say(f"{what}: device time not measured ({top})")
+    else:
+        say(f"{what}: profiled run {wall:.1f} ms wall, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / wall:.3f}); busiest kernels {top}{note}")
+
+
+def profiled_decode(what, cfg, model, dev, fu, note="") -> None:
+    """A warm window of DECODE_PROFILE_STEPS decode steps of ``fu``'s slots
+    under torch.profiler: wall and device-busy ms per step, idle share."""
+    import torch
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        state = lm.init_decode_state(cfg, fu["slots"], fu["cache_len"], device=dev)
+        toks = torch.zeros(fu["slots"], dtype=torch.int32, device=dev)
+
+        def decode():
+            nonlocal state
+            for _ in range(DECODE_PROFILE_STEPS):
+                logits, state = lm.decode_step(cfg, model, state, toks)
+            return logits
+
+        decode()                      # warm
+        _, wall, busy, top = device_profile(decode)
+    n = DECODE_PROFILE_STEPS
+    if busy is None:
+        say(f"{what}: device time not measured ({top})")
+    else:
+        say(f"{what}: profiled {n} steps of {fu['slots']} slots, {wall / n:.2f} ms wall per "
+            f"step, device busy {busy / n:.2f} ms per step (idle share {1 - busy / wall:.3f}"
+            f"{note}); busiest kernels {top}")
+
+
+def serve_requests(what, cfg, model, dev, fu):
+    """``fu``'s requests through ServeEngine, each checked to finish with
+    all its new tokens.  Returns (steps, seconds, new tokens, request count)."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    lo, hi = fu["prompt"]
+    reqs = [(p, fu["new_tokens"]) for p in prompts(rng, fu["requests"], lo, hi, cfg.vocab)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    done, steps, serve_s = serve(cfg, model, dev, reqs, fu["slots"], fu["cache_len"])
+    check(len(done) == len(reqs) and all(r.done and not r.truncated
+                                         and len(r.output) == fu["new_tokens"]
+                                         for r in done.values()),
+          f"{what}: ServeEngine did not finish every request")
+    return steps, serve_s, sum(len(r.output) for r in done.values()), len(reqs)
+
+
 def phase_lm_exact(dev, cfg) -> None:
     """The kernel path against the plain path, decode against prefill, and
     batched serving against solo serving, all in float32."""
@@ -2370,15 +2505,7 @@ def phase_lm_exact(dev, cfg) -> None:
         f"{LM_TOL['rtol']}), launches {launches}")
     del got, want, state
 
-    rng = np.random.default_rng(1)
-    reqs = [(p, ex["new_tokens"]) for p in prompts(rng, ex["requests"], 2, 8, cfg.vocab)]
-    batched, _, _ = serve(cfg, model, dev, reqs, ex["requests"], 32)
-    for uid, req in enumerate(reqs):
-        solo, _, _ = serve(cfg, model, dev, [req], 1, 32)
-        check(batched[uid].output == solo[0].output,
-              f"request {uid}: batched {batched[uid].output} != solo {solo[0].output}")
-    say(f"phase lm exact: ServeEngine greedy outputs of {len(reqs)} batched requests equal "
-        f"their solo runs")
+    batched_equals_solo("phase lm exact", cfg, model, dev, ex, seed=1)
     del model
     torch.cuda.empty_cache()
 
@@ -2387,12 +2514,7 @@ def phase_lm_full(dev, cfg):
     """The whole model in bf16: prefill with the kernel, then serving.
     Returns flash_attention's record, timed on layer 0's q, k, v."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref, registry
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.models import attention, lm
-    from repro_torch.models.common import rms_norm
-    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.models import lm
 
     fu = LM_FULL
     t0 = time.perf_counter()
@@ -2403,89 +2525,52 @@ def phase_lm_full(dev, cfg):
     say(f"phase lm: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {n_params / 1e9:.3f} B "
         f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s, "
         f"memory allocated {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
-    b, s = fu["batch"], fu["seq"]
-    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
-    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
-    step = make_prefill_step(cfg, use_kernel=True)
+    tokens, metrics, launches, first_s, prefill_s = prefill_runs("phase lm prefill", cfg,
+                                                                 model, dev, fu, gen)
+    b, s = tokens.shape
+    say(f"phase lm prefill: B={b} S={s}, loss {metrics['loss']:.4f} (ln V "
+        f"{np.log(cfg.vocab):.4f}), first run {first_s:.3f} s, second {prefill_s:.3f} s "
+        f"({b * s / prefill_s:.0f} tokens/s, host clock), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, launches {launches}")
+    prefill_profile("phase lm prefill", cfg, model, tokens)
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    registry.reset_launch_counts()
-    t0 = time.perf_counter()
-    metrics = step(model, batch)
-    loss = float(metrics["loss"])
-    first_s = time.perf_counter() - t0
-    launches = registry.launch_counts()
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"prefill launched flash_attention {launches['flash_attention']} times, "
-          f"not once per layer ({cfg.n_layers})")
-    ln_v = float(np.log(cfg.vocab))
-    check(np.isfinite(loss) and abs(loss - ln_v) <= LOSS_BAND,
-          f"prefill loss {loss} not within {LOSS_BAND} of ln V = {ln_v:.3f}")
-    t0 = time.perf_counter()
-    step(model, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    say(f"phase lm prefill: B={b} S={s}, loss {loss:.4f} (ln V {ln_v:.4f}), first run "
-        f"{first_s:.3f} s, second {prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s, host "
-        f"clock), max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
-        f"launches {launches}")
-    _, wall, busy, top = device_profile(lambda: step(model, batch))
-    if busy is None:
-        say(f"phase lm prefill: device time not measured ({top})")
-    else:
-        say(f"phase lm prefill: profiled run {wall:.1f} ms wall, device busy {busy:.1f} ms "
-            f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
+    profiled_decode("phase lm decode", cfg, model, dev, fu)
+    steps, serve_s, new_tokens, n_reqs = serve_requests("phase lm serve", cfg, model, dev, fu)
+    say(f"phase lm serve: {n_reqs} requests (prompts {fu['prompt'][0]}-{fu['prompt'][1]} "
+        f"tokens, {fu['new_tokens']} new each) through {fu['slots']} slots, cache "
+        f"{fu['cache_len']}: {steps} decode steps in {serve_s:.2f} s, "
+        f"{serve_s * 1e3 / steps:.2f} ms per step, {new_tokens / serve_s:.1f} generated "
+        f"tokens/s, max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
 
-    with torch.inference_mode():
-        state = lm.init_decode_state(cfg, fu["slots"], fu["cache_len"], device=dev)
-        toks = torch.zeros(fu["slots"], dtype=torch.int32, device=dev)
+    rec = layer0_attention_record("flash_attention", cfg, model, tokens,
+                                  launches["flash_attention"])
+    del model
+    torch.cuda.empty_cache()
+    return rec
 
-        def decode():
-            nonlocal state
-            for _ in range(DECODE_PROFILE_STEPS):
-                logits, state = lm.decode_step(cfg, model, state, toks)
-            return logits
 
-        decode()                      # warm
-        _, wall, busy, top = device_profile(decode)
-        n = DECODE_PROFILE_STEPS
-        if busy is None:
-            say(f"phase lm decode: device time not measured ({top})")
-        else:
-            say(f"phase lm decode: profiled {n} steps of {fu['slots']} slots, "
-                f"{wall / n:.2f} ms wall per step, device busy {busy / n:.2f} ms per step "
-                f"(idle share {1 - busy / wall:.3f}); busiest kernels {top}")
-        del state
+def layer0_attention_record(name, cfg, model, tokens, launches):
+    """flash_attention checked and timed on layer 0's q, k, v of a prefill of
+    ``tokens`` (S_q = S_k, causal), beside its plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention
+    from repro_torch.models.common import rms_norm
 
-    rng = np.random.default_rng(0)
-    lo, hi = fu["prompt"]
-    reqs = [(p, fu["new_tokens"]) for p in prompts(rng, fu["requests"], lo, hi, cfg.vocab)]
-    torch.cuda.reset_peak_memory_stats(dev)
-    done, steps, serve_s = serve(cfg, model, dev, reqs, fu["slots"], fu["cache_len"])
-    check(len(done) == len(reqs) and all(r.done and not r.truncated
-                                         and len(r.output) == fu["new_tokens"]
-                                         for r in done.values()),
-          "ServeEngine did not finish every request")
-    new_tokens = sum(len(r.output) for r in done.values())
-    say(f"phase lm serve: {len(reqs)} requests (prompts {lo}-{hi} tokens, "
-        f"{fu['new_tokens']} new each) through {fu['slots']} slots, cache {fu['cache_len']}: "
-        f"{steps} decode steps in {serve_s:.2f} s, {serve_s * 1e3 / steps:.2f} ms per step, "
-        f"{new_tokens / serve_s:.1f} generated tokens/s, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-
-    # time the kernel on layer 0's q, k, v from this forward
+    b, s = tokens.shape
     layer = model.layers[0]
     with torch.inference_mode():
         x = rms_norm(F.embedding(tokens, model.embed), layer.ln1)
         q, k, v = (t.transpose(1, 2).contiguous() for t in attention.project_qkv(
             layer.attn, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
             rope_theta=cfg.rope_theta))
-        del x, model
-        torch.cuda.empty_cache()
+        del x
         err, share = attn_error(flash_attention_cuda(q, k, v), q, k, v)
-        check(share <= 1.0, f"flash_attention on layer 0's inputs: max err {err}, "
+        check(share <= 1.0, f"{name} on layer 0's inputs: max err {err}, "
               f"{share:.3f} of the tolerance {ATTN_TOL[cfg.dtype]}")
-        say(f"  flash_attention on layer 0's inputs: max err {err:.2e}, {share:.3f} of the "
+        say(f"  {name} on layer 0's inputs: max err {err:.2e}, {share:.3f} of the "
             f"tolerance {ATTN_TOL[cfg.dtype]}")
 
         # S_q = S_k, so SDPA's top-left causal mask equals the suffix-aligned one
@@ -2499,12 +2584,196 @@ def phase_lm_full(dev, cfg):
         library = cuda_ms(sdpa, 5)
         pairs = b * cfg.n_heads * s * (s + 1) // 2          # visible (query, key) pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        rec = record("flash_attention", launches["flash_attention"], err,
+        rec = record(name, launches, err,
                      cuda_ms(lambda: flash_attention_cuda(q, k, v), 5),
                      cuda_ms(lambda: ref.attention_ref(q, k, v), 2),
-                     nbytes, 4.0 * cfg.d_head * pairs, library, rate=BF16_TC_FLOPS)
-    say(f"  flash_attention timed on layer 0's q {tuple(q.shape)}, k, v {tuple(k.shape)} "
+                     nbytes, 4.0 * cfg.d_head * pairs, library, rate=BF16_TC_FLOPS,
+                     kernel="flash_attention")
+    say(f"  {name} timed on layer 0's q {tuple(q.shape)}, k, v {tuple(k.shape)} "
         f"{cfg.dtype}: {4.0 * cfg.d_head * pairs / rec['ms'] / 1e9:.1f} TFLOP/s")
+    return rec
+
+
+def moe_config(**changes):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config(MOE_ARCH), **changes)
+
+
+class MoeRoutes:
+    """Within ``with``: each MoE call's route (experts per token, in order)
+    and the margin between each token's K-th and (K+1)-th router
+    probabilities, from ``repro_torch.models.moe.route``, and each call's
+    dropped slots and slot count from ``moe.slots``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.idx, self.margin, self.dropped = [], [], []
+        self._mod, self._route, self._slots = moe, moe.route, moe.slots
+
+        def route(xf, router, top_k):
+            out = self._route(xf, router, top_k)
+            top = out[1].topk(top_k + 1, dim=-1).values
+            self.idx.append(out[3])
+            self.margin.append(top[:, top_k - 1] - top[:, top_k])
+            return out
+
+        def slots(idx, n_experts, cap):
+            keep, slot = self._slots(idx, n_experts, cap)
+            self.dropped.append(((~keep).sum(), keep.numel()))
+            return keep, slot
+
+        moe.route, moe.slots = route, slots
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route, self._mod.slots = self._route, self._slots
+
+    def drop_shares(self) -> list[float]:
+        return [int(n) / total for n, total in self.dropped]
+
+
+def same_routes(what, got_idx, want_idx, margins) -> None:
+    """Fail unless two runs routed every token alike; print each differing
+    token's margin between its K-th and (K+1)-th router probabilities."""
+    check(len(got_idx) == len(want_idx) > 0,
+          f"{what}: {len(got_idx)} MoE calls against {len(want_idx)}")
+    for layer, (a, b, m) in enumerate(zip(got_idx, want_idx, margins)):
+        bad = (a != b).any(-1).nonzero()[:, 0].tolist()
+        if bad:
+            say(f"  {what}: layer {layer} routes {len(bad)} tokens differently; their "
+                f"K-th minus (K+1)-th probabilities: "
+                f"{[(t, float(m[t])) for t in bad[:20]]}")
+        check(not bad, f"{what}: layer {layer} routes tokens {bad[:20]} differently")
+
+
+def phase_moe_exact(dev, cfg) -> None:
+    """deepseek-moe-16b at full width, MOE_EXACT's depth, float32 and a
+    capacity factor that drops no slot: the kernel path against the plain
+    path (routes first, then logits), decode against prefill, batched
+    serving against solo; then the dropped share at the config's own
+    factor."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+
+    ex = MOE_EXACT
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    b, s = ex["batch"], ex["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        with MoeRoutes() as kr:
+            got = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=True)
+        launches = registry.launch_counts()["flash_attention"]
+        check(launches == cfg.n_layers,
+              f"moe exact: flash_attention launches {launches} != {cfg.n_layers} layers")
+        check(not any(kr.drop_shares()), f"moe exact: cf {cfg.capacity_factor} dropped slots "
+              f"{kr.drop_shares()}")
+        with MoeRoutes() as pr:
+            want = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=False)
+        same_routes("moe exact, kernel vs plain", kr.idx, pr.idx, kr.margin)
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **LM_TOL),
+              f"moe exact: logits, kernel vs plain: max err {err}")
+        state = lm.init_decode_state(cfg, b, ex["decode"], device=dev)
+        derr = 0.0
+        for t in range(ex["decode"]):
+            with MoeRoutes() as dr:
+                logits, state = lm.decode_step(cfg, model, state, tokens[:, t])
+            rows = torch.arange(b, device=dev) * s + t      # token (i, t) of the prefill
+            same_routes(f"moe exact, decode position {t} vs prefill", dr.idx,
+                        [i[rows] for i in kr.idx], dr.margin)
+            derr = max(derr, float((logits - got[:, t]).abs().max()))
+            check(torch.allclose(logits, got[:, t], **LM_TOL),
+                  f"moe exact: decode logits at position {t} vs prefill: max err {derr}")
+        tight = min(float(m.min()) for m in kr.margin)
+    say(f"phase moe exact: {cfg.name} {cfg.n_layers} layers float32, capacity factor "
+        f"{cfg.capacity_factor} (no slot dropped), logits {tuple(got.shape)}: routes equal, "
+        f"kernel vs plain max err {err:.2e}, decode vs prefill over {ex['decode']} positions "
+        f"max err {derr:.2e} (atol {LM_TOL['atol']}, rtol {LM_TOL['rtol']}), launches "
+        f"{launches}; smallest K-th minus (K+1)-th router probability {tight:.2e}")
+    del got, want, state
+
+    batched_equals_solo("phase moe exact", cfg, model, dev, ex, seed=3)
+
+    own = replace(cfg, capacity_factor=moe_config().capacity_factor)
+    with torch.inference_mode(), MoeRoutes() as r:
+        lm.forward_logits(own, model, dict(tokens=tokens), use_kernel=True)
+    say(f"phase moe exact: at the config's capacity factor {own.capacity_factor} (cap "
+        f"{moe_capacity(own, b * s)} of {b * s} tokens x {own.top_k} slots over "
+        f"{own.n_experts} experts) the share of dropped slots per layer "
+        f"{[round(x, 4) for x in r.drop_shares()]}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def moe_capacity(cfg, t: int) -> int:
+    from repro_torch.models.moe import capacity
+
+    return capacity(t, cfg.top_k, cfg.n_experts, cfg.capacity_factor, cfg.moe_dispatch_sharding)
+
+
+def phase_moe_full(dev, cfg, card: str):
+    """deepseek-moe-16b at full width and depth in bf16: a prefill with the
+    kernel through make_prefill_step (forward_loss with its aux terms),
+    a profiled window of decode steps, and ServeEngine serving MOE_FULL's
+    requests.  Returns flash_attention's record on this path."""
+    import torch
+    from repro_torch.models import lm
+
+    fu = MOE_FULL
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"phase moe: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters ({weights / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+    routes = MoeRoutes()             # the first run's routes and drops
+    tokens, metrics, launches, first_s, prefill_s = prefill_runs(
+        "phase moe prefill", cfg, model, dev, fu, gen, first=routes)
+    shares = routes.drop_shares()
+    b, s = tokens.shape
+    say(f"phase moe prefill: B={b} S={s}, capacity {moe_capacity(cfg, b * s)} a expert, nll "
+        f"{metrics['nll']:.4f} (ln V {np.log(cfg.vocab):.4f}), load_balance "
+        f"{metrics['load_balance']:.4f} and z_loss {metrics['z_loss']:.4f} summed over "
+        f"{cfg.n_layers} layers, loss {metrics['loss']:.4f}; first run {first_s:.3f} s, second "
+        f"{prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s, host clock); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB beside "
+        f"{weights / 1e9:.2f} GB of weights; launches {launches}; dropped slots per layer min "
+        f"{min(shares):.4f}, mean {np.mean(shares):.4f}, max {max(shares):.4f} [{card}]")
+    prefill_profile("phase moe prefill", cfg, model, tokens, note=f" [{card}]")
+
+    # every routed expert's weights are read each step: the reference runs all
+    # E experts on their capacity buffers, cap >= 1 even at 4 tokens
+    expert_bytes = sum(p.numel() * p.element_size() for layer in model.layers
+                       for p in (layer.moe.w_gate, layer.moe.w_up, layer.moe.w_down))
+    bound_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    profiled_decode("phase moe decode", cfg, model, dev, fu,
+                    note=f"; bound {bound_ms:.2f} ms [{card}]")
+    steps, serve_s, new_tokens, n_reqs = serve_requests("phase moe serve", cfg, model, dev, fu)
+    say(f"phase moe serve: {n_reqs} requests (prompts {fu['prompt'][0]}-{fu['prompt'][1]} "
+        f"tokens, {fu['new_tokens']} new each) through {fu['slots']} slots, cache "
+        f"{fu['cache_len']}: {steps} decode steps in {serve_s:.2f} s, "
+        f"{serve_s * 1e3 / steps:.2f} ms per step against a weight-read bound of "
+        f"{bound_ms:.2f} ms ({expert_bytes / 1e9:.2f} GB of routed experts at 3.35 TB/s), "
+        f"{new_tokens / serve_s:.1f} generated tokens/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+
+    rec = layer0_attention_record("flash_attention[moe prefill]", cfg, model, tokens,
+                                  launches["flash_attention"])
+    del model
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2785,6 +3054,14 @@ def run(dev, card: str) -> list[dict]:
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))
     attn = phase_lm_full(dev, lm_config())
     t0 = time.perf_counter()
+    ex = MOE_EXACT
+    phase_moe_exact(dev, moe_config(n_layers=ex["n_layers"], dtype="float32",
+                                    capacity_factor=ex["capacity_factor"]))
+    say(f"phase moe exact: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_attn = phase_moe_full(dev, moe_config(), card)
+    say(f"phase moe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_train_exact(dev, lm_config(n_layers=TRAIN_EXACT["n_layers"], dtype="float32"))
     say(f"phase train exact: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2795,7 +3072,7 @@ def run(dev, card: str) -> list[dict]:
     say(f"phase train loop: {time.perf_counter() - t0:.1f} s")
     bwd_rec = record("flash_attention_bwd", bwd_launches, bwd["err"], bwd["ms"], bwd["plain_ms"],
                      bwd["nbytes"], bwd["ops"], bwd["library_ms"], rate=BF16_TC_FLOPS)
-    return [spmv, frontier, tc, attn, bwd_rec, ell, *served]
+    return [spmv, frontier, tc, attn, moe_attn, bwd_rec, ell, *served]
 
 
 def main() -> int:

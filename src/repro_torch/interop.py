@@ -186,7 +186,9 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     caller names the CPU.
 
     Each stacked array is split into the layers; ``(d_in, d_out)``
-    orientation is kept.  Values go through float32 (exact for bfloat16
-    both ways) and are cast to the parameter dtype of ``cfg``.
+    orientation is kept, and so are the moe family's ``(L, E, d, f)``
+    expert stacks.  Values go through float32 (exact for bfloat16 both
+    ways) and are cast to each parameter's dtype: ``cfg``'s, except the
+    MoE router, which is float32 under any config, as in the reference.
     """
     return load_lm_params(cfg, LM(cfg, device=resolve_device(device)), params)

@@ -1,11 +1,16 @@
-"""The LM, dense family: pre-RMSNorm GQA decoder with a SwiGLU or GELU
-MLP, RoPE and an optional QKV bias.
+"""The LM, dense and moe families: pre-RMSNorm GQA decoder with a SwiGLU
+or GELU MLP, RoPE and an optional QKV bias; the moe family takes a
+capacity-routed MoE FFN with optional shared experts (:mod:`.moe`) in
+place of the MLP.
 
 Port of ``repro/models/lm.py``.  The reference's stacked parameter tree
 becomes an :class:`LM` module of trainable parameters whose names follow
 the reference's dict (``embed``, ``layers.<i>.ln1``,
-``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate``, ``final_norm``,
-``lm_head``); a Python loop over the layers replaces ``lax.scan``.
+``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate`` or
+``layers.<i>.moe.router``, ``final_norm``, ``lm_head``); a Python loop
+over the layers replaces ``lax.scan``.  The MoE layers' load-balance and
+z-loss terms are summed over the layers and added to the training loss
+as the reference adds them (``0.01·load_balance + 0.001·z_loss``).
 
 Remat follows ``cfg.remat_policy`` as the reference's ``jax.checkpoint``
 does, through ``torch.utils.checkpoint`` (non-reentrant), and only where a
@@ -35,15 +40,17 @@ from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
 from .attention import Attention, decode_attention, self_attention
 from .common import Dtype, dense_init, gelu_mlp, rms_norm, swiglu
+from .moe import MoE, moe_ffn
 
 __all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
            "decode_step", "check_family", "UNPORTED_FAMILIES"]
 
 LOSS_CHUNK = 512
 
+#: families the port runs
+PORTED_FAMILIES = ("dense", "moe")
 #: families of the reference not ported yet → the ROADMAP item that ports them
 UNPORTED_FAMILIES = {
-    "moe": "A13c (MoE family: routed experts)",
     "hybrid": "A13d (hybrid family: Mamba branch)",
     "ssm": "A13e (ssm family: xLSTM blocks)",
     "vlm": "A13f (vlm family: cross-attention)",
@@ -53,7 +60,7 @@ UNPORTED_FAMILIES = {
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise unless the port runs ``cfg``'s family."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         item = UNPORTED_FAMILIES.get(cfg.family, "A13")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP {item})")
@@ -89,11 +96,15 @@ class DecoderLayer(nn.Module):
                               bias=cfg.qkv_bias, dtype=dtype, generator=generator,
                               device=device)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
-        self.mlp = MLP(cfg, dtype, generator=generator, device=device)
+        if cfg.n_experts:
+            self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts,
+                           dtype, generator=generator, device=device)
+        else:
+            self.mlp = MLP(cfg, dtype, generator=generator, device=device)
 
 
 class LM(nn.Module):
-    """The dense-family LM's weights (the reference's ``init_params``),
+    """The LM's weights (the reference's ``init_params``),
     drawn from ``generator`` (seeded 0 on ``device`` when not given)
     directly on ``device`` (default: the current card; raises without one)."""
 
@@ -135,13 +146,27 @@ def _attn_block(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
         probs_dtype=torch.bfloat16 if cfg.attn_probs_dtype == "bfloat16" else None)
 
 
-def _mlp_block(layer: DecoderLayer, h):
-    return layer.mlp(rms_norm(h, layer.ln2))
+def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h):
+    """The layer's MLP or MoE on the normed h → (y, aux terms or None)."""
+    x = rms_norm(h, layer.ln2)
+    if cfg.n_experts:
+        return moe_ffn(layer.moe, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       dispatch_sharding=cfg.moe_dispatch_sharding)
+    return layer.mlp(x), None
 
 
 def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
+    """One decoder layer → (h, its aux terms or None)."""
     h = h + _attn_block(cfg, layer, h, use_kernel)
-    return h + _mlp_block(layer, h)
+    y, aux = _mlp_block(cfg, layer, h)
+    return h + y, aux
+
+
+def _zero_aux(cfg: ArchConfig, device):
+    if cfg.n_experts:
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("load_balance", "z_loss")}
+    return None
 
 
 def _remat(model: LM) -> bool:
@@ -150,16 +175,22 @@ def _remat(model: LM) -> bool:
 
 
 def _run_decoder(cfg: ArchConfig, model: LM, h, *, use_kernel=False):
+    """The decoder stack → (h, the aux terms summed over the layers, or
+    None for a family without them)."""
     remat = _remat(model)
+    aux = _zero_aux(cfg, h.device)
     for layer in model.layers:
         if not remat:
-            h = _decoder_layer(cfg, layer, h, use_kernel)
+            h, a = _decoder_layer(cfg, layer, h, use_kernel)
         elif cfg.remat_policy == "save_attn":
             h = h + checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
-            h = h + checkpoint(_mlp_block, layer, h, use_reentrant=False)
+            y, a = checkpoint(_mlp_block, cfg, layer, h, use_reentrant=False)
+            h = h + y
         else:
-            h = checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
-    return h
+            h, a = checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
+        if aux is not None:
+            aux = {k: aux[k] + a[k] for k in aux}
+    return h, aux
 
 
 def _chunked_loss(cfg: ArchConfig, model: LM, h, labels):
@@ -194,15 +225,23 @@ def _embed(model: LM, tokens):
 def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
     """Full (B,S,V) float32 logits — test/eval only, so without grad
     (training takes :func:`forward_loss`)."""
-    h = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    h, _ = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
     return (rms_norm(h, model.final_norm) @ model.head()).float()
 
 
 def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
-    """batch: tokens (B,S), labels (B,S).  Returns (loss, metrics)."""
-    h = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    """batch: tokens (B,S), labels (B,S).  Returns (loss, metrics):
+    ``nll``, ``loss`` and, for the moe family, ``load_balance`` and
+    ``z_loss`` (summed over the layers; ``loss`` adds 0.01 and 0.001 of
+    them)."""
+    h, aux = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
     loss = _chunked_loss(cfg, model, rms_norm(h, model.final_norm), batch["labels"])
-    return loss, dict(nll=loss, loss=loss)
+    metrics = dict(nll=loss)
+    if aux is not None:
+        loss = loss + 0.01 * aux["load_balance"] + 0.001 * aux["z_loss"]
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ----------------------------------------------------------------------
@@ -237,6 +276,6 @@ def decode_step(cfg: ArchConfig, model: LM, state, tokens):
             n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
             window=cfg.attn_window)
         h = h + out
-        h = h + layer.mlp(rms_norm(h, layer.ln2))
+        h = h + _mlp_block(cfg, layer, h)[0]      # the MoE's T is the decode batch
     logits = rms_norm(h, model.final_norm) @ model.head()
     return logits[:, 0].float(), dict(cache=cache, pos=pos + 1)

@@ -78,6 +78,12 @@ def test_serve_lm_example_runs():
     assert "4 streams × 3 tokens" in out
 
 
+def test_serve_lm_example_serves_the_moe_smoke_config():
+    out = _run(["examples/torch_serve_lm.py", "--device", "cpu", "--arch", "deepseek-moe-16b",
+                "--tokens", "3"])
+    assert "4 streams × 3 tokens" in out
+
+
 def test_serve_lm_example_refuses_an_unported_family():
     out = subprocess.run([sys.executable, "examples/torch_serve_lm.py", "--device", "cpu",
                           "--arch", "hymba-1.5b", "--tokens", "1"], capture_output=True,
