@@ -5,9 +5,9 @@ Builds the six CUDA kernels from ``src/repro_torch/csrc`` (the five Pallas
 kernels' counterparts and ``flash_attention``'s backward), holds each
 against its plain PyTorch version, and drives the port's main paths at
 full configuration: the graph engine through ``compile_plan(...).run()``,
-the LM's inference path through ``make_prefill_step`` and
-``ServeEngine``, and its training through ``make_train_step``,
-``TrainLoop`` and ``launch.train``:
+the LM's inference path (dense, moe, hybrid and ssm families) through
+``make_prefill_step`` and ``ServeEngine``, and its training through
+``make_train_step``, ``TrainLoop`` and ``launch.train``:
 
 1. kernels vs plain versions on the card, at the main paths' shapes and
    at ragged ones (tile kernels: T=192, odd batch; all three also with
@@ -144,6 +144,27 @@ the LM's inference path through ``make_prefill_step`` and
    a profiled decode window, and ``ServeEngine`` serving 8 requests × 32
    tokens through 4 slots, ms per step beside the 9.3 ms it takes to read
    every routed expert's weights once;
+8c. the hybrid and ssm families (``phase hybrid exact``, ``phase xlstm
+   exact``, ``phase hybrid``, ``phase xlstm``; none reaches a hand-written
+   kernel: hymba's 1024-token window fails the attention kernel's guard,
+   as in the reference, and xLSTM has no attention; each checks 0
+   ``flash_attention`` launches).  hymba-1.5b at full width, 2 layers,
+   float32, 1 x 1152 tokens: the Mamba branch's associative scan against
+   its scan (logits within LM_TOL), teacher-forced decode through the
+   1024-position ring cache past its wrap against prefill, batched
+   serving against solo.  xlstm-1.3b at full width, 8 layers (7 mLSTM, the
+   8th an sLSTM), float32, 2 x 256: layer by layer on the same inputs
+   (MLSTM_OUTLIERS says why), the chunkwise prefill's mLSTM outputs
+   against the scan's and teacher-forced decode's outputs against each
+   layer's sequence form; the whole stack's loss and logits gaps printed;
+   batched serving against solo.  Then each model whole in bf16 (hymba 32
+   layers, 1.40 B parameters; xlstm 48 layers, 1.87 B): a prefill through
+   ``make_prefill_step`` under each impl (2 x 4096; xlstm's recurrent scan
+   cut to 2 x 1024), a profiled run of each on a cut length, a profiled
+   decode window and 8 requests served through 4 slots, ms a step beside
+   the bytes a step must move (the weights it uses and the recurrent
+   states read and written once).  The four phases must take at most
+   SSM_SECONDS;
 9. training exactness: granite-3-8b at full width, 2 layers, float32, TF32
    off, batch 2 × 256: one ``make_train_step`` step with the kernels
    against one without from the same weights (loss and grad_norm within
@@ -329,6 +350,43 @@ MOE_EXACT = dict(n_layers=2, batch=2, seq=256, decode=16, requests=4, new_tokens
 #: through 4 slots, as phase 6 serves granite-3-8b
 MOE_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens=32,
                 prompt=(16, 64))
+HYBRID_ARCH = "hymba-1.5b"
+XLSTM_ARCH = "xlstm-1.3b"
+#: phase hybrid exact: depth cut to 2 layers at full width, float32, TF32 off; one
+#: sequence of 1152 tokens runs past the 1024-token window, so decode wraps the ring
+HYBRID_EXACT = dict(n_layers=2, batch=1, seq=1152, requests=4, new_tokens=8)
+#: phase xlstm exact: depth cut to 8 layers so that layer 7 is an sLSTM (every 8th)
+XLSTM_EXACT = dict(n_layers=8, batch=2, seq=256, chunk=64, requests=4, new_tokens=8)
+#: phase xlstm exact compares layer by layer, each layer's outputs against another
+#: form of it on the same inputs.  The mLSTM reads out C q / max(|n.q|, e^-m), and
+#: at a few positions |n.q| nearly cancels, so no two float32 evaluations agree
+#: there; through a stack of 8 such layers the difference grows until the logits
+#: part by thousands of LM_TOL within 128 positions, in the reference's own two
+#: forms as well (ROADMAP C), and the 2 x 256 loss by more than its rtol 1e-4 (1.4e-4
+#: between the port's forms on the H100).  A fault in the carried state or the
+#: chunking would move most positions, so each layer's median position must lie
+#: within a tenth of LM_TOL and at most this share of its positions beyond it (at
+#: full width on the CPU: medians 0.007-0.012, at most 11 of 512 positions chunked
+#: vs scan and 5 decode vs scan; a fault at a few positions only, such as chunk
+#: boundaries, is the CPU tests' to find, against the reference and float64); the
+#: sLSTM's read-out, c / max(n, 1e-6), has no such positions: all within LM_TOL
+MLSTM_OUTLIERS = 0.05
+#: phase hybrid and phase xlstm: whole models in bf16, prefill_32k cut to 2 x 4096,
+#: 8 requests through 4 slots, as phase lm serves granite-3-8b.  `forms`: (config
+#: changes, prefill length, profiled length) of each impl.  The recurrent scans issue
+#: an op or more a step a layer from the host (xlstm's 2 x 4096 scan prefill: 1.25 M
+#: ops, 25 s a run on the H100's host), and torch.profiler takes ~0.8 ms an op there
+#: to parse its trace, so the xlstm scan's prefill is cut to 2 x 1024 and the loops
+#: are profiled on their first 16-64 tokens (their per-step issue is the same at any
+#: length), 2 decode steps each (`decode_profile`)
+HYBRID_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, requests=8, new_tokens=32,
+                   prompt=(16, 64), decode_profile=2,
+                   forms=((dict(mamba_impl="scan"), 4096, 64),
+                          (dict(mamba_impl="assoc"), 4096, 4096)))
+XLSTM_FULL = dict(HYBRID_FULL, forms=((dict(mlstm_impl="scan"), 1024, 16),
+                                      (dict(mlstm_impl="chunked"), 4096, 64)))
+#: the four phases' limit together (seconds, host clock)
+SSM_SECONDS = 150.0
 #: phase kernels, backward: (B, H, H_kv, S_q, S_k, D, dtype, causal).  The first is
 #: the attention of train_4k cut to 2 x 4096 at granite-3-8b's heads (phase train
 #: runs it as two microbatches of 1 x 4096); then suffix-aligned causal with
@@ -2376,20 +2434,23 @@ def batched_equals_solo(what, cfg, model, dev, ex, seed) -> None:
         f"solo runs")
 
 
-def prefill_runs(what, cfg, model, dev, fu, gen, first=None):
-    """make_prefill_step with the kernel on a seeded batch of ``fu``'s shape:
-    a first run (inside ``first``, a context manager, when given), whose
-    launches are counted and checked (flash_attention once per layer) and
-    whose metrics are checked (finite, nll within LOSS_BAND of ln V), then a
-    second run timed on the host clock.  Returns (tokens, the first run's
-    metrics as floats, its launches, both runs' seconds)."""
+def prefill_runs(what, cfg, model, dev, fu, gen, first=None, flash=None, tokens=None):
+    """make_prefill_step with the kernel on a seeded batch of ``fu``'s shape
+    (or on ``tokens``): a first run (inside ``first``, a context manager,
+    when given), whose launches are counted and checked (flash_attention
+    ``flash`` times, by default once per layer) and whose metrics are
+    checked (finite, nll within LOSS_BAND of ln V), then a second run timed
+    on the host clock.  Returns (tokens, the first run's metrics as floats,
+    its launches, both runs' seconds)."""
     import contextlib
 
     import torch
     from repro_torch.kernels import registry
     from repro_torch.models.steps import make_prefill_step
 
-    tokens = torch.randint(0, cfg.vocab, (fu["batch"], fu["seq"]), generator=gen, device=dev)
+    if tokens is None:
+        tokens = torch.randint(0, cfg.vocab, (fu["batch"], fu["seq"]), generator=gen,
+                               device=dev)
     batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
     step = make_prefill_step(cfg, use_kernel=True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2399,9 +2460,9 @@ def prefill_runs(what, cfg, model, dev, fu, gen, first=None):
         metrics = {k: float(v) for k, v in step(model, batch).items()}
     first_s = time.perf_counter() - t0
     launches = registry.launch_counts()
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"{what}: launched flash_attention {launches['flash_attention']} times, not once per "
-          f"layer ({cfg.n_layers})")
+    flash = cfg.n_layers if flash is None else flash
+    check(launches["flash_attention"] == flash,
+          f"{what}: launched flash_attention {launches['flash_attention']} times, not {flash}")
     ln_v = float(np.log(cfg.vocab))
     check(all(np.isfinite(v) for v in metrics.values())
           and abs(metrics["nll"] - ln_v) <= LOSS_BAND,
@@ -2428,8 +2489,9 @@ def prefill_profile(what, cfg, model, tokens, note="") -> None:
 
 
 def profiled_decode(what, cfg, model, dev, fu, note="") -> None:
-    """A warm window of DECODE_PROFILE_STEPS decode steps of ``fu``'s slots
-    under torch.profiler: wall and device-busy ms per step, idle share."""
+    """A warm window of decode steps of ``fu``'s slots (``fu["decode_profile"]``,
+    by default DECODE_PROFILE_STEPS) under torch.profiler: wall and
+    device-busy ms per step, idle share."""
     import torch
     from repro_torch.models import lm
 
@@ -2437,15 +2499,16 @@ def profiled_decode(what, cfg, model, dev, fu, note="") -> None:
         state = lm.init_decode_state(cfg, fu["slots"], fu["cache_len"], device=dev)
         toks = torch.zeros(fu["slots"], dtype=torch.int32, device=dev)
 
+        n = fu.get("decode_profile", DECODE_PROFILE_STEPS)
+
         def decode():
             nonlocal state
-            for _ in range(DECODE_PROFILE_STEPS):
+            for _ in range(n):
                 logits, state = lm.decode_step(cfg, model, state, toks)
             return logits
 
         decode()                      # warm
         _, wall, busy, top = device_profile(decode)
-    n = DECODE_PROFILE_STEPS
     if busy is None:
         say(f"{what}: device time not measured ({top})")
     else:
@@ -2777,6 +2840,311 @@ def phase_moe_full(dev, cfg, card: str):
     return rec
 
 
+def ssm_config(arch: str, **changes):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config(arch), **changes)
+
+
+def no_flash(what, launches) -> None:
+    """The hybrid and ssm paths never reach flash_attention: a sliding window
+    fails the reference's guard (models/attention.py:141), xLSTM has no
+    attention."""
+    check(launches["flash_attention"] == 0,
+          f"{what}: flash_attention launched {launches['flash_attention']} times, expected 0")
+
+
+def decode_errors(cfg, model, dev, tokens, want):
+    """Teacher-forced decode over every position of ``tokens`` (B,S) from a
+    fresh state of S positions: the largest |logits - want[:, t]| and the
+    largest share of LM_TOL used, over all positions (one sync at the end)."""
+    import torch
+    from repro_torch.models import lm
+
+    b, s = tokens.shape
+    state = lm.init_decode_state(cfg, b, s, device=dev)
+    errs, shares = [], []
+    for t in range(s):
+        logits, state = lm.decode_step(cfg, model, state, tokens[:, t])
+        diff = (logits - want[:, t]).abs()
+        errs.append(diff.max())
+        shares.append((diff / (LM_TOL["atol"] + LM_TOL["rtol"] * want[:, t].abs())).max())
+    check(int(state["pos"]) == s, f"decode ended at position {int(state['pos'])}, not {s}")
+    return float(torch.stack(errs).max()), float(torch.stack(shares).max()), state
+
+
+def phase_hybrid_exact(dev, cfg) -> None:
+    """hymba-1.5b at full width, HYBRID_EXACT's depth, float32: the Mamba
+    branch's scan against its associative scan, decode past the ring
+    cache's wrap against prefill, batched serving against solo."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+
+    ex = HYBRID_EXACT
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (ex["batch"], ex["seq"]), generator=gen, device=dev)
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        want = lm.forward_logits(replace(cfg, mamba_impl="scan"), model, dict(tokens=tokens),
+                                 use_kernel=True)
+        assoc = lm.forward_logits(replace(cfg, mamba_impl="assoc"), model, dict(tokens=tokens),
+                                  use_kernel=True)
+        no_flash("phase hybrid exact, prefill", registry.launch_counts())
+        err = float((assoc - want).abs().max())
+        check(bool(torch.isfinite(want).all()) and torch.allclose(assoc, want, **LM_TOL),
+              f"hybrid exact: logits, assoc vs scan: max err {err}")
+        del assoc
+        registry.reset_launch_counts()
+        derr, share, state = decode_errors(cfg, model, dev, tokens, want)
+        no_flash("phase hybrid exact, decode", registry.launch_counts())
+        ring = state["cache"]["k"].shape[2]
+        check(ring == cfg.attn_window < ex["seq"], f"hybrid exact: ring of {ring} positions")
+        check(share <= 1.0, f"hybrid exact: decode vs prefill over {ex['seq']} positions: max "
+              f"err {derr}, {share:.3f} of LM_TOL")
+    say(f"phase hybrid exact: {cfg.name} {cfg.n_layers} layers float32, logits "
+        f"{tuple(want.shape)}: assoc vs scan max err {err:.2e}; decode vs prefill over "
+        f"{ex['seq']} positions through a ring of {ring} (wrapped at {ring}) max err "
+        f"{derr:.2e}, {share:.3f} of LM_TOL (atol {LM_TOL['atol']}, rtol {LM_TOL['rtol']}); "
+        f"flash_attention launches 0")
+    del want, state
+    batched_equals_solo("phase hybrid exact", cfg, model, dev, ex, seed=5)
+    del model
+    torch.cuda.empty_cache()
+
+
+class LayerTaps:
+    """Within ``with``: each xLSTM block's input and output, per layer in
+    call order, from the functions of ``repro_torch.models.lm`` named in
+    ``names`` (looked up there at call time; each layer calls one of them)."""
+
+    def __init__(self, n_layers: int, names):
+        self.names = names
+        self.x = [[] for _ in range(n_layers)]
+        self.y = [[] for _ in range(n_layers)]
+
+    def __enter__(self):
+        import itertools
+
+        from repro_torch.models import lm
+
+        self._lm, self._fns = lm, [getattr(lm, n) for n in self.names]
+        layer = itertools.cycle(range(len(self.x)))
+
+        def tap(fn):
+            def call(p, x, *args, **kw):
+                i = next(layer)
+                res = fn(p, x, *args, **kw)
+                self.x[i].append(x)
+                self.y[i].append(res[0] if isinstance(res, tuple) else res)
+                return res
+            return call
+
+        for n, fn in zip(self.names, self._fns):
+            setattr(lm, n, tap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in zip(self.names, self._fns):
+            setattr(self._lm, n, fn)
+
+    def layer(self, i):
+        """Layer i's inputs and outputs over the calls, joined along S."""
+        import torch
+
+        return torch.cat(self.x[i], 1), torch.cat(self.y[i], 1)
+
+
+def layer_agreement(what, got, want, outliers: float):
+    """Per position (b, t), the largest share of LM_TOL that ``got`` uses
+    against ``want``: fail unless the median position uses at most a tenth
+    and at most ``outliers`` of the positions exceed it.  Returns (median
+    share, positions beyond, worst share)."""
+    pos = ((got - want).abs() / (LM_TOL["atol"] + LM_TOL["rtol"] * want.abs())).amax(-1)
+    over, median, limit = int((pos > 1).sum()), float(pos.median()), int(outliers * pos.numel())
+    check(median <= 0.1 and over <= limit,
+          f"{what}: median position {median:.3f} of LM_TOL, {over} of {pos.numel()} positions "
+          f"beyond it (limit {limit}), worst {float(pos.max()):.3f}")
+    return round(median, 4), over, round(float(pos.max()), 3)
+
+
+def phase_xlstm_exact(dev, cfg) -> None:
+    """xlstm-1.3b at full width, XLSTM_EXACT's depth (layer 7 an sLSTM),
+    float32, layer by layer (MLSTM_OUTLIERS says why): the chunkwise
+    prefill's mLSTM outputs against the scan on the same inputs; teacher-
+    forced decode's step outputs against each layer's sequence form on the
+    same inputs; the whole stack's loss and logits gaps printed; batched
+    serving against solo."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm, ssm
+    from repro_torch.models.steps import make_prefill_step
+
+    ex = XLSTM_EXACT
+    gen = torch.Generator(device=dev).manual_seed(6)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (ex["batch"], ex["seq"]), generator=gen, device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    chunked = replace(cfg, mlstm_impl="chunked", mlstm_chunk=ex["chunk"])
+    kinds = "".join("s" if lm._is_slstm(cfg, i) else "m" for i in range(cfg.n_layers))
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        loss = {"scan": float(make_prefill_step(cfg, use_kernel=True)(model, batch)["loss"])}
+        with LayerTaps(cfg.n_layers, ("mlstm_seq_chunked", "slstm_seq")) as taps:
+            loss["chunked"] = float(make_prefill_step(chunked, use_kernel=True)(model, batch)["loss"])
+        want = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=True)
+        no_flash("phase xlstm exact, prefill", registry.launch_counts())
+        check(all(np.isfinite(v) for v in loss.values()), f"xlstm exact: loss {loss}")
+        impl = []
+        for i, layer in enumerate(model.layers):
+            if kinds[i] == "m":
+                x, got = taps.layer(i)
+                impl.append(layer_agreement(
+                    f"xlstm exact: layer {i}: chunked vs scan", got,
+                    ssm.mlstm_seq(layer.mlstm, x, n_heads=cfg.n_heads), MLSTM_OUTLIERS))
+        del taps
+        registry.reset_launch_counts()
+        with LayerTaps(cfg.n_layers, ("mlstm_step", "slstm_step")) as taps:
+            derr, dshare, _ = decode_errors(cfg, model, dev, tokens, want)
+        no_flash("phase xlstm exact, decode", registry.launch_counts())
+        dec = []
+        for i, layer in enumerate(model.layers):
+            x, got = taps.layer(i)
+            seq = (ssm.slstm_seq(layer.slstm, x, n_heads=cfg.n_heads) if kinds[i] == "s"
+                   else ssm.mlstm_seq(layer.mlstm, x, n_heads=cfg.n_heads))
+            dec.append(layer_agreement(f"xlstm exact: layer {i}: decode vs its sequence form",
+                                       got, seq, 0.0 if kinds[i] == "s" else MLSTM_OUTLIERS))
+    rel = abs(loss["chunked"] - loss["scan"]) / abs(loss["scan"])
+    say(f"phase xlstm exact: {cfg.name} {cfg.n_layers} layers ({kinds}) float32, B={ex['batch']} "
+        f"S={ex['seq']}, layer by layer on the same inputs as (median position's share of "
+        f"LM_TOL, positions beyond it of {ex['batch'] * ex['seq']}, worst share): the mLSTM "
+        f"layers' chunked ({ex['chunk']}) vs scan {impl}; each layer's decode vs its sequence "
+        f"form {dec}.  The whole stack (not checks: float32 rounding grows through it, "
+        f"MLSTM_OUTLIERS): loss scan {loss['scan']:.6f}, chunked {loss['chunked']:.6f}, rel "
+        f"{rel:.2e}; decode vs prefill logits max err {derr:.2e}, {dshare:.3f} of LM_TOL; "
+        f"flash_attention launches 0")
+    del want, taps
+    batched_equals_solo("phase xlstm exact", cfg, model, dev, ex, seed=6)
+    del model
+    torch.cuda.empty_cache()
+
+
+def decode_bound(cfg, model, fu) -> tuple[float, float]:
+    """The bytes a decode step of ``fu``'s slots must move at least, and their
+    time at 3.35 TB/s: each weight the step uses read once (every layer's, the
+    head; of the embedding only the slots' rows; an ssm layer only the branch it
+    runs) and the recurrent states read and written once (KV caches left out)."""
+    import torch
+    from repro_torch.models import lm
+
+    def nbytes(mod):
+        return sum(p.numel() * p.element_size() for p in mod.parameters())
+
+    b = fu["slots"]
+    weights = sum(p.numel() * p.element_size() for p in (model.final_norm, model.head()))
+    weights += b * cfg.d_model * model.embed.element_size()
+    state = 0
+    with torch.inference_mode():
+        st = lm.init_decode_state(cfg, b, 1, device=model.device)["cache"]
+    for i, layer in enumerate(model.layers):
+        if cfg.family == "ssm":
+            name = "slstm" if lm._is_slstm(cfg, i) else "mlstm"
+            weights += layer.ln1.numel() * layer.ln1.element_size() + nbytes(getattr(layer, name))
+            state += 2 * sum(t[i].numel() * t[i].element_size() for t in st[name].values())
+        else:
+            weights += nbytes(layer)
+            state += 2 * sum(st[k][i].numel() * st[k][i].element_size()
+                             for k in ("mamba_h", "mamba_conv"))
+    return weights + state, (weights + state) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_ssm_full(what, dev, cfg, fu, card: str) -> None:
+    """A hybrid or ssm model whole in bf16: a prefill through
+    make_prefill_step under each of ``fu``'s forms, each with a profiled
+    run, then a profiled decode window and ServeEngine serving ``fu``'s
+    requests, ms a step beside decode_bound."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    f32 = sum(p.numel() * p.element_size() for p in model.parameters()
+              if p.dtype == torch.float32)
+    say(f"phase {what}: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters ({weights / 1e9:.3f} GB, {f32 / 1e9:.3f} GB of it float32) drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+    full = torch.randint(0, cfg.vocab, (fu["batch"], fu["seq"]), generator=gen, device=dev)
+    for impl, seq, profile_seq in fu["forms"]:
+        c = replace(cfg, **impl)
+        form = "/".join(str(v) for v in impl.values())
+        tokens, metrics, launches, first_s, prefill_s = prefill_runs(
+            f"phase {what} prefill ({form})", c, model, dev, fu, gen, flash=0,
+            tokens=full[:, :seq])
+        b, s = tokens.shape
+        say(f"phase {what} prefill ({form}): B={b} S={s}, nll {metrics['nll']:.4f} (ln V "
+            f"{np.log(cfg.vocab):.4f}); first run {first_s:.3f} s, second {prefill_s:.3f} s "
+            f"({b * s / prefill_s:.0f} tokens/s, host clock); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB beside {weights / 1e9:.2f} GB "
+            f"of weights; flash_attention launches {launches['flash_attention']} [{card}]")
+        cut = tokens[:, :profile_seq]
+        prefill_profile(f"phase {what} prefill ({form})", c, model, cut,
+                        note=f" (B={b} S={cut.shape[1]}) [{card}]")
+    nbytes, bound_ms = decode_bound(cfg, model, fu)
+    profiled_decode(f"phase {what} decode", cfg, model, dev, fu,
+                    note=f"; bound {bound_ms:.2f} ms [{card}]")
+    steps, serve_s, new_tokens, n_reqs = serve_requests(f"phase {what} serve", cfg, model, dev,
+                                                        fu)
+    say(f"phase {what} serve: {n_reqs} requests (prompts {fu['prompt'][0]}-{fu['prompt'][1]} "
+        f"tokens, {fu['new_tokens']} new each) through {fu['slots']} slots, cache "
+        f"{fu['cache_len']}: {steps} decode steps in {serve_s:.2f} s, "
+        f"{serve_s * 1e3 / steps:.2f} ms per step against a bound of {bound_ms:.2f} ms "
+        f"({nbytes / 1e9:.3f} GB of weights and recurrent state at 3.35 TB/s), "
+        f"{new_tokens / serve_s:.1f} generated tokens/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(dev, card: str) -> None:
+    """The four hybrid and ssm phases in order, each timed; together within
+    SSM_SECONDS."""
+    start = time.perf_counter()
+    ex, xe = HYBRID_EXACT, XLSTM_EXACT
+    phases = (
+        ("hybrid exact", lambda: phase_hybrid_exact(
+            dev, ssm_config(HYBRID_ARCH, n_layers=ex["n_layers"], dtype="float32"))),
+        ("xlstm exact", lambda: phase_xlstm_exact(
+            dev, ssm_config(XLSTM_ARCH, n_layers=xe["n_layers"], dtype="float32"))),
+        ("hybrid", lambda: phase_ssm_full("hybrid", dev, ssm_config(HYBRID_ARCH), HYBRID_FULL,
+                                          card)),
+        ("xlstm", lambda: phase_ssm_full("xlstm", dev, ssm_config(XLSTM_ARCH), XLSTM_FULL,
+                                         card)),
+    )
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        fn()
+        say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    total = time.perf_counter() - start
+    check(total <= SSM_SECONDS, f"the hybrid and ssm phases took {total:.1f} s, more than "
+          f"{SSM_SECONDS:.0f} s")
+    say(f"phases hybrid exact, xlstm exact, hybrid, xlstm: {total:.1f} s (limit "
+        f"{SSM_SECONDS:.0f} s)")
+
+
 def updated_params_match(got, want, opt_want, lr) -> tuple[float, float, int]:
     """Every parameter of ``got`` within STEP_TOL of ``want``'s after one
     AdamW step, except the elements whose first moment says 0 < |g| <
@@ -3061,6 +3429,7 @@ def run(dev, card: str) -> list[dict]:
     t0 = time.perf_counter()
     moe_attn = phase_moe_full(dev, moe_config(), card)
     say(f"phase moe: {time.perf_counter() - t0:.1f} s")
+    phase_ssm(dev, card)
     t0 = time.perf_counter()
     phase_train_exact(dev, lm_config(n_layers=TRAIN_EXACT["n_layers"], dtype="float32"))
     say(f"phase train exact: {time.perf_counter() - t0:.1f} s")

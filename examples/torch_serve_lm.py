@@ -1,11 +1,11 @@
 """Batched serving on the PyTorch port: cached single-token decode loop
 over a smoke-sized config with seeded random weights.
 
-    PYTHONPATH=src python examples/torch_serve_lm.py [--arch qwen2.5-32b | deepseek-moe-16b] \
-        [--tokens 24] [--device cpu]
+    PYTHONPATH=src python examples/torch_serve_lm.py [--arch qwen2.5-32b | deepseek-moe-16b |
+        hymba-1.5b | xlstm-1.3b] [--tokens 24] [--device cpu]
 
-The arch must be of the dense or moe family (the others raise until
-their ROADMAP item lands).  Runs on the current CUDA device unless `--device cpu`.
+The arch must be of the dense, moe, hybrid or ssm family (vlm and audio
+raise until their ROADMAP item lands).  Runs on the current CUDA device unless `--device cpu`.
 """
 import argparse
 

@@ -187,8 +187,11 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
 
     Each stacked array is split into the layers; ``(d_in, d_out)``
     orientation is kept, and so are the moe family's ``(L, E, d, f)``
-    expert stacks.  Values go through float32 (exact for bfloat16 both
-    ways) and are cast to each parameter's dtype: ``cfg``'s, except the
-    MoE router, which is float32 under any config, as in the reference.
+    expert stacks and the ssm family's two mixers in every layer.  Values
+    go through float32 (exact for bfloat16 both ways) and are cast to
+    each parameter's dtype: ``cfg``'s, except the parameters the
+    reference keeps float32 under any config: the MoE ``router``, Mamba's
+    ``a_log``, ``dt_bias`` and ``d_skip``, the mLSTM's and the sLSTM's
+    ``wi``, ``wf``, ``bf`` and ``bi``, and the sLSTM's ``rz``.
     """
     return load_lm_params(cfg, LM(cfg, device=resolve_device(device)), params)

@@ -1,33 +1,47 @@
-"""The LM, dense and moe families: pre-RMSNorm GQA decoder with a SwiGLU
-or GELU MLP, RoPE and an optional QKV bias; the moe family takes a
-capacity-routed MoE FFN with optional shared experts (:mod:`.moe`) in
-place of the MLP.
+"""The LM: pre-RMSNorm GQA decoders with a SwiGLU or GELU MLP, RoPE and an
+optional QKV bias (dense), a capacity-routed MoE FFN with optional shared
+experts in place of the MLP (moe, :mod:`.moe`), a Mamba branch beside
+sliding-window attention (hybrid), and xLSTM blocks (ssm, :mod:`.ssm`).
 
 Port of ``repro/models/lm.py``.  The reference's stacked parameter tree
 becomes an :class:`LM` module of trainable parameters whose names follow
 the reference's dict (``embed``, ``layers.<i>.ln1``,
-``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate`` or
-``layers.<i>.moe.router``, ``final_norm``, ``lm_head``); a Python loop
-over the layers replaces ``lax.scan``.  The MoE layers' load-balance and
-z-loss terms are summed over the layers and added to the training loss
-as the reference adds them (``0.01·load_balance + 0.001·z_loss``).
+``layers.<i>.attn.wq``, ``layers.<i>.mlp.w_gate``, ``layers.<i>.moe.router``,
+``layers.<i>.mamba.a_log`` or ``layers.<i>.mlstm.wq``, ``final_norm``,
+``lm_head``); a Python loop over the layers replaces ``lax.scan``.  The
+MoE layers' load-balance and z-loss terms are summed over the layers and
+added to the training loss as the reference adds them (``0.01·load_balance
++ 0.001·z_loss``).
+
+A hybrid layer (Hymba) adds ``0.5 · (attention + Mamba)`` of the same
+normed input, then its MLP; ``cfg.mamba_impl`` picks the scan or the
+associative scan.  An ssm layer holds ``ln1``, an mLSTM and an sLSTM and
+nothing else; layer i runs the sLSTM when ``i % k == k − 1`` (k =
+``cfg.slstm_every``) and the mLSTM otherwise (``cfg.mlstm_impl``: the scan
+or the chunkwise form), a Python branch per layer in place of
+``lax.cond``.  The branch a layer does not run takes no part in the loss:
+its gradients are zeros (``make_train_step``), as under ``lax.cond``.
 
 Remat follows ``cfg.remat_policy`` as the reference's ``jax.checkpoint``
 does, through ``torch.utils.checkpoint`` (non-reentrant), and only where a
 backward will follow (grad mode on and trainable parameters): ``"full"``
 keeps each decoder layer's input and recomputes the layer in the
-backward; ``"save_attn"`` keeps the attention block's output as well and
-recomputes the attention and MLP blocks each on its own.  The chunked loss
-recomputes each chunk's float32 logits in the backward, as the
-reference's checkpointed chunk body does, so a step never holds every
-chunk's logits at once.  Prefill and decode run without grad and take
-none of this.  What the reference does and this module does not:
+backward; ``"save_attn"`` keeps the attention's output as well and
+recomputes the attention, the Mamba branch and the MLP block each on its
+own (the ssm family has no attention, so it takes ``"full"``, as the
+reference's policy saves nothing there).  The chunked loss recomputes
+each chunk's float32 logits in the backward, as the reference's
+checkpointed chunk body does, so a step never holds every chunk's logits
+at once.  Prefill and decode run without grad and take none of this.
+What the reference does and this module does not:
 
 * ``sharding.constrain`` is a no-op on one device and is not ported
   (ROADMAP A13b, second half);
-* the decode caches are updated in place (see ``decode_attention``).
+* the decode caches and recurrent states are updated in place (see
+  ``decode_attention``).
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
+The vlm and audio families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,6 +55,9 @@ from ..core.engine import resolve_device
 from .attention import Attention, decode_attention, self_attention
 from .common import Dtype, dense_init, gelu_mlp, rms_norm, swiglu
 from .moe import MoE, moe_ffn
+from .ssm import (MLSTM, SLSTM, Mamba, mamba_seq, mamba_seq_assoc, mamba_step,
+                  mlstm_init_state, mlstm_seq, mlstm_seq_chunked, mlstm_step, slstm_init_state,
+                  slstm_seq, slstm_step)
 
 __all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
            "decode_step", "check_family", "UNPORTED_FAMILIES"]
@@ -48,11 +65,9 @@ __all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
 LOSS_CHUNK = 512
 
 #: families the port runs
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 #: families of the reference not ported yet → the ROADMAP item that ports them
 UNPORTED_FAMILIES = {
-    "hybrid": "A13d (hybrid family: Mamba branch)",
-    "ssm": "A13e (ssm family: xLSTM blocks)",
     "vlm": "A13f (vlm family: cross-attention)",
     "audio": "A13f (audio family: encoder and cross-attention)",
 }
@@ -91,16 +106,22 @@ class MLP(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
         super().__init__()
+        kw = dict(generator=generator, device=device)
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        if cfg.family == "ssm":
+            self.mlstm = MLSTM(cfg.d_model, cfg.n_heads, dtype, **kw)
+            self.slstm = SLSTM(cfg.d_model, cfg.n_heads, dtype, **kw)
+            return
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                              bias=cfg.qkv_bias, dtype=dtype, generator=generator,
-                              device=device)
+                              bias=cfg.qkv_bias, dtype=dtype, **kw)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        if cfg.family == "hybrid":
+            self.mamba = Mamba(cfg.d_model, cfg.ssm_state, cfg.ssm_conv, dtype, **kw)
         if cfg.n_experts:
             self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.n_shared_experts,
-                           dtype, generator=generator, device=device)
+                           dtype, **kw)
         else:
-            self.mlp = MLP(cfg, dtype, generator=generator, device=device)
+            self.mlp = MLP(cfg, dtype, **kw)
 
 
 class LM(nn.Module):
@@ -146,6 +167,12 @@ def _attn_block(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
         probs_dtype=torch.bfloat16 if cfg.attn_probs_dtype == "bfloat16" else None)
 
 
+def _mamba_block(cfg: ArchConfig, layer: DecoderLayer, h):
+    """The hybrid layer's Mamba branch on the same normed input as its attention."""
+    mamba = mamba_seq_assoc if cfg.mamba_impl == "assoc" else mamba_seq
+    return mamba(layer.mamba, rms_norm(h, layer.ln1), d_state=cfg.ssm_state)
+
+
 def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h):
     """The layer's MLP or MoE on the normed h → (y, aux terms or None)."""
     x = rms_norm(h, layer.ln2)
@@ -155,9 +182,29 @@ def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h):
     return layer.mlp(x), None
 
 
+def _is_slstm(cfg: ArchConfig, i: int) -> bool:
+    """Whether ssm layer ``i`` runs its sLSTM (every ``slstm_every``-th)."""
+    k = max(cfg.slstm_every, 1)
+    return cfg.slstm_every > 0 and i % k == k - 1
+
+
+def _ssm_layer(cfg: ArchConfig, layer: DecoderLayer, h, slstm: bool):
+    """One xLSTM block: h + the sLSTM or the mLSTM of the normed h."""
+    x = rms_norm(h, layer.ln1)
+    if slstm:
+        return h + slstm_seq(layer.slstm, x, n_heads=cfg.n_heads)
+    if cfg.mlstm_impl == "chunked":
+        return h + mlstm_seq_chunked(layer.mlstm, x, n_heads=cfg.n_heads,
+                                     chunk=cfg.mlstm_chunk)
+    return h + mlstm_seq(layer.mlstm, x, n_heads=cfg.n_heads)
+
+
 def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
     """One decoder layer → (h, its aux terms or None)."""
-    h = h + _attn_block(cfg, layer, h, use_kernel)
+    out = _attn_block(cfg, layer, h, use_kernel)
+    if cfg.family == "hybrid":
+        out = (out + _mamba_block(cfg, layer, h)) * 0.5    # Hymba mean-fuses the branches
+    h = h + out
     y, aux = _mlp_block(cfg, layer, h)
     return h + y, aux
 
@@ -179,11 +226,18 @@ def _run_decoder(cfg: ArchConfig, model: LM, h, *, use_kernel=False):
     None for a family without them)."""
     remat = _remat(model)
     aux = _zero_aux(cfg, h.device)
-    for layer in model.layers:
+    for i, layer in enumerate(model.layers):
+        if cfg.family == "ssm":
+            args = (cfg, layer, h, _is_slstm(cfg, i))
+            h = checkpoint(_ssm_layer, *args, use_reentrant=False) if remat else _ssm_layer(*args)
+            continue
         if not remat:
             h, a = _decoder_layer(cfg, layer, h, use_kernel)
         elif cfg.remat_policy == "save_attn":
-            h = h + checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
+            out = checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
+            if cfg.family == "hybrid":
+                out = (out + checkpoint(_mamba_block, cfg, layer, h, use_reentrant=False)) * 0.5
+            h = h + out
             y, a = checkpoint(_mlp_block, cfg, layer, h, use_reentrant=False)
             h = h + y
         else:
@@ -249,32 +303,70 @@ def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
-    """Zero caches (L,B,T,H_kv,D) in the param dtype and position 0, on
-    ``device`` (default: the current card; raises without one)."""
+    """Zero decode state at position 0 on ``device`` (default: the current
+    card; raises without one): attention caches (L,B,T,H_kv,D) in the
+    param dtype, T = min(window, seq_len) for a sliding window (a ring);
+    for hybrid also ``mamba_h`` (L,B,d,N) float32 and ``mamba_conv``
+    (L,B,K−1,d) in the param dtype; for ssm the mLSTM and the sLSTM states
+    of every layer, float32, ``m`` at −1e30."""
     check_family(cfg)
     device = resolve_device(device)
     dt = Dtype(cfg.dtype).param
+    lb = (cfg.n_layers, batch)
+    if cfg.family == "ssm":
+        dh = cfg.d_model // cfg.n_heads
+        states = (mlstm_init_state(batch, cfg.n_heads, dh, device=device),
+                  slstm_init_state(batch, cfg.n_heads, dh, device=device))
+        cache = {name: {k: v.expand(*lb, *v.shape[1:]).contiguous() for k, v in st.items()}
+                 for name, st in zip(("mlstm", "slstm"), states)}
+        return dict(cache=cache, pos=torch.zeros((), dtype=torch.int32, device=device))
     t = min(cfg.attn_window, seq_len) if cfg.attn_window else seq_len
-    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.d_head)
-    return dict(cache=dict(k=torch.zeros(shape, dtype=dt, device=device),
-                           v=torch.zeros(shape, dtype=dt, device=device)),
-                pos=torch.zeros((), dtype=torch.int32, device=device))
+    shape = (*lb, t, cfg.n_kv_heads, cfg.d_head)
+    cache = dict(k=torch.zeros(shape, dtype=dt, device=device),
+                 v=torch.zeros(shape, dtype=dt, device=device))
+    if cfg.family == "hybrid":
+        cache["mamba_h"] = torch.zeros((*lb, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
+                                       device=device)
+        cache["mamba_conv"] = torch.zeros((*lb, cfg.ssm_conv - 1, cfg.d_model), dtype=dt,
+                                          device=device)
+    return dict(cache=cache, pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _ssm_decode(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int):
+    """One xLSTM block's decode step: only the branch the layer runs reads
+    and updates its state (written in place); the other is left as it is."""
+    name = "slstm" if _is_slstm(cfg, i) else "mlstm"
+    step = slstm_step if name == "slstm" else mlstm_step
+    st = {k: v[i] for k, v in cache[name].items()}
+    out, new = step(getattr(layer, name), rms_norm(h, layer.ln1), st, n_heads=cfg.n_heads)
+    for k, v in st.items():
+        v.copy_(new[k])
+    return h + out
 
 
 def decode_step(cfg: ArchConfig, model: LM, state, tokens):
     """One decode step.  tokens (B,) int → (logits (B,V) float32, state).
 
-    The returned state holds the same cache tensors, written in place,
-    and the next position."""
+    The returned state holds the same cache and state tensors, written in
+    place, and the next position."""
     pos = state["pos"]
     cache = state["cache"]
     h = _embed(model, tokens[:, None])
     for i, layer in enumerate(model.layers):
+        if cfg.family == "ssm":
+            h = _ssm_decode(cfg, layer, h, cache, i)
+            continue
         x = rms_norm(h, layer.ln1)
         out, _, _ = decode_attention(
             layer.attn, x, cache["k"][i], cache["v"][i], pos, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
             window=cfg.attn_window)
+        if cfg.family == "hybrid":
+            m_out, mh, conv = mamba_step(layer.mamba, x, cache["mamba_h"][i],
+                                         cache["mamba_conv"][i], d_state=cfg.ssm_state)
+            cache["mamba_h"][i].copy_(mh)
+            cache["mamba_conv"][i].copy_(conv)
+            out = (out + m_out) * 0.5
         h = h + out
         h = h + _mlp_block(cfg, layer, h)[0]      # the MoE's T is the decode batch
     logits = rms_norm(h, model.final_norm) @ model.head()

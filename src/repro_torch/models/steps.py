@@ -65,6 +65,14 @@ def _on(model: lm.LM, batch) -> dict:
             .to(model.device) for k, v in batch.items()}
 
 
+def _grads(loss, params: dict) -> tuple:
+    """d loss / d each of ``params``; zeros for a parameter the loss does not
+    reach (the ssm family's branch a layer does not run), as ``jax.grad``
+    gives through ``lax.cond``, so that AdamW still decays it."""
+    return torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                               materialize_grads=True)
+
+
 def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup_steps=200,
                     use_kernel=False, grad_compress=False, microbatch: int = 0):
     """``(model, opt_state, batch, step) -> (opt_state, metrics)``: one AdamW
@@ -78,7 +86,8 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
     and divided by their count, as the reference's scan does.
     ``use_kernel`` runs the attention through the hand-written
     ``flash_attention`` forward and backward where the reference's guard
-    allows (``use_pallas``)."""
+    allows (``use_pallas``).  A parameter the loss does not reach gets a
+    zero gradient."""
     if grad_compress:
         raise NotImplementedError(
             "grad_compress (int8 compressed_psum over a data-parallel mesh) is not ported "
@@ -100,8 +109,7 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
                 loss, _ = lm.forward_loss(cfg, model, {k: v[i * m:(i + 1) * m]
                                                        for k, v in batch.items()},
                                           use_kernel=use_kernel)
-                for acc, g in zip(grads.values(),
-                                  torch.autograd.grad(loss, list(params.values()))):
+                for acc, g in zip(grads.values(), _grads(loss, params)):
                     acc.add_(g)
                 lsum += loss.detach()
             for acc in grads.values():
@@ -110,7 +118,7 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
             metrics = dict(loss=loss, nll=loss)
         else:
             loss, metrics = lm.forward_loss(cfg, model, batch, use_kernel=use_kernel)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            grads = dict(zip(params, _grads(loss, params)))
             metrics = {k: v.detach() for k, v in metrics.items()}
         lr = sched(step)
         _, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr)
