@@ -5,8 +5,9 @@ Builds the six CUDA kernels from ``src/repro_torch/csrc`` (the five Pallas
 kernels' counterparts and ``flash_attention``'s backward), holds each
 against its plain PyTorch version, and drives the port's main paths at
 full configuration: the graph engine through ``compile_plan(...).run()``,
-the LM's inference path (dense, moe, hybrid and ssm families) through
-``make_prefill_step`` and ``ServeEngine``, and its training through
+the LM's inference path (all six families: dense, moe, hybrid, ssm, vlm
+and audio) through ``make_prefill_step``, ``ServeEngine`` and
+``launch.serve``'s loop, and its training through
 ``make_train_step``, ``TrainLoop`` and ``launch.train``:
 
 1. kernels vs plain versions on the card, at the main paths' shapes and
@@ -165,6 +166,31 @@ the LM's inference path (dense, moe, hybrid and ssm families) through
    the bytes a step must move (the weights it uses and the recurrent
    states read and written once).  The four phases must take at most
    SSM_SECONDS;
+8d. the vlm and audio families (``phase vlm exact``, ``phase vlm``, ``phase
+   whisper``; every cross-attention gate, zero at init, set to 0.5).
+   llama-3.2-vision-11b at full width, depth cut to one group of 5
+   layers, float32, TF32 off, 2 x 256 tokens beside 2 x 1601 seeded vision
+   features: the prefill logits with the kernel (5 launches) equal those
+   without, zeroing the vision features moves them, teacher-forced decode
+   with the features reproduces them over 16 positions, and one
+   ``make_train_step`` step with the kernels against one without from the
+   same weights (loss and grad_norm within LM_TOL, every updated parameter
+   within the reference's resume tolerance, 10 forward and 5 backward
+   launches under remat).  Then the model whole in bf16 (40 layers in 8
+   groups, 10.11 B parameters, 20.2 GB): ``make_prefill_step(use_kernel=
+   True)`` on 2 x 4096 tokens beside 2 x 1601 vision features (40
+   ``flash_attention`` launches, nll near ln V, tokens/s, idle share, peak
+   memory beside the weights), a profiled decode window and
+   ``launch.serve``'s loop (``make_serve_step``, 4 streams x 32 tokens),
+   ms a step beside its bound (the weights, the features and the caches
+   read once; the features' K/V products).  whisper-base whole (6 + 6
+   layers, 98.0 M parameters): in float32 the decoder's 2 x 512 prefill
+   against the encoder's output over 2 x 1500 frames with the kernel (6
+   launches) equal to without, decode with ``memory = _run_encoder(frames)``
+   reproducing it over 16 positions; in bf16 a prefill at 8 x 448 (its
+   own context: no launch, by the guard), a profiled decode window and
+   the serving loop with ``memory``.  The three phases must take at most
+   VLM_AUDIO_SECONDS;
 9. training exactness: granite-3-8b at full width, 2 layers, float32, TF32
    off, batch 2 × 256: one ``make_train_step`` step with the kernels
    against one without from the same weights (loss and grad_norm within
@@ -183,6 +209,14 @@ the LM's inference path (dense, moe, hybrid and ssm families) through
 11. ``python -m repro_torch.launch.train`` on the smoke config, then a
    ``TrainLoop`` cut after 3 of 6 steps and resumed, equal to the
    uninterrupted run.
+
+The phases run in this order: the kernel checks (1), the LM phases (7-11),
+then the graph phases (2-6).  The PageRank store's host build (R-MAT,
+degree order, blocks: numpy work of minutes on the card's machine) runs
+in a child process from the start, beside the kernel build, the kernel
+checks and the LM phases, and reaches the graph phases through files in a
+temporary folder; a line gives its seconds and the time waited for it.  Lines marked "[...
+s into the phases]" give the run's progress.
 
 Each path resets the kernels' launch counts just before it is driven and
 reads them just after.  Then each kernel is timed on the inputs that
@@ -387,6 +421,24 @@ XLSTM_FULL = dict(HYBRID_FULL, forms=((dict(mlstm_impl="scan"), 1024, 16),
                                       (dict(mlstm_impl="chunked"), 4096, 64)))
 #: the four phases' limit together (seconds, host clock)
 SSM_SECONDS = 150.0
+VLM_ARCH = "llama-3.2-vision-11b"
+WHISPER_ARCH = "whisper-base"
+#: the cross-attention gates (zero at init, where the vlm's cross layers add
+#: nothing) are set to this in every vlm and whisper phase
+XATTN_GATE = 0.5
+#: phase vlm exact: depth cut to one group (cross_attn_every = 5 layers) at full
+#: width, float32, TF32 off, beside the config's 1601 vision tokens
+VLM_EXACT = dict(n_layers=5, batch=2, seq=256, decode=16)
+#: phase vlm: whole, bf16; prefill_32k cut to 2 x 4096 beside 2 x 1601 vision
+#: features; launch.serve's loop over 4 streams x 32 tokens
+VLM_FULL = dict(batch=2, seq=4096, slots=4, cache_len=512, tokens=32)
+#: phase whisper: the exactness prefill at 512 decoder tokens (a multiple of 128 at
+#: d_head 64, which whisper's own 448-token context is not), float32; then bf16 at
+#: 8 x 448 (no launch, by the guard), its serving loop 4 streams x 32 tokens
+WHISPER_EXACT = dict(batch=2, seq=512, decode=16)
+WHISPER_FULL = dict(batch=8, seq=448, slots=4, cache_len=448, tokens=32)
+#: the three phases' limit together (seconds, host clock)
+VLM_AUDIO_SECONDS = 120.0
 #: phase kernels, backward: (B, H, H_kv, S_q, S_k, D, dtype, causal).  The first is
 #: the attention of train_4k cut to 2 x 4096 at granite-3-8b's heads (phase train
 #: runs it as two microbatches of 1 x 4096); then suffix-aligned causal with
@@ -2434,9 +2486,11 @@ def batched_equals_solo(what, cfg, model, dev, ex, seed) -> None:
         f"solo runs")
 
 
-def prefill_runs(what, cfg, model, dev, fu, gen, first=None, flash=None, tokens=None):
+def prefill_runs(what, cfg, model, dev, fu, gen, first=None, flash=None, tokens=None,
+                 extra=None):
     """make_prefill_step with the kernel on a seeded batch of ``fu``'s shape
-    (or on ``tokens``): a first run (inside ``first``, a context manager,
+    (or on ``tokens``; ``extra`` joins the batch: ``vision`` or ``frames``):
+    a first run (inside ``first``, a context manager,
     when given), whose launches are counted and checked (flash_attention
     ``flash`` times, by default once per layer) and whose metrics are
     checked (finite, nll within LOSS_BAND of ln V), then a second run timed
@@ -2451,7 +2505,7 @@ def prefill_runs(what, cfg, model, dev, fu, gen, first=None, flash=None, tokens=
     if tokens is None:
         tokens = torch.randint(0, cfg.vocab, (fu["batch"], fu["seq"]), generator=gen,
                                device=dev)
-    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1), **(extra or {}))
     step = make_prefill_step(cfg, use_kernel=True)
     torch.cuda.reset_peak_memory_stats(dev)
     registry.reset_launch_counts()
@@ -2473,12 +2527,12 @@ def prefill_runs(what, cfg, model, dev, fu, gen, first=None, flash=None, tokens=
     return tokens, metrics, launches, first_s, time.perf_counter() - t0
 
 
-def prefill_profile(what, cfg, model, tokens, note="") -> None:
-    """One more prefill of ``tokens`` under torch.profiler: wall and busy ms,
-    idle share, the busiest kernels."""
+def prefill_profile(what, cfg, model, tokens, note="", extra=None) -> None:
+    """One more prefill of ``tokens`` (``extra`` beside them) under
+    torch.profiler: wall and busy ms, idle share, the busiest kernels."""
     from repro_torch.models.steps import make_prefill_step
 
-    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1), **(extra or {}))
     step = make_prefill_step(cfg, use_kernel=True)
     _, wall, busy, top = device_profile(lambda: step(model, batch))
     if busy is None:
@@ -2488,10 +2542,11 @@ def prefill_profile(what, cfg, model, tokens, note="") -> None:
             f"{1 - busy / wall:.3f}); busiest kernels {top}{note}")
 
 
-def profiled_decode(what, cfg, model, dev, fu, note="") -> None:
+def profiled_decode(what, cfg, model, dev, fu, note="", extra=None) -> None:
     """A warm window of decode steps of ``fu``'s slots (``fu["decode_profile"]``,
-    by default DECODE_PROFILE_STEPS) under torch.profiler: wall and
-    device-busy ms per step, idle share."""
+    by default DECODE_PROFILE_STEPS; ``extra``: decode_step's ``vision`` or
+    ``memory``) under torch.profiler: wall and device-busy ms per step,
+    idle share."""
     import torch
     from repro_torch.models import lm
 
@@ -2504,7 +2559,7 @@ def profiled_decode(what, cfg, model, dev, fu, note="") -> None:
         def decode():
             nonlocal state
             for _ in range(n):
-                logits, state = lm.decode_step(cfg, model, state, toks)
+                logits, state = lm.decode_step(cfg, model, state, toks, **(extra or {}))
             return logits
 
         decode()                      # warm
@@ -2534,39 +2589,63 @@ def serve_requests(what, cfg, model, dev, fu):
     return steps, serve_s, sum(len(r.output) for r in done.values()), len(reqs)
 
 
+def teacher_forced(what, cfg, model, dev, tokens, want, steps, **extra) -> float:
+    """Decode over the first ``steps`` positions of ``tokens`` with ``extra``
+    (``vision`` or ``memory``), each position's logits within LM_TOL of the
+    prefill's ``want``; returns the largest difference."""
+    import torch
+    from repro_torch.models import lm
+
+    err = 0.0
+    with torch.inference_mode():
+        state = lm.init_decode_state(cfg, tokens.shape[0], steps, device=dev)
+        for t in range(steps):
+            logits, state = lm.decode_step(cfg, model, state, tokens[:, t], **extra)
+            err = max(err, float((logits - want[:, t]).abs().max()))
+            check(torch.allclose(logits, want[:, t], **LM_TOL),
+                  f"{what}: decode logits at position {t} vs prefill: max err {err}")
+    return err
+
+
+def kernel_vs_plain(what, cfg, model, batch, launches_want):
+    """forward_logits with the kernel (``launches_want`` flash_attention
+    launches) against without, within LM_TOL.  Returns (the kernel path's
+    logits, max err, launches)."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+
+    with torch.inference_mode():
+        registry.reset_launch_counts()
+        got = lm.forward_logits(cfg, model, batch, use_kernel=True)
+        launches = registry.launch_counts()["flash_attention"]
+        check(launches == launches_want,
+              f"{what}: flash_attention launches {launches} != {launches_want}")
+        want = lm.forward_logits(cfg, model, batch, use_kernel=False)
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **LM_TOL),
+              f"{what}: logits, kernel vs plain: max err {err}")
+    return got, err, launches
+
+
 def phase_lm_exact(dev, cfg) -> None:
     """The kernel path against the plain path, decode against prefill, and
     batched serving against solo serving, all in float32."""
     import torch
-    from repro_torch.kernels import registry
     from repro_torch.models import lm
 
     ex = LM_EXACT
     gen = torch.Generator(device=dev).manual_seed(1)
     model = lm.LM(cfg, generator=gen, device=dev)
     tokens = torch.randint(0, cfg.vocab, (ex["batch"], ex["seq"]), generator=gen, device=dev)
-    with torch.inference_mode():
-        registry.reset_launch_counts()
-        got = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=True)
-        launches = registry.launch_counts()["flash_attention"]
-        check(launches == cfg.n_layers,
-              f"flash_attention launches {launches} != {cfg.n_layers} layers")
-        want = lm.forward_logits(cfg, model, dict(tokens=tokens), use_kernel=False)
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, **LM_TOL),
-              f"LM logits, kernel vs plain: max err {err}")
-        state = lm.init_decode_state(cfg, ex["batch"], ex["decode"], device=dev)
-        derr = 0.0
-        for t in range(ex["decode"]):
-            logits, state = lm.decode_step(cfg, model, state, tokens[:, t])
-            derr = max(derr, float((logits - got[:, t]).abs().max()))
-            check(torch.allclose(logits, got[:, t], **LM_TOL),
-                  f"decode logits at position {t} vs prefill: max err {derr}")
+    got, err, launches = kernel_vs_plain("lm exact", cfg, model, dict(tokens=tokens),
+                                         cfg.n_layers)
+    derr = teacher_forced("lm exact", cfg, model, dev, tokens, got, ex["decode"])
     say(f"phase lm exact: {cfg.name} {cfg.n_layers} layers float32, logits "
         f"{tuple(got.shape)}: kernel vs plain max err {err:.2e}, decode vs prefill over "
         f"{ex['decode']} positions max err {derr:.2e} (atol {LM_TOL['atol']}, rtol "
         f"{LM_TOL['rtol']}), launches {launches}")
-    del got, want, state
+    del got
 
     batched_equals_solo("phase lm exact", cfg, model, dev, ex, seed=1)
     del model
@@ -2612,9 +2691,11 @@ def phase_lm_full(dev, cfg):
     return rec
 
 
-def layer0_attention_record(name, cfg, model, tokens, launches):
+def layer0_attention_record(name, cfg, model, tokens, launches, h=None):
     """flash_attention checked and timed on layer 0's q, k, v of a prefill of
-    ``tokens`` (S_q = S_k, causal), beside its plain version and SDPA."""
+    ``tokens`` (S_q = S_k, causal), beside its plain version and SDPA.
+    ``h`` is layer 0's input where it is not the embeddings (the vlm's
+    first cross block comes before it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2625,7 +2706,7 @@ def layer0_attention_record(name, cfg, model, tokens, launches):
     b, s = tokens.shape
     layer = model.layers[0]
     with torch.inference_mode():
-        x = rms_norm(F.embedding(tokens, model.embed), layer.ln1)
+        x = rms_norm(F.embedding(tokens, model.embed) if h is None else h, layer.ln1)
         q, k, v = (t.transpose(1, 2).contiguous() for t in attention.project_qkv(
             layer.attn, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
             rope_theta=cfg.rope_theta))
@@ -2840,7 +2921,8 @@ def phase_moe_full(dev, cfg, card: str):
     return rec
 
 
-def ssm_config(arch: str, **changes):
+def arch_config(arch: str, **changes):
+    """The registry's full configuration of ``arch`` with ``changes``."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3126,12 +3208,12 @@ def phase_ssm(dev, card: str) -> None:
     ex, xe = HYBRID_EXACT, XLSTM_EXACT
     phases = (
         ("hybrid exact", lambda: phase_hybrid_exact(
-            dev, ssm_config(HYBRID_ARCH, n_layers=ex["n_layers"], dtype="float32"))),
+            dev, arch_config(HYBRID_ARCH, n_layers=ex["n_layers"], dtype="float32"))),
         ("xlstm exact", lambda: phase_xlstm_exact(
-            dev, ssm_config(XLSTM_ARCH, n_layers=xe["n_layers"], dtype="float32"))),
-        ("hybrid", lambda: phase_ssm_full("hybrid", dev, ssm_config(HYBRID_ARCH), HYBRID_FULL,
+            dev, arch_config(XLSTM_ARCH, n_layers=xe["n_layers"], dtype="float32"))),
+        ("hybrid", lambda: phase_ssm_full("hybrid", dev, arch_config(HYBRID_ARCH), HYBRID_FULL,
                                           card)),
-        ("xlstm", lambda: phase_ssm_full("xlstm", dev, ssm_config(XLSTM_ARCH), XLSTM_FULL,
+        ("xlstm", lambda: phase_ssm_full("xlstm", dev, arch_config(XLSTM_ARCH), XLSTM_FULL,
                                          card)),
     )
     for name, fn in phases:
@@ -3143,6 +3225,270 @@ def phase_ssm(dev, card: str) -> None:
           f"{SSM_SECONDS:.0f} s")
     say(f"phases hybrid exact, xlstm exact, hybrid, xlstm: {total:.1f} s (limit "
         f"{SSM_SECONDS:.0f} s)")
+
+
+def set_gates(model, value: float) -> None:
+    """Every cross-attention gate of ``model`` (the vlm's ``xattn``, the audio
+    decoder's ``dec_xattn``, which it does not read) set to ``value``: at
+    init they are zero and the vlm's cross layers add nothing."""
+    import torch
+
+    with torch.no_grad():
+        for name in ("xattn", "dec_xattn"):
+            for block in getattr(model, name, ()):
+                block.attn.gate.fill_(value)
+
+
+def phase_vlm_exact(dev, cfg) -> None:
+    """llama-3.2-vision-11b at full width, one group (VLM_EXACT's depth),
+    float32, gates at XATTN_GATE: the kernel path against the plain path,
+    the logits' dependence on the vision features, decode with them against
+    prefill, and one make_train_step step with the kernels against one
+    without from the same weights."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    ex = VLM_EXACT
+
+    def seeded():
+        m = lm.LM(cfg, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        set_gates(m, XATTN_GATE)
+        return m
+
+    model = seeded()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s = ex["batch"], ex["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    vision = torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=gen, device=dev)
+    got, err, launches = kernel_vs_plain("vlm exact", cfg, model,
+                                         dict(tokens=tokens, vision=vision), cfg.n_layers)
+    with torch.inference_mode():
+        other = lm.forward_logits(cfg, model, dict(tokens=tokens, vision=torch.zeros_like(vision)),
+                                  use_kernel=True)
+        moved = float((other - got).abs().max())
+    del other
+    check(moved > 1e-2, f"vlm exact: logits move by {moved} when the vision features are zeroed")
+    derr = teacher_forced("vlm exact", cfg, model, dev, tokens, got, ex["decode"], vision=vision)
+    say(f"phase vlm exact: {cfg.name} {cfg.n_layers} layers ({len(model.xattn)} group) float32, "
+        f"{n_params / 1e9:.3f} B parameters, gates {XATTN_GATE}, vision {tuple(vision.shape)}, "
+        f"logits {tuple(got.shape)}: kernel vs plain max err {err:.2e}, decode vs prefill over "
+        f"{ex['decode']} positions max err {derr:.2e} (atol {LM_TOL['atol']}, rtol "
+        f"{LM_TOL['rtol']}), launches {launches}; zeroing the vision features moves the logits "
+        f"by up to {moved:.3f}")
+    del got, model
+    torch.cuda.empty_cache()
+
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1), vision=vision)
+    runs = {}
+    for use_kernel in (False, True):     # the plain run's parameters and mu are kept
+        model = seeded()
+        opt = adamw_init(model)
+        registry.reset_launch_counts()
+        opt, m = make_train_step(cfg, warmup_steps=1, use_kernel=use_kernel)(model, opt, batch, 0)
+        runs[use_kernel] = model, dict(mu=opt["mu"]), {k: float(v) for k, v in m.items()}, \
+            registry.launch_counts()
+        del opt, m
+        torch.cuda.empty_cache()
+    (km, _, kmet, kl), (pm, popt, pmet, pl) = runs[True], runs[False]
+    check(kl["flash_attention"] == 2 * cfg.n_layers and kl["flash_attention_bwd"] == cfg.n_layers
+          and pl["flash_attention"] == pl["flash_attention_bwd"] == 0,
+          f"vlm exact: train launches with the kernels {kl}, without {pl}")
+    for key in ("loss", "grad_norm"):
+        check(np.isfinite(kmet[key]) and np.isclose(kmet[key], pmet[key], **LM_TOL),
+              f"vlm exact: {key} with the kernels {kmet[key]}, without {pmet[key]}")
+    worst, worst_tiny, tiny = updated_params_match(km, pm, popt, kmet["lr"])
+    gates = [float(blk.attn.gate.detach()) for blk in km.xattn]
+    check(all(g != XATTN_GATE for g in gates), f"vlm exact: the gates did not move: {gates}")
+    say(f"phase vlm exact: one train step at {b} x {s}: loss {kmet['loss']:.6f} vs "
+        f"{pmet['loss']:.6f} without the kernels, grad_norm {kmet['grad_norm']:.6f} vs "
+        f"{pmet['grad_norm']:.6f} ({LM_TOL}); updated parameters max |diff| {worst:.2e} "
+        f"({STEP_TOL}), and {worst_tiny:.2e} on the {tiny} elements with 0 < |g| < 1e-6; gates "
+        f"after the step {gates}; launches {kl}")
+    del runs, km, pm, popt, model
+    torch.cuda.empty_cache()
+
+
+def serve_loop(what, cfg, model, fu, extra, nbytes, ops, card: str) -> None:
+    """launch.serve's loop (make_serve_step, greedy) over ``fu``'s streams and
+    tokens with ``extra`` in every step's batch: ms a step beside the bound of
+    ``nbytes`` at 3.35 TB/s and ``ops`` at 989 TFLOP/s."""
+    import torch
+    from repro_torch.launch.serve import generate
+
+    kw = dict(batch=fu["slots"], tokens=fu["tokens"], cache_len=fu["cache_len"], extra=extra)
+    generate(cfg, model, **dict(kw, tokens=2))            # warm
+    torch.cuda.reset_peak_memory_stats(model.device)
+    seq, secs = generate(cfg, model, **kw)
+    check(tuple(seq.shape) == (fu["slots"], fu["tokens"])
+          and bool(((seq >= 0) & (seq < cfg.vocab)).all()),
+          f"{what}: generated ids {tuple(seq.shape)} out of range")
+    ms = secs * 1e3 / fu["tokens"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_TC_FLOPS * 1e3
+    say(f"{what}: launch.serve's loop, {fu['slots']} streams x {fu['tokens']} tokens (cache "
+        f"{fu['cache_len']}): {secs:.2f} s, {ms:.2f} ms per step against a bound of "
+        f"{max(t_bytes, t_ops):.2f} ms ({nbytes / 1e9:.3f} GB of weights, features and caches "
+        f"read once at 3.35 TB/s: {t_bytes:.2f} ms; the features' K/V products {ops / 1e12:.3f} "
+        f"TFLOP at 989 TFLOP/s: {t_ops:.2f} ms; {t_bytes + t_ops:.2f} ms if they do not "
+        f"overlap), {fu['slots'] * fu['tokens'] / secs:.1f} generated tokens/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(model.device) / 1e9:.2f} GB, "
+        f"first stream {seq[0, :8].tolist()} [{card}]")
+
+
+def cross_decode_bound(cfg, model, slots, cache_len, feats, blocks):
+    """(bytes, operations) a decode step must at least move and do: every
+    weight it uses read once (the embedding only the slots' rows; not the
+    encoder's, which runs once a request), the cross features read by each
+    of ``blocks`` cross layers and every KV cache read once; the features'
+    K and V products in those layers."""
+    b, t = slots, feats
+    elt = model.embed.element_size()
+    weights = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+                  if name != "embed" and not name.startswith(("encoder.", "enc_")))
+    weights += b * cfg.d_model * elt
+    kv = cfg.n_kv_heads * cfg.d_head
+    caches = 2 * cfg.n_layers * b * cache_len * kv * elt
+    features = blocks * b * t * cfg.d_model * elt
+    ops = blocks * 2 * (2.0 * b * t * cfg.d_model * kv)
+    return weights + caches + features, ops
+
+
+def phase_vlm_full(dev, cfg, card: str):
+    """llama-3.2-vision-11b whole in bf16 (gates at XATTN_GATE): a prefill
+    through make_prefill_step with the kernel beside seeded vision
+    features, a profiled decode window, launch.serve's loop.  Returns
+    flash_attention's record on this path (layer 0's q, k, v)."""
+    import torch
+    from repro_torch.models import lm
+
+    fu = VLM_FULL
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    set_gates(model, XATTN_GATE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"phase vlm: {cfg.name} {cfg.n_layers} layers in {len(model.xattn)} groups {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters ({weights / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, gates {XATTN_GATE}, memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+    dt = model.embed.dtype
+    vision = torch.randn((fu["batch"], cfg.vision_tokens, cfg.d_model), generator=gen,
+                         device=dev).to(dt)
+    tokens, metrics, launches, first_s, prefill_s = prefill_runs(
+        "phase vlm prefill", cfg, model, dev, fu, gen, extra=dict(vision=vision))
+    b, s = tokens.shape
+    say(f"phase vlm prefill: B={b} S={s} beside {tuple(vision.shape)} vision features, nll "
+        f"{metrics['nll']:.4f} (ln V {np.log(cfg.vocab):.4f}); first run {first_s:.3f} s, second "
+        f"{prefill_s:.3f} s ({b * s / prefill_s:.0f} tokens/s, host clock); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB beside {weights / 1e9:.2f} GB of "
+        f"weights; launches {launches} [{card}]")
+    prefill_profile("phase vlm prefill", cfg, model, tokens, note=f" [{card}]",
+                    extra=dict(vision=vision))
+
+    served = torch.randn((fu["slots"], cfg.vision_tokens, cfg.d_model), generator=gen,
+                         device=dev).to(dt)
+    nbytes, ops = cross_decode_bound(cfg, model, fu["slots"], fu["cache_len"],
+                                     cfg.vision_tokens, len(model.xattn))
+    profiled_decode("phase vlm decode", cfg, model, dev, fu, extra=dict(vision=served),
+                    note=f"; bound {max(nbytes / HBM_BYTES_PER_S, ops / BF16_TC_FLOPS) * 1e3:.2f}"
+                    f" ms [{card}]")
+    serve_loop("phase vlm serve", cfg, model, fu, dict(vision=served), nbytes, ops, card)
+    del served
+
+    with torch.inference_mode():
+        h = model.embed[tokens]
+        h = h + lm._cross_block(cfg, model.xattn[0], h, vision, True)
+    rec = layer0_attention_record("flash_attention[vlm prefill]", cfg, model, tokens,
+                                  launches["flash_attention"], h=h)
+    del model, h, vision
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_whisper(dev, card: str) -> None:
+    """whisper-base whole: in float32 the decoder's prefill against the
+    encoder's output with the kernel against without (one launch a decoder
+    layer), and decode with ``memory = _run_encoder(frames)`` against the
+    prefill; in bf16 a prefill at the decoder's own context (no launch, by
+    the guard), a profiled decode window and launch.serve's loop."""
+    import torch
+    from repro_torch.models import lm
+
+    ex, fu = WHISPER_EXACT, WHISPER_FULL
+    cfg = arch_config(WHISPER_ARCH, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    set_gates(model, XATTN_GATE)        # unread by the decoder (gated=False), as in the reference
+    b, s = ex["batch"], ex["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    frames = torch.randn((b, cfg.encoder_frames, cfg.d_model), generator=gen, device=dev)
+    got, err, launches = kernel_vs_plain("whisper exact", cfg, model,
+                                         dict(tokens=tokens, frames=frames), cfg.n_layers)
+    with torch.inference_mode():
+        memory = lm._run_encoder(cfg, model, frames)
+    derr = teacher_forced("whisper exact", cfg, model, dev, tokens, got, ex["decode"],
+                          memory=memory)
+    say(f"phase whisper exact: {cfg.name} {cfg.encoder_layers} + {cfg.n_layers} layers float32, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, decoder "
+        f"{b} x {s} against {tuple(frames.shape)} frames: kernel vs plain max err {err:.2e}, "
+        f"decode with the encoder's memory vs prefill over {ex['decode']} positions max err "
+        f"{derr:.2e} ({LM_TOL}), flash_attention launches {launches} (the decoder's layers; "
+        f"the encoder runs none, as in the reference)")
+    del model, got, memory
+    torch.cuda.empty_cache()
+
+    cfg = arch_config(WHISPER_ARCH)
+    model = lm.LM(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    dt = model.embed.dtype
+    frames = torch.randn((fu["batch"], cfg.encoder_frames, cfg.d_model), generator=gen,
+                         device=dev).to(dt)
+    tokens, metrics, launches, first_s, prefill_s = prefill_runs(
+        "phase whisper prefill", cfg, model, dev, fu, gen, flash=0, extra=dict(frames=frames))
+    say(f"phase whisper prefill: {cfg.dtype}, B={fu['batch']} S={fu['seq']} beside "
+        f"{tuple(frames.shape)} frames (encoder included), nll {metrics['nll']:.4f} (ln V "
+        f"{np.log(cfg.vocab):.4f}); first run {first_s:.3f} s, second {prefill_s:.3f} s "
+        f"({tokens.numel() / prefill_s:.0f} decoder tokens/s, host clock); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB beside {weights / 1e9:.3f} GB of "
+        f"weights; flash_attention launches {launches['flash_attention']} ({fu['seq']} is not a "
+        f"multiple of 128) [{card}]")
+    prefill_profile("phase whisper prefill", cfg, model, tokens, note=f" [{card}]",
+                    extra=dict(frames=frames))
+    with torch.inference_mode():
+        memory = lm._run_encoder(cfg, model, frames[:fu["slots"]])
+    nbytes, ops = cross_decode_bound(cfg, model, fu["slots"], fu["cache_len"],
+                                     cfg.encoder_frames, cfg.n_layers)
+    profiled_decode("phase whisper decode", cfg, model, dev, fu, extra=dict(memory=memory),
+                    note=f"; bound {max(nbytes / HBM_BYTES_PER_S, ops / BF16_TC_FLOPS) * 1e3:.3f}"
+                    f" ms [{card}]")
+    serve_loop("phase whisper serve", cfg, model, fu, dict(memory=memory), nbytes, ops, card)
+    del model, memory, frames
+    torch.cuda.empty_cache()
+
+
+def phase_vlm_audio(dev, card: str):
+    """The vlm and audio phases in order, each timed; together within
+    VLM_AUDIO_SECONDS.  Returns flash_attention's vlm prefill record."""
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    phase_vlm_exact(dev, arch_config(VLM_ARCH, n_layers=VLM_EXACT["n_layers"], dtype="float32"))
+    say(f"phase vlm exact: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec = phase_vlm_full(dev, arch_config(VLM_ARCH), card)
+    say(f"phase vlm: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_whisper(dev, card)
+    say(f"phase whisper: {time.perf_counter() - t0:.1f} s")
+    total = time.perf_counter() - start
+    check(total <= VLM_AUDIO_SECONDS, f"the vlm and audio phases took {total:.1f} s, more than "
+          f"{VLM_AUDIO_SECONDS:.0f} s")
+    say(f"phases vlm exact, vlm, whisper: {total:.1f} s (limit {VLM_AUDIO_SECONDS:.0f} s)")
+    return rec
 
 
 def updated_params_match(got, want, opt_want, lr) -> tuple[float, float, int]:
@@ -3363,11 +3709,83 @@ def phase_train_loop(dev) -> None:
             f"{full['history'][-1]['nll']:.4f}")
 
 
-def run(dev, card: str) -> list[dict]:
-    """The phases in order; returns the per-kernel records.  ``card`` is
-    the card's name and power limit, printed beside phase serve's numbers."""
-    import torch
+def store_builder(conn, cfg: dict, folder: str) -> None:
+    """In a child process: build the block store of ``cfg`` (PAGERANK's
+    shape: R-MAT, descending degree order, blocks) on the host, save each
+    field of ``interop.STORE_FIELDS`` into ``folder`` as ``.npy``, then send
+    through ``conn`` the three steps' seconds and the graph's name and
+    direction."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import build_block_store, degree_order, rmat
+    from repro_torch.interop import STORE_FIELDS
+
+    t0 = time.perf_counter()
+    g = rmat(cfg["scale"], cfg["edge_factor"], seed=cfg["seed"])
+    t1 = time.perf_counter()
+    g, _ = degree_order(g, ascending=False)
+    t2 = time.perf_counter()
+    store = build_block_store(g, cfg["p"])
+    t3 = time.perf_counter()
+    for k in STORE_FIELDS:
+        np.save(os.path.join(folder, f"{k}.npy"),
+                store.layout.cuts if k == "cuts" else getattr(store, k))
+    conn.send(dict(seconds=(t1 - t0, t2 - t1, t3 - t2), name=g.name, directed=g.directed))
+    conn.close()
+
+
+class StoreBuild:
+    """The PageRank store built on the host in a child process (spawned,
+    daemonic: it ends with this process) while this one drives the card.
+    The build is numpy work of minutes on the card's machine; its arrays
+    (≈ 5 GB at PAGERANK's scale, most of it ``row_block_ptr``) come back
+    through files in a temporary folder, removed once read (a pipe took 88
+    s for them on the H100's host)."""
+
+    def __init__(self, cfg: dict):
+        import multiprocessing
+        import tempfile
+
+        self._folder = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=store_builder, args=(send, dict(cfg), self._folder.name),
+                                 daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self):
+        """Wait for the store: (store, the build's (rmat, degree order, block
+        store) seconds in the child, seconds waited here, reading
+        included)."""
+        from repro_torch.interop import STORE_FIELDS, store_from_numpy
+
+        t0 = time.perf_counter()
+        try:
+            head = self._conn.recv()
+        except EOFError:
+            self._proc.join()
+            check(False, f"the store's build process ended with code {self._proc.exitcode}")
+        self._proc.join()
+        self._conn.close()
+        with self._folder as folder:
+            fields = {k: np.load(os.path.join(folder, f"{k}.npy"), mmap_mode="r")
+                      for k in STORE_FIELDS}
+            store = store_from_numpy(fields, directed=head["directed"], name=head["name"])
+            del fields
+        return store, head["seconds"], time.perf_counter() - t0
+
+
+def run(dev, card: str, build: StoreBuild) -> list[dict]:
+    """The phases in order; returns the per-kernel records.  ``card`` is
+    the card's name and power limit, printed beside phase serve's numbers;
+    ``build`` is the PageRank store's build, which runs on the host beside
+    the kernel and LM phases."""
+    import torch
+
+    start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        say(f"[{time.perf_counter() - start:.1f} s into the phases] {what}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     phase_kernels(dev, gen)
@@ -3376,49 +3794,7 @@ def run(dev, card: str) -> list[dict]:
     bwd = phase_attn_bwd(dev, gen)
     say(f"phase kernels backward: {time.perf_counter() - t0:.1f} s")
 
-    cfg = PAGERANK
-    t0 = time.perf_counter()
-    g = rmat(cfg["scale"], cfg["edge_factor"], seed=cfg["seed"])
-    t1 = time.perf_counter()
-    g, _ = degree_order(g, ascending=False)
-    t2 = time.perf_counter()
-    store = build_block_store(g, cfg["p"])
-    t3 = time.perf_counter()
-    say(f"phase pagerank: graph + store {t3 - t0:.1f} s (rmat {t1 - t0:.1f}, degree order "
-        f"{t2 - t1:.1f}, block store {t3 - t2:.1f}; host), n {g.n}, arcs {g.m}")
-    plan, spmv, pr_res, pr_short, pr_three = phase_pagerank(dev, store)
-    frontier, bfs_res = phase_bfs(dev, store, plan.schedule)
-    schedule = plan.schedule
-    del plan
-    cc, cc_ms = phase_algorithms(dev, store)
-    store._device_cache.clear()     # the streamed plans hold no in-core copy
-    torch.cuda.empty_cache()
-    streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, pr_short, bfs_res, cc,
-                                        cc_ms)
-    hetero_cc = phase_hetero(dev, store, runs, rate, bfs_res, cc, cc_ms, pr_res, pr_short)
-    phase_resilience(dev, store, schedule, runs, bfs_res, hetero_cc)
-    t0 = time.perf_counter()
-    served = phase_serve(dev, store, schedule, gen, card)
-    say(f"phase serve: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    mesh = phase_mesh(dev, store, schedule, runs, bfs_res, pr_res, pr_three, card)
-    store._device_cache.clear()
-    mesh_s = time.perf_counter() - t0
-    del store, g, schedule
-    torch.cuda.empty_cache()
-    tc, tc_store, tc_schedule, tc_res = phase_tc(dev)
-    tc_store._device_cache.clear()
-    torch.cuda.empty_cache()
-    streamed["tc_tiles"], tc_single = phase_stream_tc(dev, tc_store, tc_schedule, tc_res, rate)
-    stream_kernel_report(streamed)
-    t0 = time.perf_counter()
-    phase_mesh_tc(tc_store, tc_schedule, tc_res, tc_single, mesh, card)
-    say(f"phase mesh: {mesh_s + time.perf_counter() - t0:.1f} s")
-    del tc_store, tc_schedule
-    torch.cuda.empty_cache()
-    phase_suite(dev, card)
-    torch.cuda.empty_cache()
-
+    mark("the LM phases")
     phase_lm_exact(dev, lm_config(n_layers=LM_EXACT["n_layers"], dtype="float32"))
     attn = phase_lm_full(dev, lm_config())
     t0 = time.perf_counter()
@@ -3430,6 +3806,7 @@ def run(dev, card: str) -> list[dict]:
     moe_attn = phase_moe_full(dev, moe_config(), card)
     say(f"phase moe: {time.perf_counter() - t0:.1f} s")
     phase_ssm(dev, card)
+    vlm_attn = phase_vlm_audio(dev, card)
     t0 = time.perf_counter()
     phase_train_exact(dev, lm_config(n_layers=TRAIN_EXACT["n_layers"], dtype="float32"))
     say(f"phase train exact: {time.perf_counter() - t0:.1f} s")
@@ -3441,7 +3818,54 @@ def run(dev, card: str) -> list[dict]:
     say(f"phase train loop: {time.perf_counter() - t0:.1f} s")
     bwd_rec = record("flash_attention_bwd", bwd_launches, bwd["err"], bwd["ms"], bwd["plain_ms"],
                      bwd["nbytes"], bwd["ops"], bwd["library_ms"], rate=BF16_TC_FLOPS)
-    return [spmv, frontier, tc, attn, moe_attn, bwd_rec, ell, *served]
+    torch.cuda.empty_cache()
+
+    mark("the graph phases")
+    store, (rmat_s, order_s, blocks_s), waited = build.result()
+    g = store.graph
+    say(f"phase pagerank: graph + store {rmat_s + order_s + blocks_s:.1f} s (rmat {rmat_s:.1f}, "
+        f"degree order {order_s:.1f}, block store {blocks_s:.1f}; host, in a child process "
+        f"beside the kernel and LM phases; waited {waited:.1f} s for it, reading included), "
+        f"n {g.n}, arcs {g.m}")
+    plan, spmv, pr_res, pr_short, pr_three = phase_pagerank(dev, store)
+    frontier, bfs_res = phase_bfs(dev, store, plan.schedule)
+    schedule = plan.schedule
+    del plan
+    cc, cc_ms = phase_algorithms(dev, store)
+    store._device_cache.clear()     # the streamed plans hold no in-core copy
+    torch.cuda.empty_cache()
+    mark("phase stream")
+    streamed, rate, runs = phase_stream(dev, store, schedule, pr_res, pr_short, bfs_res, cc,
+                                        cc_ms)
+    mark("phase hetero")
+    hetero_cc = phase_hetero(dev, store, runs, rate, bfs_res, cc, cc_ms, pr_res, pr_short)
+    mark("phase resilience")
+    phase_resilience(dev, store, schedule, runs, bfs_res, hetero_cc)
+    t0 = time.perf_counter()
+    served = phase_serve(dev, store, schedule, gen, card)
+    say(f"phase serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = phase_mesh(dev, store, schedule, runs, bfs_res, pr_res, pr_three, card)
+    store._device_cache.clear()
+    mesh_s = time.perf_counter() - t0
+    del store, g, schedule
+    torch.cuda.empty_cache()
+    mark("phase tc")
+    tc, tc_store, tc_schedule, tc_res = phase_tc(dev)
+    tc_store._device_cache.clear()
+    torch.cuda.empty_cache()
+    streamed["tc_tiles"], tc_single = phase_stream_tc(dev, tc_store, tc_schedule, tc_res, rate)
+    stream_kernel_report(streamed)
+    t0 = time.perf_counter()
+    phase_mesh_tc(tc_store, tc_schedule, tc_res, tc_single, mesh, card)
+    say(f"phase mesh: {mesh_s + time.perf_counter() - t0:.1f} s")
+    del tc_store, tc_schedule
+    torch.cuda.empty_cache()
+    mark("phase suite")
+    phase_suite(dev, card)
+    torch.cuda.empty_cache()
+    mark("done")
+    return [spmv, frontier, tc, attn, moe_attn, vlm_attn, bwd_rec, ell, *served]
 
 
 def main() -> int:
@@ -3464,12 +3888,13 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(card)
     dev = torch.device("cuda", 0)
+    build = StoreBuild(PAGERANK)
     t0 = time.perf_counter()
     logs = _build.build_all(list(SOURCES))
     say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     tensor_core_report(logs)
 
-    kernels = run(dev, card)
+    kernels = run(dev, card, build)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

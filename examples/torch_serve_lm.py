@@ -2,10 +2,13 @@
 over a smoke-sized config with seeded random weights.
 
     PYTHONPATH=src python examples/torch_serve_lm.py [--arch qwen2.5-32b | deepseek-moe-16b |
-        hymba-1.5b | xlstm-1.3b] [--tokens 24] [--device cpu]
+        hymba-1.5b | xlstm-1.3b | llama-3.2-vision-11b | whisper-base] [--tokens 24]
+        [--device cpu]
 
-The arch must be of the dense, moe, hybrid or ssm family (vlm and audio
-raise until their ROADMAP item lands).  Runs on the current CUDA device unless `--device cpu`.
+Any arch of the registry: the vlm smoke config is served beside zero
+vision features, the audio one beside a zero encoder memory, as
+`repro_torch.launch.serve` stubs them.  Runs on the current CUDA device
+unless `--device cpu`.
 """
 import argparse
 

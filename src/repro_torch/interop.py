@@ -84,31 +84,45 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return flat
 
 
-def _stacked_key(name: str) -> tuple[str, int | None]:
+#: module lists of :class:`LM` that the reference stacks on a leading axis
+STACKS = ("layers", "xattn", "encoder", "dec_xattn")
+
+
+def _stacked_key(name: str, cfg: ArchConfig) -> tuple[str, Any]:
     """A parameter name of :class:`LM` as (key of the reference's flattened
-    tree, layer index or None): ``layers.<i>.attn.wq`` → (``layers.attn.wq``, i)."""
+    tree, index into its stacked array or None): ``layers.<i>.attn.wq`` →
+    (``layers.attn.wq``, i), and for the vlm family, whose ``layers`` the
+    reference stacks ``(n_groups, g, ...)``, (``layers.attn.wq``, (i // g,
+    i % g)); likewise ``xattn.<k>``, ``encoder.<i>`` and ``dec_xattn.<i>``."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ".".join(["layers", *parts[2:]]), int(parts[1])
+    if parts[0] in STACKS and len(parts) > 2 and parts[1].isdigit():
+        i = int(parts[1])
+        if parts[0] == "layers" and cfg.family == "vlm":
+            i = divmod(i, cfg.cross_attn_every)
+        return ".".join([parts[0], *parts[2:]]), i
     return name, None
 
 
-def _stack(named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+def _stack(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """Tensors keyed by parameter name → the reference's nested tree of
     float32 numpy arrays, per-layer arrays stacked on a leading L axis
-    (exact for bfloat16)."""
+    (``(n_groups, g)`` axes for the vlm's layers; exact for bfloat16)."""
     flat: dict[str, Any] = {}
     for name, t in named.items():
-        key, layer = _stacked_key(name)
+        key, index = _stacked_key(name, cfg)
         a = t.detach().float().cpu().numpy()
-        if layer is None:
+        if index is None:
             flat[key] = a
         else:
-            flat.setdefault(key, []).append((layer, a))
+            flat.setdefault(key, []).append((index, a))
     tree: dict[str, Any] = {}
     for key, a in flat.items():
         if isinstance(a, list):
-            a = np.stack([x for _, x in sorted(a, key=lambda p: p[0])])
+            a.sort(key=lambda p: p[0])
+            last = a[-1][0]
+            stacked = np.stack([x for _, x in a])
+            grid = tuple(i + 1 for i in last) if isinstance(last, tuple) else (last + 1,)
+            a = stacked.reshape(grid + stacked.shape[1:])
         node = tree
         *path, leaf = key.split(".")
         for part in path:
@@ -117,21 +131,22 @@ def _stack(named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     return tree
 
 
-def _unstack_into(targets: Mapping[str, torch.Tensor], tree: Mapping[str, Any],
-                  what: str) -> None:
+def _unstack_into(cfg: ArchConfig, targets: Mapping[str, torch.Tensor],
+                  tree: Mapping[str, Any], what: str) -> None:
     """Copy the reference's stacked tree ``tree`` into the tensors
     ``targets`` (keyed by parameter name), each cast to its dtype."""
     flat = _flatten(tree)
     used = set()
     with torch.no_grad():
         for name, t in targets.items():
-            key, layer = _stacked_key(name)
-            a = flat[key] if layer is None else flat[key][layer]
+            key, index = _stacked_key(name, cfg)
+            a = flat[key] if index is None else np.asarray(flat[key])[index]
             used.add(key)
             a = np.asarray(a, dtype=np.float32)
             if a.shape != tuple(t.shape):
                 raise ValueError(f"{what}: {name} is {a.shape}, expected {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(t.dtype))
+            # ascontiguousarray makes a 0-d array (a gate) 1-d: keep its shape
+            t.copy_(torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(t.dtype))
     if set(flat) - used:
         raise KeyError(f"{what}: no place for {sorted(set(flat) - used)}")
 
@@ -139,14 +154,15 @@ def _unstack_into(targets: Mapping[str, torch.Tensor], tree: Mapping[str, Any],
 def lm_params_to_numpy(cfg: ArchConfig, model: LM) -> dict:
     """The reference's parameter tree of ``model``'s weights: nested dicts
     of float32 numpy arrays (exact for bfloat16), per-layer arrays
-    stacked on a leading ``(L, ...)`` axis, ``(d_in, d_out)`` kept."""
-    return _stack(dict(model.named_parameters()))
+    stacked on a leading ``(L, ...)`` axis (the vlm's ``layers`` on
+    ``(n_groups, g, ...)``), ``(d_in, d_out)`` kept."""
+    return _stack(cfg, dict(model.named_parameters()))
 
 
 def load_lm_params(cfg: ArchConfig, model: LM, params: Mapping[str, Any]) -> LM:
     """Copy the reference's parameter tree ``params`` into ``model`` in
     place (the inverse of :func:`lm_params_to_numpy`); returns ``model``."""
-    _unstack_into(dict(model.named_parameters()), params, "lm_params_from_numpy")
+    _unstack_into(cfg, dict(model.named_parameters()), params, "lm_params_from_numpy")
     return model
 
 
@@ -155,7 +171,7 @@ def opt_state_to_numpy(cfg: ArchConfig, state: Mapping[str, Any]) -> dict:
     ``mom`` keyed by parameter name, and ``count``) in the reference's
     layout: each moment as a stacked tree like the parameters', float32,
     and ``count`` a 0-d int32 array."""
-    return {k: _stack(v) if isinstance(v, Mapping) else
+    return {k: _stack(cfg, v) if isinstance(v, Mapping) else
             np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
                        dtype=np.int32)
             for k, v in state.items()}
@@ -170,7 +186,7 @@ def opt_state_from_numpy(cfg: ArchConfig, state: Mapping[str, Any], model: LM) -
         if isinstance(v, Mapping):
             moments = {name: torch.empty(p.shape, dtype=torch.float32, device=p.device)
                        for name, p in model.named_parameters()}
-            _unstack_into(moments, v, "opt_state_from_numpy")
+            _unstack_into(cfg, moments, v, "opt_state_from_numpy")
             out[k] = moments
         else:
             out[k] = torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=model.device)
@@ -185,9 +201,12 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping[str, Any],
     default the current card, raising where there is none unless the
     caller names the CPU.
 
-    Each stacked array is split into the layers; ``(d_in, d_out)``
-    orientation is kept, and so are the moe family's ``(L, E, d, f)``
-    expert stacks and the ssm family's two mixers in every layer.  Values
+    Each stacked array is split into the layers (the vlm's ``layers``
+    from ``(n_groups, g, ...)``, its ``xattn`` from ``(n_groups, ...)``,
+    the audio family's ``encoder`` and ``dec_xattn`` likewise; its
+    ``enc_pos`` is not stacked); ``(d_in, d_out)`` orientation is kept,
+    and so are the moe family's ``(L, E, d, f)`` expert stacks and the ssm
+    family's two mixers in every layer.  Values
     go through float32 (exact for bfloat16 both ways) and are cast to
     each parameter's dtype: ``cfg``'s, except the parameters the
     reference keeps float32 under any config: the MoE ``router``, Mamba's

@@ -3,7 +3,8 @@
 Fault tolerance comes from the TrainLoop substrate (atomic checkpoints +
 auto-resume): re-running the same command after a crash continues from
 the newest verified checkpoint.  Runs on the current card; with none
-present it raises unless ``--device cpu``.
+present it raises unless ``--device cpu``.  The vlm and audio families
+are refused (``TrainLoop``'s pipeline makes no vision or frames).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \\
       --smoke --steps 100 --batch 8 --seq 128 [--use-kernel] [--device cpu]

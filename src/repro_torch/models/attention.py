@@ -1,5 +1,5 @@
-"""Attention: GQA self-attention (full / sliding-window / causal) and
-single-token decode against a KV cache.
+"""Attention: GQA self-attention (full / sliding-window / causal),
+single-token decode against a KV cache, and cross-attention.
 
 Port of ``repro/models/attention.py``.  The weights of one attention
 block are an :class:`Attention` module (the reference's ``init_attn``)
@@ -9,8 +9,11 @@ trainable.  ``self_attention`` runs the hand-written ``flash_attention``
 kernel under the reference's guard (``use_kernel`` in place of
 ``use_pallas``), under autograd through its hand-written backward when a
 gradient is wanted; every other branch is plain torch, as the
-reference's is plain XLA.  Cross-attention waits for the
-vlm and audio families (ROADMAP A13).
+reference's is plain XLA.  Cross-attention (the vlm family's gated
+image layers, the audio decoder's attention to the encoder) is
+plain torch, as the reference's is: a :class:`CrossAttention` module
+(the reference's ``init_cross_attn``: no bias, a 0-d ``gate``, zero at
+init) and ``cross_attention``, non-causal over the features.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from torch import nn
 from ..kernels.flash_attention import flash_attention
 from .common import apply_rope, dense_init, rope
 
-__all__ = ["Attention", "project_qkv", "self_attention", "decode_attention"]
+__all__ = ["Attention", "CrossAttention", "project_qkv", "self_attention", "decode_attention",
+           "cross_attention"]
 
 
 class Attention(nn.Module):
@@ -164,3 +168,31 @@ def decode_attention(p, x, cache_k, cache_v, pos, *, n_heads, n_kv_heads, d_head
     probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, cache_v).reshape(b, 1, n_heads * d_head)
     return out @ p.wo, cache_k, cache_v
+
+
+class CrossAttention(Attention):
+    """One cross-attention block's weights (the reference's
+    ``init_cross_attn``): ``wq``, ``wk``, ``wv``, ``wo`` without bias and a
+    0-d ``gate`` in the param dtype, zero at init (Llama-3.2-Vision's tanh
+    gate)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, d_head: int, *,
+                 dtype: torch.dtype, generator: torch.Generator | None = None, device=None):
+        super().__init__(d_model, n_heads, n_kv_heads, d_head, bias=False, dtype=dtype,
+                         generator=generator, device=device)
+        self.gate = nn.Parameter(torch.zeros((), dtype=dtype, device=device))
+
+
+def cross_attention(p, x, kv_feats, *, n_heads, n_kv_heads, d_head, gated=True):
+    """x (B,S,d) queries; kv_feats (B,T,d) encoder or vision features.
+    Every query sees every feature (no mask, no rotary); gated, the output
+    is scaled by tanh of the gate (in float32, cast to the output dtype)."""
+    b, s, _ = x.shape
+    t = kv_feats.shape[1]
+    q = (x @ p.wq).reshape(b, s, n_heads, d_head)
+    k = (kv_feats @ p.wk).reshape(b, t, n_kv_heads, d_head)
+    v = (kv_feats @ p.wv).reshape(b, t, n_kv_heads, d_head)
+    out = _sdpa(q, k, v, causal=False, window=0).reshape(b, s, n_heads * d_head) @ p.wo
+    if gated:
+        out = torch.tanh(p.gate.float()).to(out.dtype) * out
+    return out

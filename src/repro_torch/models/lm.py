@@ -1,7 +1,9 @@
 """The LM: pre-RMSNorm GQA decoders with a SwiGLU or GELU MLP, RoPE and an
 optional QKV bias (dense), a capacity-routed MoE FFN with optional shared
 experts in place of the MLP (moe, :mod:`.moe`), a Mamba branch beside
-sliding-window attention (hybrid), and xLSTM blocks (ssm, :mod:`.ssm`).
+sliding-window attention (hybrid), xLSTM blocks (ssm, :mod:`.ssm`), a
+dense decoder with gated cross-attention to vision features (vlm), and
+Whisper's encoder-decoder (audio).
 
 Port of ``repro/models/lm.py``.  The reference's stacked parameter tree
 becomes an :class:`LM` module of trainable parameters whose names follow
@@ -22,26 +24,39 @@ or the chunkwise form), a Python branch per layer in place of
 ``lax.cond``.  The branch a layer does not run takes no part in the loss:
 its gradients are zeros (``make_train_step``), as under ``lax.cond``.
 
+The vlm family runs its ``n_layers // g · g`` decoder layers (g =
+``cfg.cross_attn_every``) in groups of g: group k first adds the gated
+cross-attention of ``xattn.<k>`` (``ln``, ``attn``) to the batch's
+``vision`` features, then runs ``layers.<k·g>`` … ``layers.<k·g+g−1>``
+(the reference's two-level scan, ``layers`` stacked ``(n_groups, g, …)``
+there).  The audio family (Whisper) runs :func:`_run_encoder` over the
+batch's ``frames`` (LayerNorm, bidirectional attention without RoPE, a
+QKV bias, learned positions ``enc_pos``), then a decoder whose layer i is
+the dense layer followed by the ungated cross-attention of
+``dec_xattn.<i>`` to the encoder's output (its ``gate`` exists, unused, as
+in the reference).  Decode takes ``vision`` or the encoder's ``memory``
+beside the tokens and re-projects their K/V every step, as the reference
+does.
+
 Remat follows ``cfg.remat_policy`` as the reference's ``jax.checkpoint``
 does, through ``torch.utils.checkpoint`` (non-reentrant), and only where a
 backward will follow (grad mode on and trainable parameters): ``"full"``
 keeps each decoder layer's input and recomputes the layer in the
-backward; ``"save_attn"`` keeps the attention's output as well and
-recomputes the attention, the Mamba branch and the MLP block each on its
-own (the ssm family has no attention, so it takes ``"full"``, as the
-reference's policy saves nothing there).  The chunked loss recomputes
-each chunk's float32 logits in the backward, as the reference's
-checkpointed chunk body does, so a step never holds every chunk's logits
-at once.  Prefill and decode run without grad and take none of this.
-What the reference does and this module does not:
+backward (the vlm a whole group, the audio decoder a layer with its
+cross block, the encoder each layer under any policy, as the reference's
+``jax.checkpoint(body)``); ``"save_attn"`` keeps the attention's output
+as well and recomputes the attention, the Mamba branch, the cross block
+and the MLP block each on its own (the ssm family has no attention, so
+it takes ``"full"``, as the reference's policy saves nothing there).  The
+chunked loss recomputes each chunk's float32 logits in the backward, as
+the reference's checkpointed chunk body does, so a step never holds every
+chunk's logits at once.  Prefill and decode run without grad and take
+none of this.  What the reference does and this module does not:
 
 * ``sharding.constrain`` is a no-op on one device and is not ported
   (ROADMAP A13b, second half);
 * the decode caches and recurrent states are updated in place (see
   ``decode_attention``).
-
-The vlm and audio families raise ``NotImplementedError`` naming their
-ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,33 +67,28 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
-from .attention import Attention, decode_attention, self_attention
-from .common import Dtype, dense_init, gelu_mlp, rms_norm, swiglu
+from .attention import Attention, CrossAttention, cross_attention, decode_attention, \
+    self_attention
+from .common import Dtype, dense_init, gelu_mlp, layer_norm, rms_norm, swiglu
 from .moe import MoE, moe_ffn
 from .ssm import (MLSTM, SLSTM, Mamba, mamba_seq, mamba_seq_assoc, mamba_step,
                   mlstm_init_state, mlstm_seq, mlstm_seq_chunked, mlstm_step, slstm_init_state,
                   slstm_seq, slstm_step)
 
 __all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
-           "decode_step", "check_family", "UNPORTED_FAMILIES"]
+           "decode_step", "check_family", "PORTED_FAMILIES"]
 
 LOSS_CHUNK = 512
 
-#: families the port runs
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-#: families of the reference not ported yet → the ROADMAP item that ports them
-UNPORTED_FAMILIES = {
-    "vlm": "A13f (vlm family: cross-attention)",
-    "audio": "A13f (audio family: encoder and cross-attention)",
-}
+#: families the port runs: every family of the registry
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless the port runs ``cfg``'s family."""
+    """Raise unless ``cfg``'s family is one the LM knows."""
     if cfg.family not in PORTED_FAMILIES:
-        item = UNPORTED_FAMILIES.get(cfg.family, "A13")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP {item})")
+            f"{cfg.name}: no LM family {cfg.family!r} (known: {', '.join(PORTED_FAMILIES)})")
 
 
 class MLP(nn.Module):
@@ -124,6 +134,38 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg, dtype, **kw)
 
 
+class CrossBlock(nn.Module):
+    """A cross-attention block: its pre-norm ``ln`` and ``attn``."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
+        super().__init__()
+        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.attn = CrossAttention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                   dtype=dtype, generator=generator, device=device)
+
+
+class EncoderLayer(nn.Module):
+    """A Whisper encoder layer: LayerNorms with biases, attention with the
+    config's QKV bias, the MLP."""
+
+    def __init__(self, cfg: ArchConfig, dtype, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        d = cfg.d_model
+        self.ln1 = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        self.ln1_b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, bias=cfg.qkv_bias,
+                              dtype=dtype, **kw)
+        self.ln2 = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        self.ln2_b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+        self.mlp = MLP(cfg, dtype, **kw)
+
+
+def n_groups(cfg: ArchConfig) -> int:
+    """The vlm family's groups of ``cross_attn_every`` decoder layers."""
+    return cfg.n_layers // cfg.cross_attn_every
+
+
 class LM(nn.Module):
     """The LM's weights (the reference's ``init_params``),
     drawn from ``generator`` (seeded 0 on ``device`` when not given)
@@ -144,8 +186,21 @@ class LM(nn.Module):
             self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
             if not cfg.tie_embeddings:
                 self.lm_head = nn.Parameter(dense_init((cfg.d_model, cfg.vocab), dtype, **kw))
-            self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, **kw)
-                                        for _ in range(cfg.n_layers))
+            depth = n_groups(cfg) * cfg.cross_attn_every if cfg.family == "vlm" else cfg.n_layers
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, **kw) for _ in range(depth))
+            if cfg.family == "vlm":
+                self.xattn = nn.ModuleList(CrossBlock(cfg, dtype, **kw)
+                                           for _ in range(n_groups(cfg)))
+            if cfg.is_encdec:
+                d = cfg.d_model
+                self.encoder = nn.ModuleList(EncoderLayer(cfg, dtype, **kw)
+                                             for _ in range(cfg.encoder_layers))
+                self.enc_norm = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+                self.enc_norm_b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+                self.enc_pos = nn.Parameter(dense_init((cfg.encoder_frames, d), dtype,
+                                                       scale=0.02, **kw))
+                self.dec_xattn = nn.ModuleList(CrossBlock(cfg, dtype, **kw)
+                                               for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -221,30 +276,102 @@ def _remat(model: LM) -> bool:
     return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
 
 
-def _run_decoder(cfg: ArchConfig, model: LM, h, *, use_kernel=False):
+def _cross_block(cfg: ArchConfig, block: CrossBlock, h, feats, gated: bool):
+    """The cross-attention of the normed h to ``feats`` (vision or memory)."""
+    return cross_attention(block.attn, rms_norm(h, block.ln), feats, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, gated=gated)
+
+
+def _cross(cfg: ArchConfig, block: CrossBlock, h, feats, gated: bool, remat: bool):
+    """h plus its cross block, the block recomputed in the backward under remat."""
+    if remat:
+        return h + checkpoint(_cross_block, cfg, block, h, feats, gated, use_reentrant=False)
+    return h + _cross_block(cfg, block, h, feats, gated)
+
+
+def _layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel, remat: bool):
+    """One attention decoder layer under ``cfg.remat_policy`` → (h, aux).
+    ``"full"`` recomputes the whole layer in the backward; ``"save_attn"``
+    recomputes each block on its own and keeps the attention's output."""
+    if not remat:
+        return _decoder_layer(cfg, layer, h, use_kernel)
+    if cfg.remat_policy != "save_attn":
+        return checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
+    out = checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
+    if cfg.family == "hybrid":
+        out = (out + checkpoint(_mamba_block, cfg, layer, h, use_reentrant=False)) * 0.5
+    h = h + out
+    y, a = checkpoint(_mlp_block, cfg, layer, h, use_reentrant=False)
+    return h + y, a
+
+
+def _vlm_group(cfg: ArchConfig, model: LM, k: int, h, vision, use_kernel, remat=False):
+    """Group k of the vlm: its cross block, then its g decoder layers."""
+    h = _cross(cfg, model.xattn[k], h, vision, True, remat)
+    g = cfg.cross_attn_every
+    for layer in model.layers[k * g:(k + 1) * g]:
+        h, _ = _layer(cfg, layer, h, use_kernel, remat)
+    return h
+
+
+def _audio_layer(cfg: ArchConfig, model: LM, i: int, h, memory, use_kernel, remat=False):
+    """Decoder layer i of the audio family, then its ungated cross block."""
+    h, _ = _layer(cfg, model.layers[i], h, use_kernel, remat)
+    return _cross(cfg, model.dec_xattn[i], h, memory, False, remat)
+
+
+def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
+                 use_kernel=False):
     """The decoder stack → (h, the aux terms summed over the layers, or
     None for a family without them)."""
     remat = _remat(model)
+    if cfg.family == "vlm" or cfg.is_encdec:
+        # "full" checkpoints a vlm group or an audio layer with its cross
+        # block whole (the reference's _remat(group_body) / _remat(dec_body));
+        # "save_attn" checkpoints each block inside them
+        whole = remat and cfg.remat_policy != "save_attn"
+        inner = remat and not whole
+        if cfg.family == "vlm":
+            body, feats, count = _vlm_group, vision, n_groups(cfg)
+        else:
+            body, feats, count = _audio_layer, memory, cfg.n_layers
+        for i in range(count):
+            if whole:
+                h = checkpoint(body, cfg, model, i, h, feats, use_kernel, use_reentrant=False)
+            else:
+                h = body(cfg, model, i, h, feats, use_kernel, inner)
+        return h, None
     aux = _zero_aux(cfg, h.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
             args = (cfg, layer, h, _is_slstm(cfg, i))
             h = checkpoint(_ssm_layer, *args, use_reentrant=False) if remat else _ssm_layer(*args)
             continue
-        if not remat:
-            h, a = _decoder_layer(cfg, layer, h, use_kernel)
-        elif cfg.remat_policy == "save_attn":
-            out = checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
-            if cfg.family == "hybrid":
-                out = (out + checkpoint(_mamba_block, cfg, layer, h, use_reentrant=False)) * 0.5
-            h = h + out
-            y, a = checkpoint(_mlp_block, cfg, layer, h, use_reentrant=False)
-            h = h + y
-        else:
-            h, a = checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
+        h, a = _layer(cfg, layer, h, use_kernel, remat)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return h, aux
+
+
+def _encoder_layer(cfg: ArchConfig, layer: EncoderLayer, h):
+    x = layer_norm(h, layer.ln1, layer.ln1_b)
+    h = h + self_attention(layer.attn, x, causal=False, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=0.0,
+                           impl=cfg.attn_impl)
+    return h + layer.mlp(layer_norm(h, layer.ln2, layer.ln2_b))
+
+
+def _run_encoder(cfg: ArchConfig, model: LM, frames):
+    """Whisper's encoder over (stub) frame embeddings (B,F,d) → its output
+    (B,F,d): learned positions, LayerNorm layers of bidirectional attention
+    (no RoPE, no kernel: plain, as the reference's) and the MLP, each
+    layer recomputed in the backward where one follows."""
+    h = frames + model.enc_pos[None, :frames.shape[1]]
+    remat = _remat(model)
+    for layer in model.encoder:
+        h = (checkpoint(_encoder_layer, cfg, layer, h, use_reentrant=False) if remat
+             else _encoder_layer(cfg, layer, h))
+    return layer_norm(h, model.enc_norm, model.enc_norm_b)
 
 
 def _chunked_loss(cfg: ArchConfig, model: LM, h, labels):
@@ -275,20 +402,41 @@ def _embed(model: LM, tokens):
     return F.embedding(tokens.long(), model.embed)
 
 
+def _features(cfg: ArchConfig, model: LM, batch) -> dict:
+    """The decoder's cross-attention inputs of a batch: ``vision`` (vlm),
+    or the encoder's output over ``frames`` as ``memory`` (audio)."""
+    if cfg.family == "vlm":
+        return dict(vision=_required(batch.get("vision"), "vision", cfg))
+    if cfg.is_encdec:
+        return dict(memory=_run_encoder(cfg, model, _required(batch.get("frames"), "frames",
+                                                              cfg)))
+    return {}
+
+
+def _required(x, name: str, cfg: ArchConfig):
+    if x is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs {name!r}")
+    return x
+
+
 @torch.no_grad()
 def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
     """Full (B,S,V) float32 logits — test/eval only, so without grad
-    (training takes :func:`forward_loss`)."""
-    h, _ = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    (training takes :func:`forward_loss`).  ``batch`` holds ``tokens``,
+    and ``vision`` (B,T,d) for the vlm family or ``frames`` (B,F,d) for
+    the audio family."""
+    h, _ = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel,
+                        **_features(cfg, model, batch))
     return (rms_norm(h, model.final_norm) @ model.head()).float()
 
 
 def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
-    """batch: tokens (B,S), labels (B,S).  Returns (loss, metrics):
-    ``nll``, ``loss`` and, for the moe family, ``load_balance`` and
-    ``z_loss`` (summed over the layers; ``loss`` adds 0.01 and 0.001 of
-    them)."""
-    h, aux = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel)
+    """batch: tokens (B,S), labels (B,S), and ``vision`` (vlm) or
+    ``frames`` (audio).  Returns (loss, metrics): ``nll``, ``loss`` and,
+    for the moe family, ``load_balance`` and ``z_loss`` (summed over the
+    layers; ``loss`` adds 0.01 and 0.001 of them)."""
+    h, aux = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel,
+                          **_features(cfg, model, batch))
     loss = _chunked_loss(cfg, model, rms_norm(h, model.final_norm), batch["labels"])
     metrics = dict(nll=loss)
     if aux is not None:
@@ -344,30 +492,48 @@ def _ssm_decode(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int):
     return h + out
 
 
-def decode_step(cfg: ArchConfig, model: LM, state, tokens):
+def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos):
+    """Attention decoder layer ``i``'s decode step; its caches (and Mamba
+    state) are written in place."""
+    x = rms_norm(h, layer.ln1)
+    out, _, _ = decode_attention(
+        layer.attn, x, cache["k"][i], cache["v"][i], pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+        window=cfg.attn_window)
+    if cfg.family == "hybrid":
+        m_out, mh, conv = mamba_step(layer.mamba, x, cache["mamba_h"][i],
+                                     cache["mamba_conv"][i], d_state=cfg.ssm_state)
+        cache["mamba_h"][i].copy_(mh)
+        cache["mamba_conv"][i].copy_(conv)
+        out = (out + m_out) * 0.5
+    h = h + out
+    return h + _mlp_block(cfg, layer, h)[0]      # the MoE's T is the decode batch
+
+
+def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, vision=None):
     """One decode step.  tokens (B,) int → (logits (B,V) float32, state).
+    The vlm family needs ``vision`` (B,T,d), the audio family the
+    encoder's output as ``memory`` (B,F,d) (:func:`_run_encoder`); their
+    K/V are projected anew each step, as the reference's are.
 
     The returned state holds the same cache and state tensors, written in
     place, and the next position."""
+    if cfg.family == "vlm":
+        _required(vision, "vision", cfg)
+    if cfg.is_encdec:
+        _required(memory, "memory", cfg)
     pos = state["pos"]
     cache = state["cache"]
     h = _embed(model, tokens[:, None])
+    g = cfg.cross_attn_every
     for i, layer in enumerate(model.layers):
+        if cfg.family == "vlm" and i % g == 0:
+            h = h + _cross_block(cfg, model.xattn[i // g], h, vision, True)
         if cfg.family == "ssm":
             h = _ssm_decode(cfg, layer, h, cache, i)
             continue
-        x = rms_norm(h, layer.ln1)
-        out, _, _ = decode_attention(
-            layer.attn, x, cache["k"][i], cache["v"][i], pos, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-            window=cfg.attn_window)
-        if cfg.family == "hybrid":
-            m_out, mh, conv = mamba_step(layer.mamba, x, cache["mamba_h"][i],
-                                         cache["mamba_conv"][i], d_state=cfg.ssm_state)
-            cache["mamba_h"][i].copy_(mh)
-            cache["mamba_conv"][i].copy_(conv)
-            out = (out + m_out) * 0.5
-        h = h + out
-        h = h + _mlp_block(cfg, layer, h)[0]      # the MoE's T is the decode batch
+        h = _decode_layer(cfg, layer, h, cache, i, pos)
+        if cfg.is_encdec:
+            h = h + _cross_block(cfg, model.dec_xattn[i], h, memory, False)
     logits = rms_norm(h, model.final_norm) @ model.head()
     return logits[:, 0].float(), dict(cache=cache, pos=pos + 1)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.engine import resolve_device
 from .common import dense_init
 
 __all__ = [
@@ -137,7 +138,10 @@ def _mamba_out(p: Mamba, y, u, z):
 
 
 def mamba_init_state(batch: int, d_model: int, d_state: int, *, device=None):
-    return torch.zeros((batch, d_model, d_state), dtype=torch.float32, device=device)
+    """Zero Mamba state (B,d,N) float32 on ``device`` (default: the current
+    card; raises without one)."""
+    return torch.zeros((batch, d_model, d_state), dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def _mamba_scan(h, xs, a):
@@ -233,7 +237,9 @@ class MLSTM(nn.Module):
 
 
 def mlstm_init_state(batch: int, n_heads: int, dh: int, *, device=None) -> dict:
-    f32 = dict(dtype=torch.float32, device=device)
+    """Zero mLSTM state, ``m`` at −1e30, float32 on ``device`` (default: the
+    current card; raises without one)."""
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     return dict(c=torch.zeros((batch, n_heads, dh, dh), **f32),
                 n=torch.zeros((batch, n_heads, dh), **f32),
                 m=torch.full((batch, n_heads), M_INIT, **f32))
@@ -401,7 +407,9 @@ class SLSTM(nn.Module):
 
 
 def slstm_init_state(batch: int, n_heads: int, dh: int, *, device=None) -> dict:
-    f32 = dict(dtype=torch.float32, device=device)
+    """Zero sLSTM state, ``m`` at −1e30, float32 on ``device`` (default: the
+    current card; raises without one)."""
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     return dict(c=torch.zeros((batch, n_heads, dh), **f32),
                 n=torch.zeros((batch, n_heads, dh), **f32),
                 m=torch.full((batch, n_heads), M_INIT, **f32),

@@ -76,8 +76,9 @@ def _grads(loss, params: dict) -> tuple:
 def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup_steps=200,
                     use_kernel=False, grad_compress=False, microbatch: int = 0):
     """``(model, opt_state, batch, step) -> (opt_state, metrics)``: one AdamW
-    step on the mean NLL of ``batch`` (tokens, labels (B,S), tensors or
-    numpy), learning rate ``cosine_schedule(base_lr, warmup_steps,
+    step on the mean NLL of ``batch`` (tokens, labels (B,S), and ``vision``
+    or ``frames`` for the vlm and audio families; tensors or numpy),
+    learning rate ``cosine_schedule(base_lr, warmup_steps,
     total_steps)(step)``.  ``metrics`` holds ``loss``, ``nll`` and
     ``grad_norm`` (0-d tensors on the model's device) and ``lr``.
 
@@ -139,8 +140,13 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel=False):
 
 
 def make_serve_step(cfg: ArchConfig):
+    """``(model, state, batch) -> (logits, state)``: one decode step of
+    ``batch["tokens"]``, with ``batch["vision"]`` (vlm) or
+    ``batch["memory"]`` (audio: the encoder's output) where present."""
+
     @torch.inference_mode()
     def serve_step(model, state, batch):
-        return lm.decode_step(cfg, model, state, batch["tokens"])
+        return lm.decode_step(cfg, model, state, batch["tokens"], memory=batch.get("memory"),
+                              vision=batch.get("vision"))
 
     return serve_step

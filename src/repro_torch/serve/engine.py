@@ -10,7 +10,11 @@ position, so the scalar-position decode step serves the whole stream.
 
 The engine runs on ``device`` (by default the current card; raises
 without one unless ``device="cpu"``), which must be where the model's
-weights lie.
+weights lie.  It refuses the vlm and audio families: its requests carry
+tokens only, and their decode steps need ``vision`` features or the
+encoder's ``memory`` as well (the reference's engine calls
+``decode_step`` without them).  Serve those through ``make_serve_step``,
+as ``repro_torch.launch.serve`` does.
 """
 from __future__ import annotations
 
@@ -42,6 +46,11 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, model: lm.LM, *, batch_slots: int = 4,
                  cache_len: int = 256, device=None):
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"ServeEngine serves token requests only; {cfg.name}'s {cfg.family} family "
+                "needs vision or memory beside the tokens in every decode step: serve it "
+                "through make_serve_step (repro_torch.launch.serve)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"ServeEngine on {self.device}: the model lies on {model.device}")

@@ -14,6 +14,10 @@ other's.  The weights are drawn from a ``torch.Generator`` seeded with
 ``seed`` on the device (a different stream than ``jax.random``'s).  The
 reference's mesh sharding waits for ROADMAP A13b's second half; there is
 no jit or donation to port, and ``use_pallas`` becomes ``use_kernel``.
+The loop refuses the vlm and audio families, as the reference's cannot
+feed them: ``TokenPipeline`` makes tokens and labels only, and their
+batches need ``vision`` or ``frames`` too (``make_train_step`` takes such
+batches).
 """
 from __future__ import annotations
 
@@ -61,6 +65,11 @@ class TrainLoop:
     card; raises without one unless the CPU is named)."""
 
     def __init__(self, cfg: ArchConfig, tc: TrainConfig, *, device=None):
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"TrainLoop's TokenPipeline makes tokens and labels only; {cfg.name}'s "
+                f"{cfg.family} family needs vision or frames in every batch: train it "
+                "through make_train_step")
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device)

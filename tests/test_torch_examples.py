@@ -11,7 +11,8 @@
   and host lane repack waves once measured wave times pass a 10 ms floor,
   so these follow the host's load.  ``tests/test_torch_stream.py`` holds
   the planned waves to the reference's.
-* The two LM examples run a few tokens and steps on the CPU and exit 0.
+* The two LM examples run a few tokens and steps on the CPU and exit 0
+  (the serving one also on the moe, vlm and audio smoke configs).
 * ``run(alg, store, ...)`` equals ``compile_plan(...).run()``; the
   deprecated ``Engine`` warns, equals the reference's ``Engine`` on the
   reference tests' stores, and refuses ``backend``/``use_pallas``.
@@ -84,13 +85,11 @@ def test_serve_lm_example_serves_the_moe_smoke_config():
     assert "4 streams × 3 tokens" in out
 
 
-def test_serve_lm_example_refuses_an_unported_family():
-    out = subprocess.run([sys.executable, "examples/torch_serve_lm.py", "--device", "cpu",
-                          "--arch", "whisper-base", "--tokens", "1"], capture_output=True,
-                         text=True, cwd=ROOT, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "A13f" in out.stderr
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
+def test_serve_lm_example_serves_the_vlm_and_audio_smoke_configs(arch):
+    out = _run(["examples/torch_serve_lm.py", "--device", "cpu", "--arch", arch,
+                "--tokens", "3"])
+    assert "4 streams × 3 tokens" in out
 
 
 def test_train_lm_example_runs(tmp_path):

@@ -357,15 +357,6 @@ def test_bf16_smoke_forward_within_bf16_tolerance():
     assert np.abs(got.numpy() - _f32(want)).mean() < 1e-2
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-base"])
-def test_unported_families_raise(arch):
-    cfg = get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        lm.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        lm.init_decode_state(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2.5-32b", "starcoder2-7b",
                                   "qwen1.5-32b"])
 def test_dense_smoke_configs_run(arch):
