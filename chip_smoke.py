@@ -208,7 +208,24 @@ and audio) through ``make_prefill_step``, ``ServeEngine`` and
    backward once);
 11. ``python -m repro_torch.launch.train`` on the smoke config, then a
    ``TrainLoop`` cut after 3 of 6 steps and resumed, equal to the
-   uninterrupted run.
+   uninterrupted run;
+12. the sharded training step (``phase sharded``), in child processes so
+   that this one holds no process group: one rank a card over every
+   visible card, an NCCL ``(cards, 1)`` ``("data", "model")`` mesh (``(1,
+   1)`` on one card).  granite-3-8b at full width, 2 layers, float32, TF32
+   off, batch 2 × 256: the model sharded by ``shard_model`` (FSDP2), one
+   ``make_train_step(mesh=...)`` step with the kernels against one
+   ``make_train_step`` step without a mesh and without the kernels from the
+   same weights and batch (loss and grad_norm within LM_TOL, every updated
+   parameter, gathered, within the reference's resume tolerance), the
+   kernels' launches counted (``flash_attention`` twice a layer under
+   remat, its backward once); a ``TrainLoop`` checkpoint of an unsharded
+   run restored onto the mesh (elastic) and stepped to the uninterrupted
+   run's parameters; and ``launch.dryrun``'s trace of granite-3-8b ×
+   train_4k on the 16 × 16 production mesh over a fake process group
+   (per-device bytes, FLOPs, collective bytes by kind, the dominant
+   term), traced in a child process started with the script, beside the
+   kernel and LM phases.  The phase must take at most SHARDED_SECONDS.
 
 The phases run in this order: the kernel checks (1), the LM phases (7-11),
 then the graph phases (2-6).  The PageRank store's host build (R-MAT,
@@ -479,6 +496,14 @@ TRAIN = dict(n_layers=8, batch=2, seq=4096, microbatch=2, timed=3)
 TRAIN_LOOP = dict(steps=6, cut=3, batch=4, seq=64)
 #: a model with random weights predicts about as well as chance: |loss - ln V| bound
 LOSS_BAND = 1.5
+#: phase sharded: granite-3-8b at full width, 2 layers, float32, batch 2 x 256 on a
+#: (cards, 1) mesh; the TrainLoop resume on the smoke config, cut after `cut` steps
+SHARDED = dict(n_layers=2, batch=2, seq=256, loop_steps=3, loop_cut=2, loop_batch=4,
+               loop_seq=64)
+#: the production-mesh dry run printed beside it: (arch, shape, multi_pod)
+SHARDED_DRYRUN = (LM_ARCH, "train_4k", False)
+#: phase sharded's limit (seconds, host clock), the wait for the dry run included
+SHARDED_SECONDS = 60.0
 
 SOURCES = {
     "spmv_tiles": ("src/repro_torch/csrc/spmv_tiles.cu", "src/repro/kernels/spmv_tile.py:32"),
@@ -3492,15 +3517,17 @@ def phase_vlm_audio(dev, card: str):
 
 
 def updated_params_match(got, want, opt_want, lr) -> tuple[float, float, int]:
-    """Every parameter of ``got`` within STEP_TOL of ``want``'s after one
-    AdamW step, except the elements whose first moment says 0 < |g| <
-    1e-6 (Adam's step there moves steeply with g), held to 2 lr.  Returns
-    the largest difference outside and inside that set, and its size."""
+    """Every parameter of ``got`` (a module, or whole tensors by name) within
+    STEP_TOL of ``want``'s after one AdamW step, except the elements whose
+    first moment says 0 < |g| < 1e-6 (Adam's step there moves steeply with
+    g), held to 2 lr.  Returns the largest difference outside and inside
+    that set, and its size."""
     import torch
 
     worst, worst_tiny, tiny_n = 0.0, 0.0, 0
+    got = dict(got.named_parameters()) if hasattr(got, "named_parameters") else got
     with torch.no_grad():
-        for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        for (name, a), b in zip(got.items(), want.parameters()):
             diff = (a - b).abs()
             mu = opt_want["mu"][name].abs()              # mu = (1 - 0.9) g after one step
             tiny = (mu < 1e-7) & (mu > 0)
@@ -3709,6 +3736,208 @@ def phase_train_loop(dev) -> None:
             f"{full['history'][-1]['nll']:.4f}")
 
 
+def sharded_checks(rank: int, world: int, dev, tmp: str) -> dict:
+    """In each rank of phase sharded (see ``sharded_worker``): the sharded
+    step against the unsharded one, then the elastic restore.  Returns
+    rank 0's numbers."""
+    import copy
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_train_step, shard_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, TrainLoop
+
+    sh = SHARDED
+    mesh = init_device_mesh(dev.type, (world, 1), mesh_dim_names=("data", "model"))
+    cfg = lm_config(n_layers=sh["n_layers"], dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = lm.LM(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (sh["batch"] * world, sh["seq"]), generator=gen,
+                           device=dev)
+    batch = dict(tokens=tokens, labels=tokens.roll(-1, dims=1))
+    plain = copy.deepcopy(base)
+    popt = adamw_init(plain)
+    popt, pm = make_train_step(cfg, warmup_steps=1)(plain, popt, batch, 0)
+    pm = {k: float(v) for k, v in pm.items()}
+    model = shard_model(base, mesh)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, warmup_steps=1, use_kernel=True, mesh=mesh)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt, m = step(model, opt, batch, 0)
+    m = {k: float(v) for k, v in m.items()}
+    first_s = time.perf_counter() - t0
+    launches = registry.launch_counts()
+    full = {name: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+            for name, p in model.named_parameters()}
+    placements = {name: str(tuple(p.placements)) for name, p in model.named_parameters()
+                  if isinstance(p, DTensor)}
+    out = dict(mesh=(world, 1), loss=m["loss"], grad_norm=m["grad_norm"], plain=pm,
+               launches=launches, first_s=first_s, placements=sorted(set(placements.values())))
+    if rank == 0:
+        check(all(np.isfinite([m["loss"], m["grad_norm"]])) and all(
+            np.isclose(m[k], pm[k], **LM_TOL) for k in ("loss", "grad_norm")),
+            f"sharded: loss {m['loss']} / grad_norm {m['grad_norm']} on the mesh with the "
+            f"kernels, {pm['loss']} / {pm['grad_norm']} unsharded without ({LM_TOL})")
+        out["worst"], out["worst_tiny"], out["tiny"] = updated_params_match(
+            full, plain, popt, m["lr"])
+    layers, local = cfg.n_layers, sh["batch"]
+    check(launches["flash_attention"] == 2 * layers and launches["flash_attention_bwd"] == layers,
+          f"sharded: launches {launches}, expected flash_attention {2 * layers} (remat) and "
+          f"its backward {layers} a step of a local batch of {local}")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    opt, m2 = step(model, opt, batch, 1)
+    torch.cuda.synchronize(dev)
+    out["step_s"] = time.perf_counter() - t0
+    out["loss2"] = float(m2["loss"])
+    del model, opt, plain, popt, base, full
+    torch.cuda.empty_cache()
+
+    # elastic restore: an unsharded run's checkpoint resumed on the mesh
+    scfg = replace(get_smoke(LM_ARCH), dtype="float32")
+    tc = TrainConfig(steps=sh["loop_steps"], batch=sh["loop_batch"], seq=sh["loop_seq"],
+                     ckpt_dir=os.path.join(tmp, "full"), ckpt_every=1, base_lr=1e-3,
+                     warmup_steps=1, log_every=1)
+    cut_dir = os.path.join(tmp, "cut")
+    if rank == 0:
+        whole = TrainLoop(scfg, tc, device=dev).run()
+        TrainLoop(scfg, replace(tc, ckpt_dir=cut_dir, steps=sh["loop_cut"]), device=dev).run()
+    dist.barrier()
+    resumed = TrainLoop(scfg, replace(tc, ckpt_dir=cut_dir), mesh=mesh).run()
+    steps = [h["step"] for h in resumed["history"]]
+    check(steps == list(range(sh["loop_cut"], sh["loop_steps"])),
+          f"sharded: steps after the restore {steps}")
+    got = {name: (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+           for name, p in resumed["model"].named_parameters()}
+    if rank == 0:
+        worst = 0.0
+        for name, want in whole["model"].named_parameters():
+            ok = torch.allclose(got[name], want.detach(), **STEP_TOL)
+            check(ok, f"sharded: {name} after the restore on the mesh differs from the "
+                  "uninterrupted unsharded run")
+            worst = max(worst, float((got[name] - want.detach()).abs().max()))
+        out["restore_worst"] = worst
+        out["restore_nll"] = resumed["history"][-1]["nll"]
+    return out
+
+
+def sharded_worker(rank: int, world: int, init_file: str, tmp: str) -> None:
+    """One rank of phase sharded: card ``rank``, an NCCL process group of
+    ``world`` ranks through a file store; rank 0 writes its numbers to
+    ``tmp``/result.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, device_id=dev)
+    try:
+        out = sharded_checks(rank, world, dev, tmp)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+class DryRun:
+    """``launch.dryrun`` of SHARDED_DRYRUN in a child process, started with
+    the script so that its trace (host work, no card) runs beside the
+    kernel and LM phases; ``phase sharded`` reads its JSON."""
+
+    def __init__(self):
+        import tempfile
+
+        self._folder = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+        arch, shape, multi_pod = SHARDED_DRYRUN
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--out", self._folder.name] + (["--multi-pod"] * multi_pod)
+        self._proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True,
+                                      env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+    def result(self) -> dict:
+        """Wait for the dry run and return its cell's JSON."""
+        _, err = self._proc.communicate(timeout=600)
+        check(self._proc.returncode == 0, f"dry run exited {self._proc.returncode}: "
+              f"{err[-2000:]}")
+        arch, shape, multi_pod = SHARDED_DRYRUN
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+        with open(os.path.join(self._folder.name, f"{arch}__{shape}__{mesh_name}.json")) as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        if self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.communicate()
+        self._folder.cleanup()
+
+
+def phase_sharded(card: str, dry: DryRun) -> None:
+    """The sharded training step on an NCCL mesh over every card, in
+    spawned child processes (one a card); then the production-mesh dry
+    run's result, traced in another child since the script began; checks
+    each, prints their numbers and the phase's time (the wait for the dry
+    run included) against SHARDED_SECONDS."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    arch, shape, _ = SHARDED_DRYRUN
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        mp.spawn(sharded_worker, args=(world, os.path.join(tmp, "pg"), tmp), nprocs=world,
+                 join=True)
+        with open(os.path.join(tmp, "result.json")) as f:
+            r = json.load(f)
+    d = dry.result()
+    seconds = time.perf_counter() - t0
+    sh = SHARDED
+    say(f"phase sharded: {LM_ARCH} {sh['n_layers']} layers float32 on a {tuple(r['mesh'])} "
+        f"NCCL (data, model) mesh, FSDP2 placements {r['placements']}, batch "
+        f"{sh['batch'] * r['mesh'][0]} x {sh['seq']}: loss {r['loss']:.6f} vs "
+        f"{r['plain']['loss']:.6f} unsharded without the kernels, grad_norm "
+        f"{r['grad_norm']:.6f} vs {r['plain']['grad_norm']:.6f} ({LM_TOL}); updated "
+        f"parameters max |diff| {r['worst']:.2e} ({STEP_TOL}), {r['worst_tiny']:.2e} on the "
+        f"{r['tiny']} elements with 0 < |g| < 1e-6; launches a step {r['launches']}; first "
+        f"step {r['first_s']:.2f} s, second {r['step_s'] * 1e3:.1f} ms (loss {r['loss2']:.6f}) "
+        f"[{card}]")
+    say(f"phase sharded: the smoke config's unsharded TrainLoop checkpoint at step "
+        f"{sh['loop_cut'] - 1} restored onto the mesh and stepped to {sh['loop_steps']}: "
+        f"parameters within {STEP_TOL} of the uninterrupted run (max |diff| "
+        f"{r['restore_worst']:.2e}), nll {r['restore_nll']:.4f}")
+    check(d["status"] == "ok" and d["memory"]["temp_bytes"] > 0
+          and d["collectives"]["total"] > 0, f"dry run: {d.get('status')} {d.get('error')}")
+    mem, roof, coll = d["memory"], d["roofline"], d["collectives"]
+    say(f"phase sharded: dry run {arch} x {shape} x {d['mesh']} ({d['chips']} fake ranks, "
+        f"traced in {d['seconds_trace']:.1f} s): per device parameters "
+        f"{mem['param_bytes'] / 1e9:.3f} GB, gradients {mem['grad_bytes'] / 1e9:.3f}, "
+        f"optimizer {mem['optimizer_bytes'] / 1e9:.3f}, step peak {mem['temp_bytes'] / 1e9:.3f};"
+        f" FLOPs {roof['hlo_flops_per_chip']:.4e} a device (model FLOPs share "
+        f"{d['useful_flops_ratio']:.3f}), bytes {roof['hlo_bytes_per_chip']:.4e}; collective "
+        f"bytes {json.dumps(coll['per_kind'])} counts {json.dumps(coll['counts'])}; terms "
+        f"compute {roof['t_compute']:.4f} s, memory {roof['t_memory']:.4f} s, collective "
+        f"{roof['t_collective']:.4f} s, dominant {roof['dominant']}")
+    say(f"phase sharded: {seconds:.1f} s (limit {SHARDED_SECONDS:.0f} s)")
+    check(seconds <= SHARDED_SECONDS, f"phase sharded took {seconds:.1f} s, over "
+          f"{SHARDED_SECONDS} s")
+
+
 def store_builder(conn, cfg: dict, folder: str) -> None:
     """In a child process: build the block store of ``cfg`` (PAGERANK's
     shape: R-MAT, descending degree order, blocks) on the host, save each
@@ -3775,11 +4004,11 @@ class StoreBuild:
         return store, head["seconds"], time.perf_counter() - t0
 
 
-def run(dev, card: str, build: StoreBuild) -> list[dict]:
+def run(dev, card: str, build: StoreBuild, dry: DryRun) -> list[dict]:
     """The phases in order; returns the per-kernel records.  ``card`` is
     the card's name and power limit, printed beside phase serve's numbers;
-    ``build`` is the PageRank store's build, which runs on the host beside
-    the kernel and LM phases."""
+    ``build`` is the PageRank store's build and ``dry`` the production-mesh
+    dry run, which run on the host beside the kernel and LM phases."""
     import torch
 
     start = time.perf_counter()
@@ -3816,6 +4045,8 @@ def run(dev, card: str, build: StoreBuild) -> list[dict]:
     t0 = time.perf_counter()
     phase_train_loop(dev)
     say(f"phase train loop: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phase_sharded(card, dry)
     bwd_rec = record("flash_attention_bwd", bwd_launches, bwd["err"], bwd["ms"], bwd["plain_ms"],
                      bwd["nbytes"], bwd["ops"], bwd["library_ms"], rate=BF16_TC_FLOPS)
     torch.cuda.empty_cache()
@@ -3889,12 +4120,15 @@ def main() -> int:
     say(card)
     dev = torch.device("cuda", 0)
     build = StoreBuild(PAGERANK)
-    t0 = time.perf_counter()
-    logs = _build.build_all(list(SOURCES))
-    say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    tensor_core_report(logs)
-
-    kernels = run(dev, card, build)
+    dry = DryRun()
+    try:
+        t0 = time.perf_counter()
+        logs = _build.build_all(list(SOURCES))
+        say(f"build: {len(SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+        tensor_core_report(logs)
+        kernels = run(dev, card, build, dry)
+    finally:
+        dry.close()
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,19 @@
   back to the newest file on disk on mismatch (torn-write recovery).
 * **Device-free on disk**: leaves are stored as host numpy arrays
   (``.cpu().numpy()``); on restore they are cast to the template's
-  dtype and, when a ``device`` is named, moved there.
+  dtype and, when a ``device`` is named, moved there.  A template leaf
+  may be a ``torch.dtype`` alone: the leaf comes back as a tensor of it,
+  with no data needed to build the template.
 * **Auto-resume**: ``CheckpointManager.restore_or_init`` returns
   ``(state, start_step)``.
+* **Elastic**: arrays are stored whole and logical, whatever mesh wrote
+  them; ``shardings`` (a tree like the template's, of ``(mesh,
+  placements)`` pairs or None) places each restored tensor leaf as a DTensor on
+  the current mesh, each rank keeping its shard.  Leaves are read one at
+  a time and placed as they are read, so a rank holds one whole leaf at
+  most besides its shards.  A sharded writer gathers whole tensors
+  (every rank takes part) and rank 0 alone keeps and writes them
+  (``train.loop.TrainLoop``).
 
 Serialization: one ``npz`` per checkpoint, keyed by the flattened tree
 path of each leaf (dict keys and sequence positions joined with
@@ -27,6 +37,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..models.sharding import place
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "CheckpointManager"]
@@ -73,30 +85,46 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return {_SEP.join(path): _host_array(leaf) for path, leaf in _leaf_paths(tree)}
 
 
-def _restore_leaf(a: np.ndarray, leaf, device):
-    """The stored array ``a`` cast to ``leaf``'s dtype: a tensor (on
-    ``device``, else the template's device) for a tensor template, a
-    numpy array (a tensor on ``device`` when one is named) otherwise."""
-    if isinstance(leaf, torch.Tensor):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=device if device is not None else leaf.device, dtype=leaf.dtype)
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    # ascontiguousarray makes a 0-d array 1-d: keep its shape
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
+
+
+def _restore_leaf(a: np.ndarray, leaf, device, sharding):
+    """The stored array ``a`` cast to ``leaf``'s dtype.  For a tensor or
+    ``torch.dtype`` template: a DTensor placed as ``sharding`` (``(mesh,
+    placements)``) says when it is given, else a tensor on ``device``,
+    else on the template's device, else on the host.  Otherwise a numpy
+    array (a tensor on ``device`` when one is named)."""
+    if isinstance(leaf, (torch.Tensor, torch.dtype)):
+        dtype = leaf if isinstance(leaf, torch.dtype) else leaf.dtype
+        if sharding is not None:
+            return place(_tensor(a), *sharding).to(dtype)
+        if device is None and isinstance(leaf, torch.Tensor):
+            device = leaf.device
+        return _tensor(a).to(device=device, dtype=dtype)
     if hasattr(leaf, "dtype") and a.dtype != leaf.dtype:
         a = a.astype(leaf.dtype)
     if device is not None:
-        return torch.from_numpy(np.array(a)).to(device)
+        return _tensor(a).to(device)
     return a
 
 
-def _unflatten_into(template, arrays: dict, device=None, prefix: tuple = ()):
+def _unflatten_into(template, arrays, device=None, shardings=None, prefix: tuple = ()):
+    """``template``'s tree with each leaf read from ``arrays`` (a mapping
+    of flattened paths, read a leaf at a time) and restored."""
     if template is None:
         return None
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, arrays, device, prefix + (str(k),))
+        return {k: _unflatten_into(v, arrays, device, None if shardings is None
+                                   else shardings.get(k), prefix + (str(k),))
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten_into(v, arrays, device, prefix + (str(i),))
-                              for i, v in enumerate(template))
-    return _restore_leaf(arrays[_SEP.join(prefix)], template, device)
+        return type(template)(
+            _unflatten_into(v, arrays, device, None if shardings is None else shardings[i],
+                            prefix + (str(i),))
+            for i, v in enumerate(template))
+    return _restore_leaf(arrays[_SEP.join(prefix)], template, device, shardings)
 
 
 def _payload_hash(path: str) -> str:
@@ -151,20 +179,22 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore_checkpoint(ckpt_dir: str, template, step: int | None = None,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into ``template``'s tree structure and leaf dtypes.
 
     ``device`` (a ``torch.device`` or its name) puts every leaf there as
     a tensor; without it, numpy-template leaves come back as numpy
-    arrays and tensor-template leaves on the template's device."""
+    arrays and tensor-template leaves on the template's device.
+    ``shardings`` places leaves on the current mesh (elastic restore):
+    a tree like ``template``'s of ``(mesh, placements)`` pairs, or None
+    for a leaf to leave whole."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-    with np.load(os.path.join(ckpt_dir, f"step_{step:08d}.npz")) as z:
-        arrays = {k: z[k] for k in z.files}
     dev = torch.device(device) if device is not None else None
-    return _unflatten_into(template, arrays, dev), step
+    with np.load(os.path.join(ckpt_dir, f"step_{step:08d}.npz")) as z:
+        return _unflatten_into(template, z, dev, shardings), step
 
 
 class CheckpointManager:
@@ -188,12 +218,13 @@ class CheckpointManager:
             except OSError:
                 pass
 
-    def restore_or_init(self, init_fn, device=None):
+    def restore_or_init(self, init_fn, device=None, shardings=None):
         """Auto-resume: restore the newest verified checkpoint into the
         structure and dtypes of ``init_fn()``, or return ``init_fn()``
-        fresh; leaves land on ``device`` when one is named."""
+        fresh; leaves land on ``device`` when one is named, and on the
+        mesh as ``shardings`` says (see :func:`restore_checkpoint`)."""
         step = latest_step(self.dir)
         if step is None:
             return init_fn(), 0
-        state, step = restore_checkpoint(self.dir, init_fn(), step, device)
+        state, step = restore_checkpoint(self.dir, init_fn(), step, device, shardings)
         return state, step + 1

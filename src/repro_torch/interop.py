@@ -13,7 +13,13 @@ and :func:`opt_state_from_numpy` do the same for an optimizer state
 (``mu``, ``nu``, ``count``).  Tests use them to run the two packages on
 the same inputs and compare their states; the port's ``TrainLoop``
 writes its checkpoints in this layout, so either package resumes the
-other's.
+other's.  A model sharded over a mesh (``models.steps.shard_model``) is
+gathered whole on the way out (every rank takes part; ``keep=False`` on
+a rank that writes nothing keeps none of it); on the way in,
+:func:`stacked_layout` says where each stacked array goes, so that
+``checkpoint.restore_checkpoint(..., shardings=)`` places it shard by
+shard and the loaders copy each rank's shards, so a checkpoint moves
+between one device and any mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from .core.blocks import BlockStore
 from .core.context import to_device
@@ -32,7 +39,7 @@ from .models.lm import LM
 
 __all__ = ["STORE_FIELDS", "TILE_FIELDS", "store_from_numpy", "state_from_numpy",
            "lm_params_from_numpy", "lm_params_to_numpy", "load_lm_params",
-           "opt_state_to_numpy", "opt_state_from_numpy"]
+           "opt_state_to_numpy", "opt_state_from_numpy", "stacked_layout"]
 
 #: arrays every store carries (``cuts`` is the layout's cut vector)
 STORE_FIELDS = ("src", "dst", "edge_block", "block_ptr", "indptr", "indices",
@@ -103,26 +110,10 @@ def _stacked_key(name: str, cfg: ArchConfig) -> tuple[str, Any]:
     return name, None
 
 
-def _stack(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict[str, Any]:
-    """Tensors keyed by parameter name → the reference's nested tree of
-    float32 numpy arrays, per-layer arrays stacked on a leading L axis
-    (``(n_groups, g)`` axes for the vlm's layers; exact for bfloat16)."""
-    flat: dict[str, Any] = {}
-    for name, t in named.items():
-        key, index = _stacked_key(name, cfg)
-        a = t.detach().float().cpu().numpy()
-        if index is None:
-            flat[key] = a
-        else:
-            flat.setdefault(key, []).append((index, a))
+def _nest(flat: Mapping[str, Any]) -> dict[str, Any]:
+    """Dotted keys → nested dicts."""
     tree: dict[str, Any] = {}
     for key, a in flat.items():
-        if isinstance(a, list):
-            a.sort(key=lambda p: p[0])
-            last = a[-1][0]
-            stacked = np.stack([x for _, x in a])
-            grid = tuple(i + 1 for i in last) if isinstance(last, tuple) else (last + 1,)
-            a = stacked.reshape(grid + stacked.shape[1:])
         node = tree
         *path, leaf = key.split(".")
         for part in path:
@@ -131,32 +122,106 @@ def _stack(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict[str, Any]
     return tree
 
 
+def _stack(cfg: ArchConfig, named: Mapping[str, torch.Tensor],
+           keep: bool = True) -> dict[str, Any] | None:
+    """Tensors keyed by parameter name → the reference's nested tree of
+    float32 numpy arrays, per-layer arrays stacked on a leading L axis
+    (``(n_groups, g)`` axes for the vlm's layers; exact for bfloat16).
+    A sharded tensor is gathered whole (a collective: every rank of its
+    mesh must call this); with ``keep=False`` nothing is kept and the
+    result is None."""
+    flat: dict[str, Any] = {}
+    for name, t in named.items():
+        key, index = _stacked_key(name, cfg)
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        if not keep:
+            continue
+        a = t.detach().float().cpu().numpy()
+        if index is None:
+            flat[key] = a
+        else:
+            flat.setdefault(key, []).append((index, a))
+    if not keep:
+        return None
+    for key, a in flat.items():
+        if isinstance(a, list):
+            a.sort(key=lambda p: p[0])
+            last = a[-1][0]
+            stacked = np.stack([x for _, x in a])
+            grid = tuple(i + 1 for i in last) if isinstance(last, tuple) else (last + 1,)
+            flat[key] = stacked.reshape(grid + stacked.shape[1:])
+    return _nest(flat)
+
+
+def stacked_layout(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """The reference's stacked tree of the tensors ``named`` as a
+    checkpoint restore takes it, with no data: ``(template, shardings)``,
+    the template's leaves each stacked array's ``torch.dtype`` (its
+    tensors'), and ``shardings``' its ``(mesh, placements)`` where the
+    tensors are DTensors (their placements, each ``Shard`` moved past the
+    stack dims), else None.  Restored with both
+    (``checkpoint.restore_checkpoint(dir, template, shardings=...)``), a
+    tree loads into the tensors (:func:`load_lm_params`,
+    :func:`opt_state_from_numpy`) with each rank holding its shards only."""
+    dtypes: dict[str, Any] = {}
+    where: dict[str, Any] = {}
+    for name, t in named.items():
+        key, index = _stacked_key(name, cfg)
+        depth = 0 if index is None else len(index) if isinstance(index, tuple) else 1
+        sharding = None
+        if isinstance(t, DTensor):
+            if any(isinstance(pl, Shard) and type(pl) is not Shard for pl in t.placements):
+                raise NotImplementedError(f"{name}: placements {t.placements} are not "
+                                          "Shard/Replicate")
+            sharding = (t.device_mesh, tuple(Shard(pl.dim + depth) if isinstance(pl, Shard)
+                                             else pl for pl in t.placements))
+        if where.setdefault(key, sharding) != sharding or \
+                dtypes.setdefault(key, t.dtype) != t.dtype:
+            raise ValueError(f"{name}: its layer's placement or dtype differs from the "
+                             f"others stacked in {key}")
+    return _nest(dtypes), _nest(where)
+
+
 def _unstack_into(cfg: ArchConfig, targets: Mapping[str, torch.Tensor],
                   tree: Mapping[str, Any], what: str) -> None:
     """Copy the reference's stacked tree ``tree`` into the tensors
-    ``targets`` (keyed by parameter name), each cast to its dtype."""
+    ``targets`` (keyed by parameter name), each cast to its dtype.  A
+    leaf of ``tree`` may be an array or a tensor; a DTensor target takes
+    a DTensor leaf with its placements (see :func:`stacked_layout`),
+    each rank copying its own shard."""
     flat = _flatten(tree)
     used = set()
     with torch.no_grad():
         for name, t in targets.items():
             key, index = _stacked_key(name, cfg)
-            a = flat[key] if index is None else np.asarray(flat[key])[index]
+            src = flat[key]
+            if not isinstance(src, torch.Tensor):
+                src = np.asarray(src, dtype=np.float32)
+                # ascontiguousarray makes a 0-d array (a gate) 1-d: keep its shape
+                src = flat[key] = torch.from_numpy(np.ascontiguousarray(src).reshape(src.shape))
             used.add(key)
-            a = np.asarray(a, dtype=np.float32)
-            if a.shape != tuple(t.shape):
-                raise ValueError(f"{what}: {name} is {a.shape}, expected {tuple(t.shape)}")
-            # ascontiguousarray makes a 0-d array (a gate) 1-d: keep its shape
-            t.copy_(torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(t.dtype))
+            if isinstance(t, DTensor) and not isinstance(src, DTensor):
+                raise TypeError(f"{what}: {name} is sharded; restore the checkpoint placed "
+                                "(restore_checkpoint(..., shardings=stacked_layout(...)[1]))")
+            if index is not None:
+                src = src[index]
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{what}: {name} is {tuple(src.shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(src.to(t.dtype))
     if set(flat) - used:
         raise KeyError(f"{what}: no place for {sorted(set(flat) - used)}")
 
 
-def lm_params_to_numpy(cfg: ArchConfig, model: LM) -> dict:
+def lm_params_to_numpy(cfg: ArchConfig, model: LM, *, keep: bool = True) -> dict | None:
     """The reference's parameter tree of ``model``'s weights: nested dicts
     of float32 numpy arrays (exact for bfloat16), per-layer arrays
     stacked on a leading ``(L, ...)`` axis (the vlm's ``layers`` on
-    ``(n_groups, g, ...)``), ``(d_in, d_out)`` kept."""
-    return _stack(cfg, dict(model.named_parameters()))
+    ``(n_groups, g, ...)``), ``(d_in, d_out)`` kept.  Sharded weights are gathered whole (every
+    rank of the mesh calls this); with ``keep=False`` (a rank that writes
+    nothing) none of it is kept and the result is None."""
+    return _stack(cfg, dict(model.named_parameters()), keep)
 
 
 def load_lm_params(cfg: ArchConfig, model: LM, params: Mapping[str, Any]) -> LM:
@@ -166,15 +231,18 @@ def load_lm_params(cfg: ArchConfig, model: LM, params: Mapping[str, Any]) -> LM:
     return model
 
 
-def opt_state_to_numpy(cfg: ArchConfig, state: Mapping[str, Any]) -> dict:
+def opt_state_to_numpy(cfg: ArchConfig, state: Mapping[str, Any], *,
+                       keep: bool = True) -> dict | None:
     """An optimizer state of :mod:`repro_torch.optim` (``mu``/``nu`` or
     ``mom`` keyed by parameter name, and ``count``) in the reference's
     layout: each moment as a stacked tree like the parameters', float32,
-    and ``count`` a 0-d int32 array."""
-    return {k: _stack(cfg, v) if isinstance(v, Mapping) else
-            np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
-                       dtype=np.int32)
-            for k, v in state.items()}
+    and ``count`` a 0-d int32 array.  Sharded moments are gathered as
+    :func:`lm_params_to_numpy` gathers weights, ``keep`` likewise."""
+    out = {k: _stack(cfg, v, keep) if isinstance(v, Mapping) else
+           np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+                      dtype=np.int32)
+           for k, v in state.items()}
+    return out if keep else None
 
 
 def opt_state_from_numpy(cfg: ArchConfig, state: Mapping[str, Any], model: LM) -> dict:
@@ -184,7 +252,7 @@ def opt_state_from_numpy(cfg: ArchConfig, state: Mapping[str, Any], model: LM) -
     out: dict[str, Any] = {}
     for k, v in state.items():
         if isinstance(v, Mapping):
-            moments = {name: torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            moments = {name: torch.empty_like(p, dtype=torch.float32)
                        for name, p in model.named_parameters()}
             _unstack_into(cfg, moments, v, "opt_state_from_numpy")
             out[k] = moments

@@ -1,1 +1,2 @@
-"""Launchers: the serve and train drivers."""
+"""Launchers: the serve and train drivers, the device meshes, and the
+production-mesh dry run."""

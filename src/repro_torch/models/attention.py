@@ -14,14 +14,25 @@ image layers, the audio decoder's attention to the encoder) is
 plain torch, as the reference's is: a :class:`CrossAttention` module
 (the reference's ``init_cross_attn``: no bias, a 0-d ``gate``, zero at
 init) and ``cross_attention``, non-causal over the features.
+
+Under tensor parallelism (weights that are DTensors over the mesh's
+``model`` dim, ``models.steps.shard_model``) ``self_attention`` projects
+through DTensor products, then runs the attention core (the kernel or
+the plain versions) on each rank's local heads, the head counts read
+from the local shard: :func:`_local_heads` keeps the query heads a rank
+holds whole (all of them where the heads do not divide over the ranks)
+and the K/V heads they read, gathered where the K/V shard is not whole
+heads.  The output projection's partial sums are all-reduced.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from ..kernels.flash_attention import flash_attention
-from .common import apply_rope, dense_init, rope
+from .common import apply_rope, dense_init, rope, tp_in, tp_out
 
 __all__ = ["Attention", "CrossAttention", "project_qkv", "self_attention", "decode_attention",
            "cross_attention"]
@@ -122,19 +133,89 @@ def _sdpa(q, k, v, *, causal, window, q_pos0=0, probs_dtype=None):
     return out.reshape(b, s, h, d)
 
 
-def self_attention(p, x, *, n_heads, n_kv_heads, d_head, rope_theta, causal=True, window=0,
-                   use_kernel=False, impl="full", probs_dtype=None):
+def _sharded_heads(t: DTensor, n: int) -> bool:
+    """Whether ``t`` (B,S,n·D) is split over its mesh in whole heads."""
+    return t.placements[0] == Shard(t.ndim - 1) and n % t.device_mesh.size() == 0
+
+
+def _local_heads(q: DTensor, k: DTensor, v: DTensor, n_heads, n_kv_heads, d_head):
+    """The attention core's inputs on this rank, from the projections'
+    DTensors (B,S,H·D), (B,S,H_kv·D): q (B,S,m,D) for the rank's m query
+    heads, k and v (B,S,n,D) for the K/V heads they read (head i of q
+    reads K/V head i // (m/n)), and the placement of the core's output.
+    Queries split over the ranks in whole heads stay split; otherwise
+    every rank takes all heads.  K/V that are not split to match are
+    gathered, and each rank keeps the heads its queries read; their
+    gradient is then a partial sum over the ranks."""
+    b, s = q.shape[:2]
+    mesh = q.device_mesh
+    tp, rank = mesh.size(), mesh.get_local_rank()
+    rep = [Replicate()]
+    if _sharded_heads(q, n_heads):
+        ql, m, a, out = q.to_local(), n_heads // tp, rank * n_heads // tp, Shard(2)
+    else:
+        ql, m, a, out = q.redistribute(mesh, rep).to_local(), n_heads, 0, Replicate()
+    ql = ql.reshape(b, s, m, d_head)
+    g = n_heads // n_kv_heads
+    if out == Shard(2) and _sharded_heads(k, n_kv_heads) and a % g == 0 and m % g == 0:
+        return ql, k.to_local().reshape(b, s, m // g, d_head), \
+            v.to_local().reshape(b, s, m // g, d_head), out
+    grad = [Partial()] if out == Shard(2) else rep
+    kf, vf = (t.redistribute(mesh, rep).to_local(grad_placements=grad)
+              .reshape(b, s, n_kv_heads, d_head) for t in (k, v))
+    if a % g == 0 and m % g == 0:                 # whole groups: a slice of K/V heads
+        sl = slice(a // g, (a + m) // g)
+    elif a // g == (a + m - 1) // g:              # all m heads read one K/V head
+        sl = slice(a // g, a // g + 1)
+    else:                                         # one K/V head for each query head
+        idx = torch.tensor([(a + i) // g for i in range(m)], device=kf.device)
+        return ql, kf.index_select(2, idx), vf.index_select(2, idx), out
+    return ql, kf[:, :, sl], vf[:, :, sl], out
+
+
+def _tp_self_attention(p, x, *, n_heads, n_kv_heads, d_head, rope_theta, causal, window,
+                       use_kernel, impl, probs_dtype):
+    """``self_attention`` with DTensor weights: the core on local heads."""
     b, s, _ = x.shape
-    q, k, v = project_qkv(p, x, n_heads=n_heads, n_kv_heads=n_kv_heads, d_head=d_head,
-                          rope_theta=rope_theta)
+    xd = tp_in(x, p.wq)
+    q, k, v = xd @ p.wq, xd @ p.wk, xd @ p.wv
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q, k, v, placement = _local_heads(q, k, v, n_heads, n_kv_heads, d_head)
+    if rope_theta:
+        cos, sin = rope(torch.arange(s, device=x.device), d_head, rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = _attention_core(q, k, v, causal=causal, window=window, use_kernel=use_kernel,
+                          impl=impl, probs_dtype=probs_dtype)
+    out = DTensor.from_local(out.reshape(b, s, -1), p.wo.device_mesh,
+                             [Shard(2) if placement == Shard(2) else Replicate()],
+                             run_check=False)
+    return tp_out(out @ p.wo)
+
+
+def _attention_core(q, k, v, *, causal, window, use_kernel, impl, probs_dtype):
+    """q (B,S,H,D), k and v (B,S,H_kv,D) → (B,S,H,D): the kernel under the
+    reference's guard, else the chunked or the full plain attention."""
+    s, d_head = q.shape[1], q.shape[3]
     if use_kernel and not window and d_head % 64 == 0 and s % 128 == 0:
         # the kernel reads the shared K/V head in place of the reference's repeat
-        out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=causal).transpose(1, 2)
-    elif impl == "chunked" and s > 512:
-        out = _chunked_sdpa(q, k, v, causal=causal, window=window)
-    else:
-        out = _sdpa(q, k, v, causal=causal, window=window, probs_dtype=probs_dtype)
+        return flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(), causal=causal).transpose(1, 2)
+    if impl == "chunked" and s > 512:
+        return _chunked_sdpa(q, k, v, causal=causal, window=window)
+    return _sdpa(q, k, v, causal=causal, window=window, probs_dtype=probs_dtype)
+
+
+def self_attention(p, x, *, n_heads, n_kv_heads, d_head, rope_theta, causal=True, window=0,
+                   use_kernel=False, impl="full", probs_dtype=None):
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, d_head=d_head, rope_theta=rope_theta)
+    if isinstance(p.wq, DTensor):
+        return _tp_self_attention(p, x, causal=causal, window=window, use_kernel=use_kernel,
+                                  impl=impl, probs_dtype=probs_dtype, **kw)
+    b, s, _ = x.shape
+    q, k, v = project_qkv(p, x, **kw)
+    out = _attention_core(q, k, v, causal=causal, window=window, use_kernel=use_kernel,
+                          impl=impl, probs_dtype=probs_dtype)
     return out.reshape(b, s, n_heads * d_head) @ p.wo
 
 

@@ -5,23 +5,57 @@ the reference's: normalisations compute in float32 and cast back to the
 input dtype before the weight multiplies; rotary tables come from
 float32 numpy frequencies; ``apply_rope`` rotates the two halves of the
 head (not interleaved pairs).
+
+Under tensor parallelism a weight is a ``DTensor`` over the mesh's
+``model`` dim (``models.steps.shard_model``) while the activations
+between blocks stay plain tensors, the same on every ``model`` rank.
+:func:`tp_in` enters a block (its backward all-reduces the input's
+gradient), :func:`tp_out` leaves it (all-reduces a partial sum), and
+:func:`replicated` gives the whole of a weight that the block needs
+whole (a norm's scale).  On plain tensors the three do nothing.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = [
     "rms_norm", "layer_norm", "rope", "apply_rope", "dense_init", "swiglu", "gelu_mlp",
-    "Dtype", "DTYPES",
+    "Dtype", "DTYPES", "tp_in", "tp_out", "replicated",
 ]
 
 #: config dtype names → torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def tp_in(x: torch.Tensor, like) -> torch.Tensor:
+    """``x`` (the same on every ``model`` rank) as a replicated DTensor on
+    ``like``'s mesh when ``like`` is a DTensor, else ``x``.  The backward
+    sums the ranks' partial input gradients."""
+    if not isinstance(like, DTensor):
+        return x
+    return DTensor.from_local(x, like.device_mesh, [Replicate()], run_check=False)
+
+
+def tp_out(y: torch.Tensor) -> torch.Tensor:
+    """A DTensor block output (a partial sum or a shard) as the plain
+    tensor of its whole value; a plain tensor as it is."""
+    if not isinstance(y, DTensor):
+        return y
+    return y.redistribute(y.device_mesh, [Replicate()] * y.device_mesh.ndim).to_local()
+
+
+def replicated(w: torch.Tensor) -> torch.Tensor:
+    """The whole of weight ``w`` as a plain tensor (gathered when ``w`` is
+    a sharded DTensor); its gradient is taken to be the same on every
+    rank, as it is for a weight applied to the replicated activations."""
+    return tp_out(w)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    w = replicated(w)
     x32 = x.float()
     r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     return (x32 * r).to(x.dtype) * w
@@ -29,6 +63,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    w, b = replicated(w), replicated(b)
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
@@ -65,12 +100,14 @@ def dense_init(shape, dtype: torch.dtype, *, generator: torch.Generator | None =
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    x = tp_in(x, w_gate)
+    return tp_out((F.silu(x @ w_gate) * (x @ w_up)) @ w_down)
 
 
 def gelu_mlp(x, w_up, b_up, w_down, b_down):
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
+    x = tp_in(x, w_up)
+    return tp_out(F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down) + replicated(b_down)
 
 
 class Dtype:

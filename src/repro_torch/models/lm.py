@@ -51,10 +51,25 @@ it takes ``"full"``, as the reference's policy saves nothing there).  The
 chunked loss recomputes each chunk's float32 logits in the backward, as
 the reference's checkpointed chunk body does, so a step never holds every
 chunk's logits at once.  Prefill and decode run without grad and take
-none of this.  What the reference does and this module does not:
+none of this.
 
-* ``sharding.constrain`` is a no-op on one device and is not ported
-  (ROADMAP A13b, second half);
+On a mesh with a ``model`` dim (the dense family) the embedding is a
+vocab-parallel gather where the spec splits ``embed`` over ``model``
+(DTensor's masked lookup, then a sum over the ranks), and the loss takes
+each chunk's logits split over the vocab (``lm_head`` is ``("fsdp",
+"tp")``): the log-sum-exp and the gold logit are summed over the ranks,
+so the full logits of a chunk never exist on one rank.  The reference's
+gather, ``jnp.take`` of a sharded ``embed``, is not copied: it raises
+under a mesh on jax 0.9.0 (ROADMAP C).
+
+What the reference does and this module does not:
+
+* the activations carry no sharding annotation: under a mesh
+  (``models.steps.shard_model``) the weights are DTensors, each block
+  enters and leaves tensor parallelism itself (``common.tp_in``/
+  ``tp_out``, the attention core on local heads) and FSDP gathers a
+  decoder layer's weights when the layer is called, so the reference's
+  ``sharding.constrain`` calls have nothing to do here;
 * the decode caches and recurrent states are updated in place (see
   ``decode_attention``).
 """
@@ -62,14 +77,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
 from .attention import Attention, CrossAttention, cross_attention, decode_attention, \
     self_attention
-from .common import Dtype, dense_init, gelu_mlp, layer_norm, rms_norm, swiglu
+from .common import Dtype, dense_init, gelu_mlp, layer_norm, replicated, rms_norm, swiglu, \
+    tp_in, tp_out
 from .moe import MoE, moe_ffn
 from .ssm import (MLSTM, SLSTM, Mamba, mamba_seq, mamba_seq_assoc, mamba_step,
                   mlstm_init_state, mlstm_seq, mlstm_seq_chunked, mlstm_step, slstm_init_state,
@@ -133,6 +151,29 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = MLP(cfg, dtype, **kw)
 
+    def forward(self, cfg: ArchConfig, h, use_kernel=False, remat=False, slstm=False):
+        """This layer on h → (h, its aux terms or None); ``slstm`` picks an
+        ssm layer's branch.  With ``remat``, under ``cfg.remat_policy``:
+        ``"full"`` recomputes the whole layer in the backward,
+        ``"save_attn"`` each block on its own, keeping the attention's
+        output.  Called through the module so that FSDP, where the model
+        is sharded, gathers the layer's weights first (and again before
+        its recompute in the backward)."""
+        if cfg.family == "ssm":
+            args = (cfg, self, h, slstm)
+            return (checkpoint(_ssm_layer, *args, use_reentrant=False) if remat
+                    else _ssm_layer(*args)), None
+        if not remat:
+            return _decoder_layer(cfg, self, h, use_kernel)
+        if cfg.remat_policy != "save_attn":
+            return checkpoint(_decoder_layer, cfg, self, h, use_kernel, use_reentrant=False)
+        out = checkpoint(_attn_block, cfg, self, h, use_kernel, use_reentrant=False)
+        if cfg.family == "hybrid":
+            out = (out + checkpoint(_mamba_block, cfg, self, h, use_reentrant=False)) * 0.5
+        h = h + out
+        y, a = checkpoint(_mlp_block, cfg, self, h, use_reentrant=False)
+        return h + y, a
+
 
 class CrossBlock(nn.Module):
     """A cross-attention block: its pre-norm ``ln`` and ``attn``."""
@@ -169,16 +210,21 @@ def n_groups(cfg: ArchConfig) -> int:
 class LM(nn.Module):
     """The LM's weights (the reference's ``init_params``),
     drawn from ``generator`` (seeded 0 on ``device`` when not given)
-    directly on ``device`` (default: the current card; raises without one)."""
+    directly on ``device`` (default: the current card; raises without one).
+    On ``device="meta"`` the parameters have shapes and no storage (the
+    dry run's model)."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+        if str(device) == "meta":
+            device, generator = torch.device("meta"), None
+        else:
+            device = resolve_device(device)
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
         dtype = Dtype(cfg.dtype).param
         kw = dict(generator=generator, device=device)
         with torch.no_grad():
@@ -205,6 +251,12 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def forward(self, batch, cfg: ArchConfig | None = None, use_kernel=False):
+        """:func:`forward_loss` of ``batch`` under ``cfg`` (default: the
+        model's): the training step's entry, through the module so that
+        FSDP gathers the root's weights."""
+        return forward_loss(cfg or self.cfg, self, batch, use_kernel=use_kernel)
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -289,34 +341,18 @@ def _cross(cfg: ArchConfig, block: CrossBlock, h, feats, gated: bool, remat: boo
     return h + _cross_block(cfg, block, h, feats, gated)
 
 
-def _layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel, remat: bool):
-    """One attention decoder layer under ``cfg.remat_policy`` → (h, aux).
-    ``"full"`` recomputes the whole layer in the backward; ``"save_attn"``
-    recomputes each block on its own and keeps the attention's output."""
-    if not remat:
-        return _decoder_layer(cfg, layer, h, use_kernel)
-    if cfg.remat_policy != "save_attn":
-        return checkpoint(_decoder_layer, cfg, layer, h, use_kernel, use_reentrant=False)
-    out = checkpoint(_attn_block, cfg, layer, h, use_kernel, use_reentrant=False)
-    if cfg.family == "hybrid":
-        out = (out + checkpoint(_mamba_block, cfg, layer, h, use_reentrant=False)) * 0.5
-    h = h + out
-    y, a = checkpoint(_mlp_block, cfg, layer, h, use_reentrant=False)
-    return h + y, a
-
-
 def _vlm_group(cfg: ArchConfig, model: LM, k: int, h, vision, use_kernel, remat=False):
     """Group k of the vlm: its cross block, then its g decoder layers."""
     h = _cross(cfg, model.xattn[k], h, vision, True, remat)
     g = cfg.cross_attn_every
     for layer in model.layers[k * g:(k + 1) * g]:
-        h, _ = _layer(cfg, layer, h, use_kernel, remat)
+        h, _ = layer(cfg, h, use_kernel, remat)
     return h
 
 
 def _audio_layer(cfg: ArchConfig, model: LM, i: int, h, memory, use_kernel, remat=False):
     """Decoder layer i of the audio family, then its ungated cross block."""
-    h, _ = _layer(cfg, model.layers[i], h, use_kernel, remat)
+    h, _ = model.layers[i](cfg, h, use_kernel, remat)
     return _cross(cfg, model.dec_xattn[i], h, memory, False, remat)
 
 
@@ -344,10 +380,9 @@ def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
     aux = _zero_aux(cfg, h.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
-            args = (cfg, layer, h, _is_slstm(cfg, i))
-            h = checkpoint(_ssm_layer, *args, use_reentrant=False) if remat else _ssm_layer(*args)
+            h, _ = layer(cfg, h, remat=remat, slstm=_is_slstm(cfg, i))
             continue
-        h, a = _layer(cfg, layer, h, use_kernel, remat)
+        h, a = layer(cfg, h, use_kernel, remat)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return h, aux
@@ -382,12 +417,16 @@ def _chunked_loss(cfg: ArchConfig, model: LM, h, labels):
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
     head = model.head()
+    nll = _chunk_nll
+    if isinstance(head, DTensor):
+        # logits split over the vocab where the spec splits lm_head over model
+        nll = _chunk_nll_vocab_parallel if head.placements[0] == Shard(1) else nll
+        head = head if nll is _chunk_nll_vocab_parallel else replicated(head)
     remat = _remat(model)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
         args = (h[:, i:i + chunk], head, labels[:, i:i + chunk])
-        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
-                         else _chunk_nll(*args))
+        total = total + (checkpoint(nll, *args, use_reentrant=False) if remat else nll(*args))
     return total / (b * s)
 
 
@@ -398,7 +437,33 @@ def _chunk_nll(h, head, labels):
     return (torch.logsumexp(logits, -1) - gold).sum()
 
 
+def _chunk_nll_vocab_parallel(h, head: DTensor, labels):
+    """:func:`_chunk_nll` with ``head`` (d, V) split over the mesh on V:
+    each rank's logits cover its slice of the vocab; the running max, the
+    sum of exponentials and the gold logit are reduced over the ranks."""
+    mesh = head.device_mesh
+    logits = (tp_in(h, head) @ head).to_local().float()          # (B, c, V / tp)
+    v_local = logits.shape[-1]
+    lo = mesh.get_local_rank() * v_local
+    m = logits.detach().amax(-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    sumexp = torch.exp(logits - m[..., None]).sum(-1)
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < v_local)
+    gold = logits.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    gold = torch.where(inside, gold, 0.0)
+    sumexp, gold = (tp_out(DTensor.from_local(t, mesh, [Partial()], run_check=False))
+                    for t in (sumexp, gold))
+    return (torch.log(sumexp) + m - gold).sum()
+
+
 def _embed(model: LM, tokens):
+    """The embedding lookup; vocab-parallel where ``embed`` is a DTensor
+    split over its rows (a masked lookup on each rank, summed)."""
+    if isinstance(model.embed, DTensor):
+        ids = DTensor.from_local(tokens.long(), model.embed.device_mesh, [Replicate()],
+                                 run_check=False)
+        return tp_out(F.embedding(ids, model.embed))
     return F.embedding(tokens.long(), model.embed)
 
 

@@ -10,6 +10,18 @@ jit or donation to port).  ``make_prefill_step`` returns ``(model, batch)
 ``make_serve_step`` returns ``(model, state, batch) -> (logits, state)``;
 both run under ``torch.inference_mode``.  ``input_specs`` gives the shape
 and dtype of every model input of a cell.
+
+**On a mesh** (``make_train_step(cfg, mesh=...)``, a ``DeviceMesh`` with
+axes ``("data", "model")`` or ``("pod", "data", "model")``, and a model
+sharded by :func:`shard_model`) the step takes the global batch and each
+rank trains on its slice of it (``sharding.batch_spec``: over ``pod`` and
+``data``, the same on every ``model`` rank).  FSDP2 reduces the
+gradients of the parameters it shards (a mean over the data ranks); the
+ones it leaves alone, replicated over ``data`` by their spec, are
+averaged here.  ``loss`` and ``nll`` are the global batch's mean and
+``grad_norm`` the whole gradient's norm.  The families other than dense
+train on a mesh whose ``model`` dim is 1 (FSDP alone); with ``model >
+1`` they raise until their tensor or expert parallelism is ported.
 """
 from __future__ import annotations
 
@@ -17,14 +29,19 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..optim import adamw_update, cosine_schedule
 from . import lm
 from .common import Dtype
+from .sharding import EP_ONLY_EXPERT_RULES, MeshCtx, batch_spec, param_specs, to_placements
 
 __all__ = ["TensorSpec", "input_specs", "supports_shape", "make_train_step",
-           "make_prefill_step", "make_serve_step"]
+           "make_prefill_step", "make_serve_step", "shard_model", "expert_rules",
+           "local_batch"]
 
 
 class TensorSpec(NamedTuple):
@@ -73,8 +90,170 @@ def _grads(loss, params: dict) -> tuple:
                                materialize_grads=True)
 
 
+def expert_rules(cfg: ArchConfig):
+    """The extra sharding rules of ``cfg``, as the reference's dry run
+    picks them: the MoE's grouped dispatch keeps its experts EP-only."""
+    if cfg.moe_dispatch_sharding in ("grouped", "auto_ep", "manual"):
+        return EP_ONLY_EXPERT_RULES
+    return None
+
+
+def _owner(model: nn.Module, name: str):
+    *path, attr = name.split(".")
+    mod = model
+    for part in path:
+        mod = getattr(mod, part)
+    return mod, attr
+
+
+def _has_axis(entry, axis: str) -> bool:
+    return entry == axis or (isinstance(entry, tuple) and axis in entry)
+
+
+def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
+    """Shard ``model`` in place over ``mesh`` by the reference's rules
+    (``sharding.param_specs``) and return it.
+
+    Tensor parallelism over ``model``: each parameter becomes a DTensor
+    over ``mesh["model"]``, ``Shard(d)`` where its spec names ``model`` on
+    dim d, else ``Replicate()`` (the dense family only; the others need
+    ``model == 1``).  FSDP over ``data`` (and replicated over ``pod``, as
+    HSDP): FSDP2's ``fully_shard`` on each decoder layer and on the root,
+    ``shard_placement_fn`` giving the dim the spec names ``data`` on.  A
+    parameter whose spec names no ``data`` dim is left out of FSDP
+    (``ignored_params``), replicated over the data ranks as the spec
+    says; the step averages its gradient.  The rules never put ``data``
+    and ``model`` on one dim, so each placement is the spec's own
+    ``Shard``/``Replicate`` (FSDP's ``_StridedShard`` does not arise).
+    Every rank must hold the same full weights when this is called."""
+    from torch.distributed.fsdp import fully_shard
+
+    cfg = model.cfg
+    ctx = MeshCtx(mesh)
+    tp = ctx.size("model") if "model" in ctx.shape else 1
+    if tp > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism for the {cfg.family} family is not ported "
+            "(ROADMAP A2: TP/EP for the moe, hybrid, ssm, vlm and audio families); "
+            "train it on a mesh with model=1")
+    specs = param_specs(ctx, cfg, model, extra_rules)
+    if tp > 1:
+        tp_mesh = mesh["model"]
+        for name, p in list(model.named_parameters()):
+            mod, attr = _owner(model, name)
+            d = distribute_tensor(p.detach(), tp_mesh, to_placements(specs[name], ["model"]),
+                                  src_data_rank=None)
+            setattr(mod, attr, nn.Parameter(d, requires_grad=p.requires_grad))
+    dp = tuple(a for a in ("pod", "data") if a in ctx.shape)
+    fsdp_dim, ignored = {}, set()
+    for name, p in model.named_parameters():
+        dims = [i for i, e in enumerate(specs[name]) if _has_axis(e, "data")]
+        if dims:
+            fsdp_dim[id(p)] = Shard(dims[0])
+        else:
+            ignored.add(p)
+    kw = dict(mesh=mesh[dp], shard_placement_fn=lambda p: fsdp_dim[id(p)],
+              ignored_params=ignored)
+    for layer in model.layers:
+        fully_shard(layer, **kw)
+    fully_shard(model, **kw)
+    return model
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's slice of a global batch: dim 0 split over the
+    (``pod``, ``data``) ranks as ``sharding.batch_spec`` says (whole where
+    it does not divide)."""
+    ctx = MeshCtx(mesh)
+    out = {}
+    for k, v in batch.items():
+        entry = batch_spec(ctx, tuple(v.shape))[0]
+        if entry is None:
+            out[k] = v
+            continue
+        idx = 0
+        for ax in entry if isinstance(entry, tuple) else (entry,):
+            idx = idx * ctx.size(ax) + mesh.get_local_rank(ax)
+        n = v.shape[0] // ctx.size(entry)
+        out[k] = v[idx * n:(idx + 1) * n]
+    return out
+
+
+def _dp_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` averaged over the (``pod``, ``data``) ranks, in place."""
+    n = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.mesh_dim_names:
+            dist.all_reduce(t, group=mesh.get_group(ax))
+            n *= mesh.size(mesh.mesh_dim_names.index(ax))
+    return t.div_(n)
+
+
+def _fsdp_managed(p) -> bool:
+    return isinstance(p, DTensor) and "data" in (p.device_mesh.mesh_dim_names or ())
+
+
+def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
+    """The train step on ``mesh``: each rank's slice of the batch, FSDP's
+    backward and gradient reduction, the ignored parameters' gradients
+    averaged here, the loss averaged over the data ranks.  With
+    microbatches, each one's reduced gradient is added into float32
+    zeros with the parameter's placements and divided by their count,
+    as the reference sums its microbatches' gradients."""
+
+    def reduced(p):
+        """``p``'s gradient from the last backward, in ``p``'s placements
+        (zeros where the loss did not reach it); not yet averaged over the
+        data ranks where FSDP does not manage ``p``."""
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g
+
+    def train_step(model, opt_state, batch, step):
+        params = dict(model.named_parameters())
+        batch = local_batch(_on(model, batch), mesh)
+        n = microbatch if microbatch and microbatch > 1 else 1
+        b = batch["tokens"].shape[0]
+        if b % n:
+            raise ValueError(f"local batch {b} is not a multiple of microbatch {n}")
+        m = b // n
+        model.zero_grad(set_to_none=True)
+        sums: dict = {}
+        grads = None
+        for i in range(n):
+            loss, metrics = model({k: v[i * m:(i + 1) * m] for k, v in batch.items()}, cfg,
+                                  use_kernel)
+            loss.backward()
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0) + v.detach()
+            if n > 1:
+                if grads is None:
+                    grads = {k: torch.zeros_like(p, dtype=torch.float32).detach()
+                             for k, p in params.items()}
+                for k, p in params.items():
+                    grads[k].add_(reduced(p))
+                model.zero_grad(set_to_none=True)
+        if grads is None:
+            grads = {k: reduced(p) for k, p in params.items()}
+        else:
+            for g in grads.values():
+                g.div_(n)
+        for k, p in params.items():
+            if not _fsdp_managed(p):
+                g = grads[k]
+                _dp_mean(g.to_local() if isinstance(g, DTensor) else g, mesh)
+        metrics = {k: _dp_mean(v / n, mesh) for k, v in sums.items()}
+        lr = sched(step)
+        _, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr)
+        model.zero_grad(set_to_none=True)
+        return opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+
+    return train_step
+
+
 def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup_steps=200,
-                    use_kernel=False, grad_compress=False, microbatch: int = 0):
+                    use_kernel=False, grad_compress=False, microbatch: int = 0, mesh=None):
     """``(model, opt_state, batch, step) -> (opt_state, metrics)``: one AdamW
     step on the mean NLL of ``batch`` (tokens, labels (B,S), and ``vision``
     or ``frames`` for the vlm and audio families; tensors or numpy),
@@ -88,12 +267,18 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
     ``use_kernel`` runs the attention through the hand-written
     ``flash_attention`` forward and backward where the reference's guard
     allows (``use_pallas``).  A parameter the loss does not reach gets a
-    zero gradient."""
-    if grad_compress:
-        raise NotImplementedError(
-            "grad_compress (int8 compressed_psum over a data-parallel mesh) is not ported "
-            "yet (ROADMAP A13b, second half)")
+    zero gradient.
+
+    With ``mesh`` the step runs on a model sharded by :func:`shard_model`
+    over that mesh (see the module's docstring); each microbatch's
+    gradient is reduced over the data ranks and summed in float32, as
+    on one device.  ``grad_compress`` is taken and not read, as in the reference
+    (``repro/models/steps.py``): the int8 all-reduce is
+    ``optim.compressed_psum``, for a data-parallel loop of one's own."""
+    del grad_compress
     sched = cosine_schedule(base_lr, warmup_steps, total_steps)
+    if mesh is not None:
+        return _make_sharded_step(cfg, sched, mesh, use_kernel, microbatch)
 
     def train_step(model, opt_state, batch, step):
         params = dict(model.named_parameters())
@@ -128,8 +313,17 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, *, use_kernel=False):
-    """Forward-only loss eval at prefill shape (inference-prefill cell)."""
+def make_prefill_step(cfg: ArchConfig, *, use_kernel=False, mesh=None):
+    """Forward-only loss eval at prefill shape (inference-prefill cell).
+    With ``mesh``, on a model sharded by :func:`shard_model`: each rank's
+    slice of the batch, the metrics averaged over the data ranks."""
+    if mesh is not None:
+        @torch.no_grad()
+        def sharded_prefill_step(model, batch):
+            _, metrics = model(local_batch(_on(model, batch), mesh), cfg, use_kernel)
+            return {k: _dp_mean(v.detach().clone(), mesh) for k, v in metrics.items()}
+
+        return sharded_prefill_step
 
     @torch.inference_mode()
     def prefill_step(model, batch):

@@ -9,16 +9,19 @@ Port of ``repro/roofline/analysis.py``::
 ``HW`` holds H100 SXM data-sheet constants in place of the reference's
 TPU v5e ones.  The reference reads FLOPs, bytes and collective bytes
 from a compiled XLA executable (``cost_analysis()`` and the HLO text);
-PyTorch has neither, so the caller supplies counts from its shapes or
-from ``torch.profiler``.  ``collective_bytes_from_hlo`` reads XLA HLO and
-has no counterpart here (ROADMAP A13b, second half).
+PyTorch has neither, so the counts come from dispatch
+(:mod:`.op_cost`, as ``launch.dryrun`` traces a step) or from the
+caller's shapes.  :func:`collective_bytes` is the counterpart of the
+reference's ``collective_bytes_from_hlo``: the same ring factors over
+the collectives that :class:`.op_cost.OpCost` records in place of the
+HLO's.
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
 
-__all__ = ["HW", "roofline_terms", "model_flops", "parse_shape_bytes"]
+__all__ = ["HW", "roofline_terms", "model_flops", "parse_shape_bytes", "collective_bytes"]
 
 
 @dataclass(frozen=True)
@@ -54,6 +57,32 @@ def parse_shape_bytes(shape_str: str) -> int:
                     n *= int(d)
         total += n * _DTYPE_BYTES[dt]
     return total
+
+
+# wire-bytes multiplier per collective kind (ring algorithms, n → large)
+_FACTORS = {
+    "all-reduce": 2.0,          # reduce-scatter + all-gather
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+def collective_bytes(records) -> dict:
+    """Wire bytes of the collectives in ``records`` (dicts with the
+    ``collective`` kind and the ``bytes`` of its result; others are
+    skipped): ``{total, per_kind, counts}``, each kind's bytes times its
+    ring factor, as the reference's ``collective_bytes_from_hlo``."""
+    per_kind: dict[str, float] = {}
+    count: dict[str, int] = {}
+    for r in records:
+        kind = r.get("collective")
+        if kind is None:
+            continue
+        per_kind[kind] = per_kind.get(kind, 0.0) + r["bytes"] * _FACTORS[kind]
+        count[kind] = count.get(kind, 0) + 1
+    return dict(total=sum(per_kind.values()), per_kind=per_kind, counts=count)
 
 
 def model_flops(cfg, shape) -> float:

@@ -11,9 +11,23 @@ Checkpoints are written in the reference's layout (``params`` as its
 stacked parameter tree, ``opt`` as ``mu``, ``nu``, ``count``; see
 :mod:`repro_torch.interop`), so either package's loop resumes the
 other's.  The weights are drawn from a ``torch.Generator`` seeded with
-``seed`` on the device (a different stream than ``jax.random``'s).  The
-reference's mesh sharding waits for ROADMAP A13b's second half; there is
-no jit or donation to port, and ``use_pallas`` becomes ``use_kernel``.
+``seed`` on the device (a different stream than ``jax.random``'s).
+There is no jit or donation to port, and ``use_pallas`` becomes
+``use_kernel``.
+
+With ``mesh`` (a ``DeviceMesh`` over every rank, ``launch.mesh.
+make_local_mesh``; ``torchrun`` starts one process a rank) the model is
+drawn whole from the seed on every rank and sharded by
+``models.steps.shard_model``: parameters FSDP over ``data`` and
+tensor-parallel over ``model``, the batch split over ``data``.  Every
+rank makes ``TokenPipeline(step)``'s global batch and trains on its
+slice.  A checkpoint is gathered whole (every rank takes part) and
+kept and written by rank 0 only, in the same layout, so a run resumes
+on another mesh or on one device (elastic), and the reference's loop
+resumes it.  A restore reads the stacked arrays one at a time and
+places each on the mesh as it is read (``checkpoint.restore_checkpoint``
+with ``shardings`` from ``interop.stacked_layout``), each rank keeping
+its shards.
 The loop refuses the vlm and audio families, as the reference's cannot
 feed them: ``TokenPipeline`` makes tokens and labels only, and their
 batches need ``vision`` or ``frames`` too (``make_train_step`` takes such
@@ -27,15 +41,16 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager, latest_step, save_checkpoint
 from ..configs.base import ArchConfig
 from ..core.engine import resolve_device
 from ..data import TokenPipeline
 from ..interop import load_lm_params, lm_params_to_numpy, opt_state_from_numpy, \
-    opt_state_to_numpy
+    opt_state_to_numpy, stacked_layout
 from ..models.lm import LM
-from ..models.steps import make_train_step
+from ..models.steps import expert_rules, make_train_step, shard_model
 from ..optim import adamw_init
 
 __all__ = ["TrainLoop", "TrainConfig"]
@@ -62,9 +77,10 @@ class TrainConfig:
 
 class TrainLoop:
     """Trains ``cfg`` as ``tc`` says on ``device`` (default: the current
-    card; raises without one unless the CPU is named)."""
+    card; raises without one unless the CPU is named), or sharded over
+    ``mesh`` (on the mesh's device type, this rank's current card)."""
 
-    def __init__(self, cfg: ArchConfig, tc: TrainConfig, *, device=None):
+    def __init__(self, cfg: ArchConfig, tc: TrainConfig, *, device=None, mesh=None):
         if cfg.family in ("vlm", "audio"):
             raise ValueError(
                 f"TrainLoop's TokenPipeline makes tokens and labels only; {cfg.name}'s "
@@ -72,17 +88,51 @@ class TrainLoop:
                 "through make_train_step")
         self.cfg = cfg
         self.tc = tc
+        self.mesh = mesh
+        if mesh is not None:
+            device = "cpu" if mesh.device_type == "cpu" else torch.cuda.current_device()
         self.device = resolve_device(device)
+        self.writer = mesh is None or dist.get_rank() == 0
         self.pipeline = TokenPipeline(tc.seed, tc.batch, tc.seq, cfg.vocab)
         self.ckpt = CheckpointManager(tc.ckpt_dir, every=tc.ckpt_every)
         self._step_fn = make_train_step(
             cfg, base_lr=tc.base_lr, total_steps=tc.steps, warmup_steps=tc.warmup_steps,
-            microbatch=tc.microbatch, use_kernel=tc.use_kernel)
+            microbatch=tc.microbatch, use_kernel=tc.use_kernel, mesh=mesh)
 
-    def _state(self, model: LM, opt: dict) -> dict:
-        """The checkpointed state in the reference's layout (host numpy)."""
-        return dict(params=lm_params_to_numpy(self.cfg, model),
-                    opt=opt_state_to_numpy(self.cfg, opt))
+    def _state(self, model: LM, opt: dict) -> dict | None:
+        """The checkpointed state in the reference's layout (host numpy)
+        on the writer; on a mesh every rank takes part in the gathers and
+        the others keep nothing (None)."""
+        params = lm_params_to_numpy(self.cfg, model, keep=self.writer)
+        opt = opt_state_to_numpy(self.cfg, opt, keep=self.writer)
+        return dict(params=params, opt=opt) if self.writer else None
+
+    def _layout(self, model: LM, opt: dict) -> tuple[dict, dict | None]:
+        """The checkpointed state's tree with no data, as a restore takes
+        it: each leaf's dtype, and on a mesh where each goes."""
+        cfg = self.cfg
+        template, shardings = ({k: {} for k in ("params", "opt")} for _ in range(2))
+        template["params"], shardings["params"] = stacked_layout(cfg,
+                                                                 dict(model.named_parameters()))
+        for k, v in opt.items():
+            template["opt"][k], shardings["opt"][k] = (
+                stacked_layout(cfg, v) if isinstance(v, dict) else (v.dtype, None))
+        return template, shardings if self.mesh is not None else None
+
+    def _save(self, step: int, model: LM, opt: dict, *, final: bool = False) -> None:
+        """A checkpoint at ``step`` (every ``ckpt_every`` steps, or
+        ``final``), written by rank 0 of a mesh once every rank has
+        gathered the state."""
+        if not final and step % self.ckpt.every:
+            return
+        state = self._state(model, opt)
+        if self.writer:
+            if final:
+                save_checkpoint(self.tc.ckpt_dir, step, state)
+            else:
+                self.ckpt.maybe_save(step, state)
+        if self.mesh is not None:
+            dist.barrier()
 
     def run(self, *, on_step=None) -> dict:
         """Train from the newest checkpoint (or from the seeded weights) to
@@ -92,10 +142,13 @@ class TrainLoop:
         cfg, tc = self.cfg, self.tc
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         model = LM(cfg, generator=gen, device=self.device)
+        if self.mesh is not None:
+            shard_model(model, self.mesh, expert_rules(cfg))
         opt = adamw_init(model)
         start = 0
         if latest_step(tc.ckpt_dir) is not None:
-            state, start = self.ckpt.restore_or_init(lambda: self._state(model, opt))
+            template, shardings = self._layout(model, opt)
+            state, start = self.ckpt.restore_or_init(lambda: template, shardings=shardings)
             load_lm_params(cfg, model, state["params"])
             opt = opt_state_from_numpy(cfg, state["opt"], model)
         history = []
@@ -113,9 +166,8 @@ class TrainLoop:
                 history.append(m)
                 if on_step:
                     on_step(m)
-            if step % self.ckpt.every == 0:
-                self.ckpt.maybe_save(step, self._state(model, opt))
+            self._save(step, model, opt)
         # always leave a final checkpoint at the last step
-        save_checkpoint(tc.ckpt_dir, tc.steps - 1, self._state(model, opt))
+        self._save(tc.steps - 1, model, opt, final=True)
         return dict(model=model, params=dict(model.named_parameters()), opt=opt,
                     history=history)

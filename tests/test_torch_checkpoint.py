@@ -180,6 +180,20 @@ def test_latest_pointer_and_torn_writes(tmp_path):
         restore_checkpoint(str(tmp_path / "empty"), dict(x=np.zeros(1)))
 
 
+def test_restore_into_a_template_of_dtypes(tmp_path):
+    """A template whose leaves are torch dtypes alone: tensors of them on
+    the host, or on ``device``; a 0-d leaf stays 0-d; the values exact."""
+    w = np.arange(12, dtype=np.float32).reshape(3, 4) / 8
+    save_checkpoint(str(tmp_path), 0, dict(w=w, count=np.asarray(7, np.int32)))
+    for device in (None, "cpu"):
+        got, _ = restore_checkpoint(str(tmp_path), dict(w=torch.bfloat16, count=torch.int32),
+                                    device=device)
+        assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"].float(),
+                                                                 torch.from_numpy(w))
+        assert got["count"].dtype == torch.int32 and got["count"].shape == ()
+        assert int(got["count"]) == 7
+
+
 def test_checkpoint_manager_keeps_and_restores(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2, every=5)
     assert mgr.restore_or_init(lambda: dict(w=torch.zeros(3)))[1] == 0

@@ -323,9 +323,21 @@ def test_train_step_matches_the_reference_over_three_steps(case, monkeypatch):
 
 
 def test_grad_compress_is_not_ported_yet():
+    """``grad_compress`` is taken and not read, as in the reference's
+    ``make_train_step``: the step equals the one without it.  The int8
+    all-reduce itself is ``optim.compressed_psum``
+    (``tests/test_torch_sharding.py``)."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A13b"):
-        make_train_step(cfg, grad_compress=True)
+    batch = synthetic_batch(0, 0, 4, 32, cfg.vocab)
+    out = []
+    for flag in (True, False):
+        model = interop.lm_params_from_numpy(cfg, _carry_params(*_cfgs(), 0)[0], device="cpu")
+        _, m = make_train_step(cfg, grad_compress=flag)(model, adamw_init(model), batch, 0)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    [p.detach().clone() for p in model.parameters()]))
+    assert out[0][:2] == out[1][:2]
+    for a, b in zip(out[0][2], out[1][2]):
+        assert torch.equal(a, b)
 
 
 def _grads(cfg, model, batch, use_kernel):
