@@ -221,11 +221,20 @@ and audio) through ``make_prefill_step``, ``ServeEngine`` and
    kernels' launches counted (``flash_attention`` twice a layer under
    remat, its backward once); a ``TrainLoop`` checkpoint of an unsharded
    run restored onto the mesh (elastic) and stepped to the uninterrupted
-   run's parameters; and ``launch.dryrun``'s trace of granite-3-8b ×
-   train_4k on the 16 × 16 production mesh over a fake process group
-   (per-device bytes, FLOPs, collective bytes by kind, the dominant
-   term), traced in a child process started with the script, beside the
-   kernel and LM phases.  The phase must take at most SHARDED_SECONDS.
+   run's parameters; the same full-width 2-layer float32 config sharded
+   on the same mesh decoding SHARDED["decode"] steps through
+   ``make_serve_step(mesh=...)`` against a state placed by
+   ``init_decode_state(..., mesh=...)``, against the unsharded decode from
+   the same weights and tokens (argmax ids equal, logits within LM_TOL;
+   on one card every placement is whole, so this checks the unsplit path
+   only: the split heads and positions run on four cards in
+   ``tools/mesh_serve_cards.py``); and ``launch.dryrun``'s traces of
+   granite-3-8b × train_4k and qwen1.5-32b × decode_32k on the 16 × 16
+   production mesh over a fake process group (per-device parameter and
+   cache bytes, FLOPs, collective bytes by kind, the dominant term),
+   traced in a child process started with the
+   script, beside the kernel and LM phases.  The phase must take at most
+   SHARDED_SECONDS.
 
 The phases run in this order: the kernel checks (1), the LM phases (7-11),
 then the graph phases (2-6).  The PageRank store's host build (R-MAT,
@@ -497,11 +506,13 @@ TRAIN_LOOP = dict(steps=6, cut=3, batch=4, seq=64)
 #: a model with random weights predicts about as well as chance: |loss - ln V| bound
 LOSS_BAND = 1.5
 #: phase sharded: granite-3-8b at full width, 2 layers, float32, batch 2 x 256 on a
-#: (cards, 1) mesh; the TrainLoop resume on the smoke config, cut after `cut` steps
+#: (cards, 1) mesh; the TrainLoop resume on the smoke config, cut after `cut` steps;
+#: the full-width config's decode, `decode` steps of `decode_batch` rows a rank into a
+#: `decode_cache`-slot cache
 SHARDED = dict(n_layers=2, batch=2, seq=256, loop_steps=3, loop_cut=2, loop_batch=4,
-               loop_seq=64)
-#: the production-mesh dry run printed beside it: (arch, shape, multi_pod)
-SHARDED_DRYRUN = (LM_ARCH, "train_4k", False)
+               loop_seq=64, decode=16, decode_batch=2, decode_cache=32)
+#: the production-mesh dry runs printed beside it: (arch, shape, multi_pod)
+SHARDED_DRYRUN = ((LM_ARCH, "train_4k", False), ("qwen1.5-32b", "decode_32k", False))
 #: phase sharded's limit (seconds, host clock), the wait for the dry run included
 SHARDED_SECONDS = 60.0
 
@@ -3827,6 +3838,55 @@ def sharded_checks(rank: int, world: int, dev, tmp: str) -> dict:
             worst = max(worst, float((got[name] - want.detach()).abs().max()))
         out["restore_worst"] = worst
         out["restore_nll"] = resumed["history"][-1]["nll"]
+    del resumed, got
+    out.update(sharded_decode(rank, world, dev, cfg, mesh))
+    return out
+
+
+def sharded_decode(rank: int, world: int, dev, cfg, mesh) -> dict:
+    """In each rank of phase sharded: ``cfg`` (float32) sharded over
+    ``mesh`` decodes SHARDED["decode"] seeded tokens a row through
+    ``make_serve_step(mesh=...)``, the state placed by
+    ``init_decode_state(..., mesh=...)``; rank 0 decodes the same tokens
+    unsharded from the same weights and checks argmax ids and logits
+    (LM_TOL) each step."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_serve_step, shard_model
+
+    sh = SHARDED
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = lm.LM(cfg, generator=gen, device=dev)
+    plain = copy.deepcopy(model) if rank == 0 else None
+    shard_model(model, mesh)
+    b = sh["decode_batch"] * world
+    tokens = torch.randint(0, cfg.vocab, (sh["decode"], b), generator=gen, device=dev)
+    state = lm.init_decode_state(cfg, b, sh["decode_cache"], device=dev, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    got = []
+    for t in tokens:
+        logits, state = step(model, state, dict(tokens=t))
+        got.append(logits.full_tensor())
+    torch.cuda.synchronize(dev)
+    out = dict(decode_ms=(time.perf_counter() - t0) / sh["decode"] * 1e3,
+               decode_placements=sorted({str(tuple(v.placements))
+                                         for v in state["cache"].values()}))
+    if rank == 0:
+        pstate = lm.init_decode_state(cfg, b, sh["decode_cache"], device=dev)
+        pstep = make_serve_step(cfg)
+        worst = 0.0
+        for i, t in enumerate(tokens):
+            want, pstate = pstep(plain, pstate, dict(tokens=t))
+            check(torch.equal(got[i].argmax(-1), want.argmax(-1))
+                  and torch.allclose(got[i], want, **LM_TOL),
+                  f"sharded decode: step {i} ids or logits differ from the unsharded decode "
+                  f"(max |diff| {float((got[i] - want).abs().max()):.2e}, {LM_TOL})")
+            worst = max(worst, float((got[i] - want).abs().max()))
+        out["decode_worst"] = worst
     return out
 
 
@@ -3854,30 +3914,36 @@ def sharded_worker(rank: int, world: int, init_file: str, tmp: str) -> None:
 
 
 class DryRun:
-    """``launch.dryrun`` of SHARDED_DRYRUN in a child process, started with
-    the script so that its trace (host work, no card) runs beside the
-    kernel and LM phases; ``phase sharded`` reads its JSON."""
+    """``launch.dryrun`` of each of SHARDED_DRYRUN, one after the other in
+    a child process started with the script, so that the traces (host
+    work, no card) run beside the kernel and LM phases; ``phase sharded``
+    reads their JSON."""
 
     def __init__(self):
         import tempfile
 
         self._folder = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
-        arch, shape, multi_pod = SHARDED_DRYRUN
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-               shape, "--out", self._folder.name] + (["--multi-pod"] * multi_pod)
-        self._proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True,
+        argvs = [["--arch", arch, "--shape", shape, "--out", self._folder.name]
+                 + ["--multi-pod"] * multi_pod for arch, shape, multi_pod in SHARDED_DRYRUN]
+        code = ("import sys\nfrom repro_torch.launch.dryrun import main\n"
+                f"sys.exit(max(main(argv) for argv in {argvs!r}))")
+        self._proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
 
-    def result(self) -> dict:
-        """Wait for the dry run and return its cell's JSON."""
+    def result(self) -> list[dict]:
+        """Wait for the dry runs and return their cells' JSON, in
+        SHARDED_DRYRUN's order."""
         _, err = self._proc.communicate(timeout=600)
         check(self._proc.returncode == 0, f"dry run exited {self._proc.returncode}: "
               f"{err[-2000:]}")
-        arch, shape, multi_pod = SHARDED_DRYRUN
-        mesh_name = "2x16x16" if multi_pod else "16x16"
-        with open(os.path.join(self._folder.name, f"{arch}__{shape}__{mesh_name}.json")) as f:
-            return json.load(f)
+        out = []
+        for arch, shape, multi_pod in SHARDED_DRYRUN:
+            mesh_name = "2x16x16" if multi_pod else "16x16"
+            with open(os.path.join(self._folder.name,
+                                   f"{arch}__{shape}__{mesh_name}.json")) as f:
+                out.append(json.load(f))
+        return out
 
     def close(self) -> None:
         if self._proc.poll() is None:
@@ -3887,11 +3953,11 @@ class DryRun:
 
 
 def phase_sharded(card: str, dry: DryRun) -> None:
-    """The sharded training step on an NCCL mesh over every card, in
-    spawned child processes (one a card); then the production-mesh dry
-    run's result, traced in another child since the script began; checks
-    each, prints their numbers and the phase's time (the wait for the dry
-    run included) against SHARDED_SECONDS."""
+    """The sharded training step and decode on an NCCL mesh over every
+    card, in spawned child processes (one a card); then the
+    production-mesh dry runs' results, traced in another child since the
+    script began; checks each, prints their numbers and the phase's time
+    (the wait for the dry runs included) against SHARDED_SECONDS."""
     import tempfile
 
     import torch
@@ -3899,13 +3965,12 @@ def phase_sharded(card: str, dry: DryRun) -> None:
 
     t0 = time.perf_counter()
     world = torch.cuda.device_count()
-    arch, shape, _ = SHARDED_DRYRUN
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
         mp.spawn(sharded_worker, args=(world, os.path.join(tmp, "pg"), tmp), nprocs=world,
                  join=True)
         with open(os.path.join(tmp, "result.json")) as f:
             r = json.load(f)
-    d = dry.result()
+    cells = dry.result()
     seconds = time.perf_counter() - t0
     sh = SHARDED
     say(f"phase sharded: {LM_ARCH} {sh['n_layers']} layers float32 on a {tuple(r['mesh'])} "
@@ -3921,18 +3986,27 @@ def phase_sharded(card: str, dry: DryRun) -> None:
         f"{sh['loop_cut'] - 1} restored onto the mesh and stepped to {sh['loop_steps']}: "
         f"parameters within {STEP_TOL} of the uninterrupted run (max |diff| "
         f"{r['restore_worst']:.2e}), nll {r['restore_nll']:.4f}")
-    check(d["status"] == "ok" and d["memory"]["temp_bytes"] > 0
-          and d["collectives"]["total"] > 0, f"dry run: {d.get('status')} {d.get('error')}")
-    mem, roof, coll = d["memory"], d["roofline"], d["collectives"]
-    say(f"phase sharded: dry run {arch} x {shape} x {d['mesh']} ({d['chips']} fake ranks, "
-        f"traced in {d['seconds_trace']:.1f} s): per device parameters "
-        f"{mem['param_bytes'] / 1e9:.3f} GB, gradients {mem['grad_bytes'] / 1e9:.3f}, "
-        f"optimizer {mem['optimizer_bytes'] / 1e9:.3f}, step peak {mem['temp_bytes'] / 1e9:.3f};"
-        f" FLOPs {roof['hlo_flops_per_chip']:.4e} a device (model FLOPs share "
-        f"{d['useful_flops_ratio']:.3f}), bytes {roof['hlo_bytes_per_chip']:.4e}; collective "
-        f"bytes {json.dumps(coll['per_kind'])} counts {json.dumps(coll['counts'])}; terms "
-        f"compute {roof['t_compute']:.4f} s, memory {roof['t_memory']:.4f} s, collective "
-        f"{roof['t_collective']:.4f} s, dominant {roof['dominant']}")
+    whole = " (every placement whole on one card: the unsplit path only)" if world == 1 else ""
+    say(f"phase sharded: {LM_ARCH} {sh['n_layers']} layers float32 decoding {sh['decode']} "
+        f"steps of {sh['decode_batch'] * r['mesh'][0]} rows on the mesh through "
+        f"make_serve_step(mesh=), cache placements {r['decode_placements']}{whole}: argmax ids "
+        f"equal to the unsharded decode's, logits max |diff| {r['decode_worst']:.2e} "
+        f"({LM_TOL}); {r['decode_ms']:.1f} ms a step")
+    for (arch, shape, multi_pod), d in zip(SHARDED_DRYRUN, cells):
+        check(d["status"] == "ok" and d["memory"]["temp_bytes"] > 0
+              and d["collectives"]["total"] > 0,
+              f"dry run {arch} x {shape}: {d.get('status')} {d.get('error')}")
+        mem, roof, coll = d["memory"], d["roofline"], d["collectives"]
+        say(f"phase sharded: dry run {arch} x {shape} x {d['mesh']} ({d['chips']} fake ranks, "
+            f"traced in {d['seconds_trace']:.1f} s): per device parameters "
+            f"{mem['param_bytes'] / 1e9:.3f} GB, gradients {mem['grad_bytes'] / 1e9:.3f}, "
+            f"optimizer {mem['optimizer_bytes'] / 1e9:.3f}, cache "
+            f"{mem['cache_bytes'] / 1e9:.3f}, step peak {mem['temp_bytes'] / 1e9:.3f}; FLOPs "
+            f"{roof['hlo_flops_per_chip']:.4e} a device (model FLOPs share "
+            f"{d['useful_flops_ratio']:.3f}), bytes {roof['hlo_bytes_per_chip']:.4e}; collective "
+            f"bytes {json.dumps(coll['per_kind'])} counts {json.dumps(coll['counts'])}; terms "
+            f"compute {roof['t_compute']:.4f} s, memory {roof['t_memory']:.4f} s, collective "
+            f"{roof['t_collective']:.4f} s, dominant {roof['dominant']}")
     say(f"phase sharded: {seconds:.1f} s (limit {SHARDED_SECONDS:.0f} s)")
     check(seconds <= SHARDED_SECONDS, f"phase sharded took {seconds:.1f} s, over "
           f"{SHARDED_SECONDS} s")

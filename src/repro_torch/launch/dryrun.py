@@ -18,15 +18,18 @@ each step on 512 fake XLA host devices and reads the compiled program's
   op) around it: nothing is computed or allocated on the fake tensors.
 
 The result follows the reference's JSON: ``status``, ``chips``,
-``memory`` (per-device parameter, gradient and optimizer bytes from the
-placements; ``temp_bytes``, the most bytes the traced step held at once),
+``memory`` (per-device parameter, gradient, optimizer and, for a decode
+cell, cache bytes from the placements; ``temp_bytes``, the most bytes the
+traced step held at once),
 ``roofline`` (the three terms with H100 constants, ``dominant``),
 ``model_flops``, ``useful_flops_ratio``, ``collectives`` and ``params``.
-``train`` and ``prefill`` cells run for the dense family; the others
-return ``"skipped"`` with the reason (decode caches on a mesh, and the
-other families' tensor parallelism, are ROADMAP A2's open items), or
-``"error"`` with the traceback, as the reference's sweep does.  Nothing
-here imports jax or sets ``XLA_FLAGS``.
+``train``, ``prefill`` and ``decode`` cells run for the dense family (a
+decode cell traces ``make_serve_step(mesh=...)`` against a state made by
+``init_decode_state(..., mesh=...)`` under fake mode, placed as the
+reference's ``_decode_state_shardings`` places it); the other families
+return ``"skipped"`` with the reason (their tensor parallelism is ROADMAP
+A2's open item), or ``"error"`` with the traceback, as the reference's
+sweep does.  Nothing here imports jax or sets ``XLA_FLAGS``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -46,10 +49,11 @@ from dataclasses import replace
 
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_leaves
 
 from ..configs import SHAPES, get_config, list_archs
-from ..models.steps import (expert_rules, input_specs, make_prefill_step, make_train_step,
-                            shard_model, supports_shape)
+from ..models.steps import (expert_rules, input_specs, make_prefill_step, make_serve_step,
+                            make_train_step, shard_model, supports_shape)
 from ..roofline import collective_bytes, model_flops, roofline_terms
 from .mesh import make_production_mesh
 
@@ -78,11 +82,8 @@ def _skip(arch, shape_name, mesh_name, why):
     return dict(arch=arch, shape=shape_name, mesh=mesh_name, status="skipped", reason=why)
 
 
-def _mesh_cut(cfg, shape) -> str:
-    """Why the port does not trace this cell, or ''."""
-    if shape.kind == "decode":
-        return ("decode caches on a mesh (sharding.cache_spec in use) are not ported "
-                "(ROADMAP A2)")
+def _mesh_cut(cfg) -> str:
+    """Why the port does not trace this arch's cells, or ''."""
     if cfg.family != "dense":
         return (f"tensor parallelism for the {cfg.family} family is not ported "
                 "(ROADMAP A2); the production mesh has model=16")
@@ -101,7 +102,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.debug import CommDebugMode
 
-    from ..models.lm import LM
+    from ..models.lm import LM, init_decode_state
     from ..optim import adamw_init
     from ..roofline.op_cost import OpCost
 
@@ -115,7 +116,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
                     seq_len=seq_len or shape.seq_len)
     ok, why = supports_shape(cfg, shape)
     if ok:
-        why = _mesh_cut(cfg, shape)
+        why = _mesh_cut(cfg)
     if why:
         return _skip(arch, shape_name, mesh_name, why)
     chips = math.prod(sizes.values())
@@ -134,6 +135,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
         param_bytes = sum(shard_bytes(p) for p in params.values())
         t_shard = time.perf_counter() - t0
         cost = OpCost()
+        cache_bytes = 0
         with FakeTensorMode(allow_non_fake_inputs=True):
             batch = {k: torch.zeros(s.shape, dtype=s.dtype)
                      for k, s in input_specs(cfg, shape).items()}
@@ -142,10 +144,17 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
                 step = make_train_step(cfg, mesh=dmesh)
                 with CommDebugMode() as comm, cost:
                     step(model, opt, batch, 0)
-            else:
+            elif shape.kind == "prefill":
                 step = make_prefill_step(cfg, mesh=dmesh)
                 with CommDebugMode() as comm, cost:
                     step(model, batch)
+            else:
+                state = init_decode_state(cfg, shape.global_batch, shape.seq_len, device="cpu",
+                                          mesh=dmesh)
+                cache_bytes = sum(shard_bytes(t) for t in tree_leaves(state["cache"]))
+                step = make_serve_step(cfg, mesh=dmesh)
+                with CommDebugMode() as comm, cost:
+                    step(model, state, batch)
         t_trace = time.perf_counter() - t0 - t_shard
         train = shape.kind == "train"
         grad_bytes = param_bytes if train else 0
@@ -160,10 +169,10 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
             arch=arch, shape=shape_name, mesh=mesh_name, status="ok", chips=chips,
             seconds_shard=round(t_shard, 2), seconds_trace=round(t_trace, 2),
             memory=dict(param_bytes=param_bytes, grad_bytes=grad_bytes,
-                        optimizer_bytes=opt_bytes,
-                        argument_bytes=param_bytes + opt_bytes,
+                        optimizer_bytes=opt_bytes, cache_bytes=cache_bytes,
+                        argument_bytes=param_bytes + opt_bytes + cache_bytes,
                         temp_bytes=cost.peak_bytes,
-                        total_bytes=param_bytes + opt_bytes + cost.peak_bytes),
+                        total_bytes=param_bytes + opt_bytes + cache_bytes + cost.peak_bytes),
             roofline=terms, model_flops=mf,
             useful_flops_ratio=mf / total_flops if total_flops else None,
             collectives=coll, ops=cost.ops, params=n_params,
@@ -172,8 +181,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
             gb = 1e9
             print(f"== {arch} × {shape_name} × {mesh_name} ==")
             print(f"memory per device: params {param_bytes / gb:.3f} GB, grads "
-                  f"{grad_bytes / gb:.3f}, optimizer {opt_bytes / gb:.3f}, step peak "
-                  f"{cost.peak_bytes / gb:.3f}")
+                  f"{grad_bytes / gb:.3f}, optimizer {opt_bytes / gb:.3f}, cache "
+                  f"{cache_bytes / gb:.3f}, step peak {cost.peak_bytes / gb:.3f}")
             print(f"flops/chip {cost.flops:.4e}, bytes/chip {cost.bytes:.4e}")
             print("collectives:", json.dumps(coll["per_kind"]), json.dumps(coll["counts"]))
             print("roofline s: compute={t_compute:.4f} memory={t_memory:.4f} "

@@ -23,12 +23,23 @@ from the local shard: :func:`_local_heads` keeps the query heads a rank
 holds whole (all of them where the heads do not divide over the ranks)
 and the K/V heads they read, gathered where the K/V shard is not whole
 heads.  The output projection's partial sums are all-reduced.
+
+Decode on a mesh (``decode_attention`` with a sharded layer or a cache
+split over ranks, as ``sharding.cache_spec`` places it): where the cache
+holds a rank's own K/V heads, the rank projects and attends over the
+query heads that read them and the output projection's partial sums are
+all-reduced, as in prefill; where the cache's positions are split over
+ranks, each rank projects every head, only the rank that holds slot
+``pos`` writes it, and each computes its slice's scores, running max, sum
+and weighted values in float32, combined by a log-sum-exp reduction over
+the ranks that split the positions.  The whole cache is never gathered.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention import flash_attention
@@ -219,35 +230,107 @@ def self_attention(p, x, *, n_heads, n_kv_heads, d_head, rope_theta, causal=True
     return out.reshape(b, s, n_heads * d_head) @ p.wo
 
 
+def _tp_decode_qkv(p, x, n_heads, n_kv_heads, d_head, hkv: int):
+    """q, k, v (B,1,·,D) of one decode token through DTensor weights: the
+    rank's own heads where its cache holds ``hkv`` < ``n_kv_heads`` K/V
+    heads (the projections' shards are then whole heads, the query heads
+    reading those K/V heads), else every head, gathered; and whether the
+    heads are the rank's own."""
+    b = x.shape[0]
+    xd = tp_in(x, p.wq)
+    q, k, v = xd @ p.wq, xd @ p.wk, xd @ p.wv
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if hkv == n_kv_heads:
+        rep = [Replicate()]
+        return (*(t.redistribute(t.device_mesh, rep).to_local().reshape(b, 1, -1, d_head)
+                  for t in (q, k, v)), False)
+    if not (_sharded_heads(q, n_heads) and _sharded_heads(k, n_kv_heads)
+            and k.to_local().shape[-1] == hkv * d_head):
+        raise NotImplementedError(
+            "decode with a cache split over K/V heads needs the projections split over the "
+            "same whole heads (ROADMAP A2)")
+    return (*(t.to_local().reshape(b, 1, -1, d_head) for t in (q, k, v)), True)
+
+
+def _split_attention(qg, cache_k, cache_v, pos, seq_split):
+    """Decode attention over this rank's slice of a cache whose positions
+    are split over ranks: ``seq_split`` = (the global position of the
+    slice's first slot, the groups of the ranks that split the positions).
+    Scores, the running max, the sum and the weighted values in float32,
+    combined over the groups by log-sum-exp → (B,1,H_kv,G,D) float32."""
+    offset, groups = seq_split
+    t = cache_k.shape[1]
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() * qg.shape[-1] ** -0.5
+    valid = offset + torch.arange(t, device=qg.device) <= pos
+    logits = torch.where(valid, logits, -1e30)
+    m = logits.amax(-1, keepdim=True)
+    for group in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    probs = torch.where(valid, torch.exp(logits - m), 0.0)
+    acc = torch.einsum("bhgst,bthd->bshgd", probs, cache_v.float())
+    acc = torch.cat([acc, probs.sum(-1).permute(0, 3, 1, 2)[..., None]], -1)
+    for group in groups:
+        dist.all_reduce(acc, group=group)
+    return acc[..., :-1] / acc[..., -1:]
+
+
 def decode_attention(p, x, cache_k, cache_v, pos, *, n_heads, n_kv_heads, d_head,
-                     rope_theta, window=0):
+                     rope_theta, window=0, seq_split=None):
     """One-token decode.  x (B,1,d); cache (B,T,H_kv,D); pos a 0-d int tensor.
 
     Returns (out (B,1,d), cache_k, cache_v).  Unlike the reference, the
     caches are updated in place (one slot per call) and returned as the
     same tensors.  For sliding-window layers the cache is a ring buffer
     of size ``window``.
+
+    On a mesh (see the module's docstring) the weights are DTensors over
+    the ``model`` ranks, the cache is this rank's shard (its own K/V heads
+    where it holds fewer than ``n_kv_heads``), and ``seq_split`` = (offset,
+    groups) where the shard holds positions ``offset`` … ``offset + T − 1``
+    of a cache split over the ranks of ``groups``.
     """
     b = x.shape[0]
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, d_head)
+    hkv = cache_k.shape[2]
+    own = False
+    if isinstance(p.wq, DTensor):
+        q, k, v, own = _tp_decode_qkv(p, x, n_heads, n_kv_heads, d_head, hkv)
+    else:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, d_head)
     if rope_theta:
         cos, sin = rope(pos[None], d_head, rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     t = cache_k.shape[1]
-    slot = (pos % max(t, 1) if window else pos).reshape(1).long()
-    cache_k.index_copy_(1, slot, k)
-    cache_v.index_copy_(1, slot, v)
-    hkv = cache_k.shape[2]
-    qg = q.reshape(b, 1, hkv, n_heads // hkv, d_head)
-    logits = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() * d_head ** -0.5
-    kpos = torch.arange(t, device=x.device)
-    if window:
-        valid = (kpos <= slot) | (pos >= t)       # ring buffer: the last `window` positions
+    qg = q.reshape(b, 1, hkv, q.shape[2] // hkv, d_head)
+    if seq_split is not None:
+        if window:
+            raise NotImplementedError(
+                "decode of a sliding-window ring cache split over ranks is not ported "
+                "(ROADMAP A2)")
+        local = pos - seq_split[0]
+        mine = (local >= 0) & (local < t)             # only the slot's holder writes it
+        slot = local.clamp(0, t - 1).reshape(1).long()
+        cache_k.index_copy_(1, slot, torch.where(mine, k, cache_k.index_select(1, slot)))
+        cache_v.index_copy_(1, slot, torch.where(mine, v, cache_v.index_select(1, slot)))
+        out = _split_attention(qg, cache_k, cache_v, pos, seq_split).to(cache_v.dtype)
     else:
-        valid = kpos <= pos
-    logits = torch.where(valid, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, cache_v).reshape(b, 1, n_heads * d_head)
+        slot = (pos % max(t, 1) if window else pos).reshape(1).long()
+        cache_k.index_copy_(1, slot, k)
+        cache_v.index_copy_(1, slot, v)
+        logits = torch.einsum("bshgd,bthd->bhgst", qg, cache_k).float() * d_head ** -0.5
+        kpos = torch.arange(t, device=x.device)
+        if window:
+            valid = (kpos <= slot) | (pos >= t)       # ring buffer: the last `window` positions
+        else:
+            valid = kpos <= pos
+        logits = torch.where(valid, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+        out = torch.einsum("bhgst,bthd->bshgd", probs, cache_v)
+    out = out.reshape(b, 1, -1)
+    if isinstance(p.wo, DTensor):
+        out = DTensor.from_local(out, p.wo.device_mesh, [Shard(2) if own else Replicate()],
+                                 run_check=False)
+        return tp_out(out @ p.wo), cache_k, cache_v
     return out @ p.wo, cache_k, cache_v
 
 

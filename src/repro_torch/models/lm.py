@@ -75,6 +75,8 @@ What the reference does and this module does not:
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
 import torch.distributed as dist
@@ -89,11 +91,10 @@ from .attention import Attention, CrossAttention, cross_attention, decode_attent
 from .common import Dtype, dense_init, gelu_mlp, layer_norm, replicated, rms_norm, swiglu, \
     tp_in, tp_out
 from .moe import MoE, moe_ffn
-from .ssm import (MLSTM, SLSTM, Mamba, mamba_seq, mamba_seq_assoc, mamba_step,
-                  mlstm_init_state, mlstm_seq, mlstm_seq_chunked, mlstm_step, slstm_init_state,
-                  slstm_seq, slstm_step)
+from .ssm import (M_INIT, MLSTM, SLSTM, Mamba, mamba_seq, mamba_seq_assoc, mamba_step,
+                  mlstm_seq, mlstm_seq_chunked, mlstm_step, slstm_seq, slstm_step)
 
-__all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state",
+__all__ = ["LM", "forward_logits", "forward_loss", "init_decode_state", "decode_state_shapes",
            "decode_step", "check_family", "PORTED_FAMILIES"]
 
 LOSS_CHUNK = 512
@@ -151,9 +152,12 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = MLP(cfg, dtype, **kw)
 
-    def forward(self, cfg: ArchConfig, h, use_kernel=False, remat=False, slstm=False):
+    def forward(self, cfg: ArchConfig, h, use_kernel=False, remat=False, slstm=False,
+                dp_group=None):
         """This layer on h → (h, its aux terms or None); ``slstm`` picks an
-        ssm layer's branch.  With ``remat``, under ``cfg.remat_policy``:
+        ssm layer's branch; ``dp_group`` is the data ranks' group where h
+        is a slice of a batch split over them (the MoE routes over the
+        whole batch).  With ``remat``, under ``cfg.remat_policy``:
         ``"full"`` recomputes the whole layer in the backward,
         ``"save_attn"`` each block on its own, keeping the attention's
         output.  Called through the module so that FSDP, where the model
@@ -164,14 +168,15 @@ class DecoderLayer(nn.Module):
             return (checkpoint(_ssm_layer, *args, use_reentrant=False) if remat
                     else _ssm_layer(*args)), None
         if not remat:
-            return _decoder_layer(cfg, self, h, use_kernel)
+            return _decoder_layer(cfg, self, h, use_kernel, dp_group)
         if cfg.remat_policy != "save_attn":
-            return checkpoint(_decoder_layer, cfg, self, h, use_kernel, use_reentrant=False)
+            return checkpoint(_decoder_layer, cfg, self, h, use_kernel, dp_group,
+                              use_reentrant=False)
         out = checkpoint(_attn_block, cfg, self, h, use_kernel, use_reentrant=False)
         if cfg.family == "hybrid":
             out = (out + checkpoint(_mamba_block, cfg, self, h, use_reentrant=False)) * 0.5
         h = h + out
-        y, a = checkpoint(_mlp_block, cfg, self, h, use_reentrant=False)
+        y, a = checkpoint(_mlp_block, cfg, self, h, dp_group, use_reentrant=False)
         return h + y, a
 
 
@@ -252,11 +257,12 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, batch, cfg: ArchConfig | None = None, use_kernel=False):
+    def forward(self, batch, cfg: ArchConfig | None = None, use_kernel=False, dp_group=None):
         """:func:`forward_loss` of ``batch`` under ``cfg`` (default: the
         model's): the training step's entry, through the module so that
         FSDP gathers the root's weights."""
-        return forward_loss(cfg or self.cfg, self, batch, use_kernel=use_kernel)
+        return forward_loss(cfg or self.cfg, self, batch, use_kernel=use_kernel,
+                            dp_group=dp_group)
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -280,12 +286,12 @@ def _mamba_block(cfg: ArchConfig, layer: DecoderLayer, h):
     return mamba(layer.mamba, rms_norm(h, layer.ln1), d_state=cfg.ssm_state)
 
 
-def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h):
+def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h, dp_group=None):
     """The layer's MLP or MoE on the normed h → (y, aux terms or None)."""
     x = rms_norm(h, layer.ln2)
     if cfg.n_experts:
         return moe_ffn(layer.moe, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       dispatch_sharding=cfg.moe_dispatch_sharding)
+                       dispatch_sharding=cfg.moe_dispatch_sharding, group=dp_group)
     return layer.mlp(x), None
 
 
@@ -306,13 +312,13 @@ def _ssm_layer(cfg: ArchConfig, layer: DecoderLayer, h, slstm: bool):
     return h + mlstm_seq(layer.mlstm, x, n_heads=cfg.n_heads)
 
 
-def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel):
+def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel, dp_group=None):
     """One decoder layer → (h, its aux terms or None)."""
     out = _attn_block(cfg, layer, h, use_kernel)
     if cfg.family == "hybrid":
         out = (out + _mamba_block(cfg, layer, h)) * 0.5    # Hymba mean-fuses the branches
     h = h + out
-    y, aux = _mlp_block(cfg, layer, h)
+    y, aux = _mlp_block(cfg, layer, h, dp_group)
     return h + y, aux
 
 
@@ -357,7 +363,7 @@ def _audio_layer(cfg: ArchConfig, model: LM, i: int, h, memory, use_kernel, rema
 
 
 def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
-                 use_kernel=False):
+                 use_kernel=False, dp_group=None):
     """The decoder stack → (h, the aux terms summed over the layers, or
     None for a family without them)."""
     remat = _remat(model)
@@ -382,7 +388,7 @@ def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
         if cfg.family == "ssm":
             h, _ = layer(cfg, h, remat=remat, slstm=_is_slstm(cfg, i))
             continue
-        h, a = layer(cfg, h, use_kernel, remat)
+        h, a = layer(cfg, h, use_kernel, remat, dp_group=dp_group)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return h, aux
@@ -495,13 +501,15 @@ def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
     return (rms_norm(h, model.final_norm) @ model.head()).float()
 
 
-def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
+def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False, dp_group=None):
     """batch: tokens (B,S), labels (B,S), and ``vision`` (vlm) or
     ``frames`` (audio).  Returns (loss, metrics): ``nll``, ``loss`` and,
     for the moe family, ``load_balance`` and ``z_loss`` (summed over the
-    layers; ``loss`` adds 0.01 and 0.001 of them)."""
+    layers; ``loss`` adds 0.01 and 0.001 of them).  ``dp_group``: the data
+    ranks' group where ``batch`` is this rank's slice of a batch split
+    over them (the MoE's routing and terms are then the whole batch's)."""
     h, aux = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel,
-                          **_features(cfg, model, batch))
+                          dp_group=dp_group, **_features(cfg, model, batch))
     loss = _chunked_loss(cfg, model, rms_norm(h, model.final_norm), batch["labels"])
     metrics = dict(nll=loss)
     if aux is not None:
@@ -515,34 +523,78 @@ def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
 # decode (single-token serve step)
 
 
-def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
+def _state_leaves(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The decode state's tree: each leaf as (shape, dtype, fill)."""
+    dt = Dtype(cfg.dtype).param
+    lb = (cfg.n_layers, batch)
+    f32 = torch.float32
+    if cfg.family == "ssm":
+        h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        return dict(mlstm=dict(c=((*lb, h, dh, dh), f32, 0.0), n=((*lb, h, dh), f32, 0.0),
+                               m=((*lb, h), f32, M_INIT)),
+                    slstm=dict(c=((*lb, h, dh), f32, 0.0), n=((*lb, h, dh), f32, 0.0),
+                               m=((*lb, h), f32, M_INIT), h=((*lb, h, dh), f32, 0.0)))
+    t = min(cfg.attn_window, seq_len) if cfg.attn_window else seq_len
+    shape = (*lb, t, cfg.n_kv_heads, cfg.d_head)
+    cache = dict(k=(shape, dt, 0.0), v=(shape, dt, 0.0))
+    if cfg.family == "hybrid":
+        cache["mamba_h"] = ((*lb, cfg.d_model, cfg.ssm_state), f32, 0.0)
+        cache["mamba_conv"] = ((*lb, cfg.ssm_conv - 1, cfg.d_model), dt, 0.0)
+    return cache
+
+
+def _map_leaves(fn, tree, prefix=""):
+    """``tree`` with each leaf replaced by ``fn(its path "a/b", leaf)``."""
+    return {k: (_map_leaves(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
+                else fn(f"{prefix}{k}", v)) for k, v in tree.items()}
+
+
+def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The shapes of :func:`init_decode_state`'s tree (``cache`` and a 0-d
+    ``pos``), without making it: what ``sharding.decode_state_specs``
+    places."""
+    return dict(cache=_map_leaves(lambda _, leaf: leaf[0], _state_leaves(cfg, batch, seq_len)),
+                pos=())
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device=None, mesh=None):
     """Zero decode state at position 0 on ``device`` (default: the current
     card; raises without one): attention caches (L,B,T,H_kv,D) in the
     param dtype, T = min(window, seq_len) for a sliding window (a ring);
     for hybrid also ``mamba_h`` (L,B,d,N) float32 and ``mamba_conv``
     (L,B,K−1,d) in the param dtype; for ssm the mLSTM and the sLSTM states
-    of every layer, float32, ``m`` at −1e30."""
+    of every layer, float32, ``m`` at −1e30.
+
+    With ``mesh`` (a ``("data", "model")`` DeviceMesh) every cache and
+    state is a DTensor placed as ``sharding.decode_state_specs`` says (the
+    reference's ``_decode_state_shardings``), each rank allocating its own
+    shard only; ``pos`` stays a plain tensor.  A sliding-window ring whose
+    positions the placement would split over ranks raises
+    ``NotImplementedError``."""
+    from .sharding import MeshCtx, decode_state_specs, local_zeros, to_placements
+
     check_family(cfg)
     device = resolve_device(device)
-    dt = Dtype(cfg.dtype).param
-    lb = (cfg.n_layers, batch)
-    if cfg.family == "ssm":
-        dh = cfg.d_model // cfg.n_heads
-        states = (mlstm_init_state(batch, cfg.n_heads, dh, device=device),
-                  slstm_init_state(batch, cfg.n_heads, dh, device=device))
-        cache = {name: {k: v.expand(*lb, *v.shape[1:]).contiguous() for k, v in st.items()}
-                 for name, st in zip(("mlstm", "slstm"), states)}
-        return dict(cache=cache, pos=torch.zeros((), dtype=torch.int32, device=device))
-    t = min(cfg.attn_window, seq_len) if cfg.attn_window else seq_len
-    shape = (*lb, t, cfg.n_kv_heads, cfg.d_head)
-    cache = dict(k=torch.zeros(shape, dtype=dt, device=device),
-                 v=torch.zeros(shape, dtype=dt, device=device))
-    if cfg.family == "hybrid":
-        cache["mamba_h"] = torch.zeros((*lb, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
-                                       device=device)
-        cache["mamba_conv"] = torch.zeros((*lb, cfg.ssm_conv - 1, cfg.d_model), dtype=dt,
-                                          device=device)
-    return dict(cache=cache, pos=torch.zeros((), dtype=torch.int32, device=device))
+    leaves = _state_leaves(cfg, batch, seq_len)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if mesh is None:
+        cache = _map_leaves(lambda _, leaf: torch.full(leaf[0], leaf[2], dtype=leaf[1],
+                                                       device=device), leaves)
+        return dict(cache=cache, pos=pos)
+    specs = decode_state_specs(MeshCtx(mesh), decode_state_shapes(cfg, batch, seq_len))["cache"]
+
+    def one(name, leaf):
+        spec = specs
+        for part in name.split("/"):
+            spec = spec[part]
+        if cfg.attn_window and name in ("k", "v") and spec[2] is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: its sliding-window ring cache would be split over ranks on its "
+                f"positions ({spec}); not ported (ROADMAP A2)")
+        return local_zeros(leaf[0], leaf[1], mesh, to_placements(spec, mesh), device=device,
+                           fill=leaf[2])
+
+    return dict(cache=_map_leaves(one, leaves), pos=pos)
 
 
 def _ssm_decode(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int):
@@ -557,14 +609,15 @@ def _ssm_decode(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int):
     return h + out
 
 
-def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos):
+def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos,
+                  seq_split=None, dp_group=None):
     """Attention decoder layer ``i``'s decode step; its caches (and Mamba
     state) are written in place."""
     x = rms_norm(h, layer.ln1)
     out, _, _ = decode_attention(
         layer.attn, x, cache["k"][i], cache["v"][i], pos, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-        window=cfg.attn_window)
+        window=cfg.attn_window, seq_split=seq_split)
     if cfg.family == "hybrid":
         m_out, mh, conv = mamba_step(layer.mamba, x, cache["mamba_h"][i],
                                      cache["mamba_conv"][i], d_state=cfg.ssm_state)
@@ -572,33 +625,115 @@ def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos):
         cache["mamba_conv"][i].copy_(conv)
         out = (out + m_out) * 0.5
     h = h + out
-    return h + _mlp_block(cfg, layer, h)[0]      # the MoE's T is the decode batch
+    return h + _mlp_block(cfg, layer, h, dp_group)[0]   # the MoE's T is the decode batch
 
 
-def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, vision=None):
+@contextmanager
+def _gathered(module: nn.Module):
+    """``module``'s own parameters whole inside the block where FSDP2
+    shards them (its ``unshard``/``reshard``), as its forward hooks would
+    gather them: decode calls the layers' parts directly."""
+    from torch.distributed.fsdp import FSDPModule
+
+    if not isinstance(module, FSDPModule):
+        yield
+        return
+    module.unshard()
+    try:
+        yield
+    finally:
+        module.reshard()
+
+
+def _seq_split(cache: DTensor):
+    """(offset, groups) of a KV cache DTensor (L,B,T,H,D) whose positions
+    are split over ranks: the global position of this rank's first slot and
+    the groups of the mesh dims that split them; None where none does."""
+    from .sharding import local_extent
+
+    mesh = cache.device_mesh
+    dims = [i for i, pl in enumerate(cache.placements) if pl == Shard(2) and mesh.size(i) > 1]
+    if not dims:
+        return None
+    offset = local_extent(cache.shape, mesh, cache.placements)[1][2]
+    return offset, [mesh.get_group(i) for i in dims]
+
+
+def _local_rows(cache, rows: int, dp_group):
+    """The cache's local tensors for this rank's ``rows`` tokens, and the
+    leaves that hold every row of a batch split over ``dp_group`` (the
+    rules put ``model`` on the batch dim of an (L, B, H) state, so over
+    the data ranks it is whole): of those, a view of this rank's rows,
+    and (whole, first row) to share the rows again after the step."""
+    shared = []
+
+    def one(name, leaf):
+        t = leaf.to_local() if isinstance(leaf, DTensor) else leaf
+        if t.shape[1] == rows:
+            return t
+        if name in ("k", "v") or dp_group is None:
+            raise NotImplementedError(
+                "decode of a KV cache whose batch is not split as the tokens are (the batch "
+                "divides the data ranks but not the pod and data ranks) is not ported "
+                "(ROADMAP A2)")
+        lo = dist.get_rank(dp_group) * rows
+        shared.append((t, lo))
+        return t[:, lo:lo + rows]
+
+    return _map_leaves(one, cache), shared
+
+
+def _share_rows(shared, rows: int, dp_group) -> None:
+    """Each rank's updated rows of the leaves :func:`_local_rows` returned
+    whole, gathered back into every rank's copy."""
+    for t, lo in shared:
+        parts = [torch.empty_like(t[:, :rows]) for _ in range(dist.get_world_size(dp_group))]
+        dist.all_gather(parts, t[:, lo:lo + rows].contiguous(), group=dp_group)
+        t.copy_(torch.cat(parts, 1))
+
+
+def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, vision=None,
+                dp_group=None):
     """One decode step.  tokens (B,) int → (logits (B,V) float32, state).
     The vlm family needs ``vision`` (B,T,d), the audio family the
     encoder's output as ``memory`` (B,F,d) (:func:`_run_encoder`); their
     K/V are projected anew each step, as the reference's are.
 
     The returned state holds the same cache and state tensors, written in
-    place, and the next position."""
+    place, and the next position.
+
+    On a mesh (``models.steps.make_serve_step(mesh=...)``) ``state`` is
+    ``init_decode_state(..., mesh=)``'s, ``tokens`` this rank's rows of
+    the batch (all of them where the batch is not split), ``dp_group`` the
+    data ranks' group where it is split (the MoE routes over the whole
+    batch), and the model is sharded by ``shard_model``: each layer's
+    weights are gathered by FSDP for its step, the attention runs on this
+    rank's cache shard (``attention.decode_attention``) and the logits,
+    gathered over ``model`` where the head is split over the vocab, are
+    this rank's rows."""
     if cfg.family == "vlm":
         _required(vision, "vision", cfg)
     if cfg.is_encdec:
         _required(memory, "memory", cfg)
     pos = state["pos"]
-    cache = state["cache"]
-    h = _embed(model, tokens[:, None])
+    split = _seq_split(state["cache"]["k"]) if isinstance(state["cache"].get("k"), DTensor) \
+        else None
+    cache, shared = _local_rows(state["cache"], tokens.shape[0], dp_group)
     g = cfg.cross_attn_every
-    for i, layer in enumerate(model.layers):
-        if cfg.family == "vlm" and i % g == 0:
-            h = h + _cross_block(cfg, model.xattn[i // g], h, vision, True)
-        if cfg.family == "ssm":
-            h = _ssm_decode(cfg, layer, h, cache, i)
-            continue
-        h = _decode_layer(cfg, layer, h, cache, i, pos)
-        if cfg.is_encdec:
-            h = h + _cross_block(cfg, model.dec_xattn[i], h, memory, False)
-    logits = rms_norm(h, model.final_norm) @ model.head()
-    return logits[:, 0].float(), dict(cache=cache, pos=pos + 1)
+    with _gathered(model):
+        h = _embed(model, tokens[:, None])
+        for i, layer in enumerate(model.layers):
+            if cfg.family == "vlm" and i % g == 0:
+                h = h + _cross_block(cfg, model.xattn[i // g], h, vision, True)
+            with _gathered(layer):
+                if cfg.family == "ssm":
+                    h = _ssm_decode(cfg, layer, h, cache, i)
+                    continue
+                h = _decode_layer(cfg, layer, h, cache, i, pos, split, dp_group)
+            if cfg.is_encdec:
+                h = h + _cross_block(cfg, model.dec_xattn[i], h, memory, False)
+        head = model.head()
+        h = rms_norm(h, model.final_norm)
+        logits = tp_out(tp_in(h, head) @ head)
+    _share_rows(shared, tokens.shape[0], dp_group)
+    return logits[:, 0].float(), dict(cache=state["cache"], pos=pos + 1)

@@ -18,6 +18,15 @@ The dispatch modes behave as the reference's do without a mesh:
 what ``"auto"`` does.  Every expert's product runs on its whole capacity
 buffer, empty rows included, as in the reference.
 
+On a mesh whose batch is split over the data ranks (``group``, passed
+down from the sharded steps) each rank routes its own tokens and
+computes what the reference's global path computes under ``jit`` over
+the whole batch (:func:`global_slots`): the capacity from the global
+token count, each slot's position in the global k-major order, and the
+load-balance and z-loss terms from means over the global batch
+(all-reduced; their backward sums the ranks' gradients, so that FSDP's
+mean over the ranks gives the global term's gradient).
+
 The routing, the scatter, the products and the gather are plain torch
 (``sort``, ``cumsum``, ``index_add``, ``bmm``, indexing): the reference
 computes them with XLA einsums and ``.at[].add``, not a Pallas kernel.
@@ -25,12 +34,13 @@ computes them with XLA einsums and ``.at[].add``, not a Pallas kernel.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from .common import dense_init, swiglu
 
-__all__ = ["MoE", "moe_ffn", "route", "capacity", "slots", "DISPATCH_MODES"]
+__all__ = ["MoE", "moe_ffn", "route", "capacity", "slots", "global_slots", "DISPATCH_MODES"]
 
 DISPATCH_MODES = ("auto", "ep", "grouped", "manual", "tokens_dp")
 
@@ -102,9 +112,57 @@ def slots(idx: torch.Tensor, n_experts: int, cap: int):
     return keep, torch.where(keep, flat_e * cap + my_pos, n_experts * cap)
 
 
+def global_slots(idx: torch.Tensor, n_experts: int, cap: int, group):
+    """:func:`slots` of this rank's tokens in the global batch's order.
+
+    The reference counts down ``idx.T.reshape(-1)`` of the whole batch:
+    slot j = k·T + t, the global token t = r·T_r + t_r for rank r's t_r-th
+    token (the data ranks hold consecutive slices of the batch).  A slot
+    (k, r, t_r) bound for expert e therefore comes after every slot of
+    every rank for the choices k' < k, then the slots of choice k on the
+    ranks before r, then this rank's earlier tokens of choice k.  The
+    first two counts come from each rank's (E, K) counts, all-gathered
+    over ``group``."""
+    t, k = idx.shape
+    flat_e = idx.T.reshape(-1)
+    experts = torch.arange(n_experts, device=idx.device)
+    onehot = (experts[:, None] == flat_e[None, :]).to(torch.int32).reshape(n_experts, k, t)
+    within = (onehot.cumsum(2, dtype=torch.int32) - onehot).reshape(n_experts, k * t)
+    counts = onehot.sum(2, dtype=torch.int64)                   # (E, K) this rank's
+    every = [torch.empty_like(counts) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, counts, group=group)
+    every = torch.stack(every)                                  # (R, E, K)
+    total = every.sum(0)
+    offset = total.cumsum(1) - total + every[:dist.get_rank(group)].sum(0)
+    choice = torch.arange(k, device=idx.device).repeat_interleave(t)
+    my_pos = within.gather(0, flat_e[None, :])[0] + offset[flat_e, choice]
+    keep = my_pos < cap
+    return keep, torch.where(keep, flat_e * cap + my_pos, n_experts * cap)
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a tensor over ``group``'s ranks; its gradient on each rank
+    is the sum of the ranks' gradients of the result."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def moe_ffn(moe: MoE, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-            dispatch_sharding: str = "auto"):
-    """x (B, S, d) → (y (B, S, d), dict(load_balance, z_loss))."""
+            dispatch_sharding: str = "auto", group=None):
+    """x (B, S, d) → (y (B, S, d), dict(load_balance, z_loss)).  ``x`` is
+    this rank's slice of a batch split over ``group`` (the data ranks, in
+    the batch's order) when one is given, else the whole batch."""
     if dispatch_sharding not in DISPATCH_MODES:
         raise ValueError(f"unknown dispatch_sharding {dispatch_sharding!r}; "
                          f"expected one of {DISPATCH_MODES}")
@@ -113,9 +171,10 @@ def moe_ffn(moe: MoE, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
     xf = x.reshape(t, d)
     e = moe.router.shape[1]
     logits, probs, gates, idx = route(xf, moe.router, top_k)
-    cap = capacity(t, top_k, e, capacity_factor, dispatch_sharding)
+    n = t * (dist.get_world_size(group) if group is not None else 1)   # the global tokens
+    cap = capacity(n, top_k, e, capacity_factor, dispatch_sharding)
 
-    keep, slot = slots(idx, e, cap)
+    keep, slot = slots(idx, e, cap) if group is None else global_slots(idx, e, cap, group)
     xk = xf.repeat(top_k, 1)                                    # (K*T, d)
     buf = xf.new_zeros((e * cap + 1, d)).index_add(0, slot, xk)
     buf = buf[:-1].reshape(e, cap, d)
@@ -130,7 +189,14 @@ def moe_ffn(moe: MoE, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
         out = out + swiglu(xf, moe.sh_gate, moe.sh_up, moe.sh_down)
 
     # Switch load-balance term and router z-loss
-    frac_tokens = F.one_hot(idx[:, 0], e).float().mean(0)
-    lb = e * torch.sum(frac_tokens * probs.mean(0))
-    z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    if group is None:
+        frac_tokens = F.one_hot(idx[:, 0], e).float().mean(0)
+        lb = e * torch.sum(frac_tokens * probs.mean(0))
+        z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+        return out.reshape(b, s, d), dict(load_balance=lb, z_loss=z)
+    frac_tokens = F.one_hot(idx[:, 0], e).float().sum(0)
+    dist.all_reduce(frac_tokens, group=group)
+    frac_probs = _SumOver.apply(probs.sum(0), group)
+    lb = e * torch.sum((frac_tokens / n) * (frac_probs / n))
+    z = _SumOver.apply((torch.logsumexp(logits, -1) ** 2).sum(), group) / n
     return out.reshape(b, s, d), dict(load_balance=lb, z_loss=z)

@@ -9,7 +9,10 @@ reference's:
   dim); replicated across ``pod``.
 * **Batches**: split over (``pod``, ``data``), replicated over ``model``.
 * **Decode caches**: batch over ``data`` when the batch divides, else the
-  KV sequence dim (sequence-parallel decode).
+  KV sequence dim (sequence-parallel decode).  :func:`decode_state_specs`
+  gives each leaf of a decode state its spec, as the reference's dry run
+  places decode states (``_decode_state_shardings``), and
+  :func:`local_zeros` builds one rank's shard of a leaf without the whole.
 
 A spec is a tuple with one entry a tensor dim: ``None``, a mesh axis
 name, or a tuple of axis names (the reference's ``PartitionSpec``, whose
@@ -38,6 +41,7 @@ import numpy as np
 __all__ = [
     "MeshCtx", "logical_spec", "spec_for_param", "param_specs", "batch_spec", "cache_spec",
     "to_placements", "constrain", "place", "reference_path", "EP_ONLY_EXPERT_RULES",
+    "decode_state_specs", "local_extent", "local_zeros",
 ]
 
 
@@ -228,6 +232,28 @@ def cache_spec(ctx: MeshCtx, shape, *, seq_axis: int | None, batch_axis: int = 1
     return tuple(axes)
 
 
+def decode_state_specs(ctx: MeshCtx, state, prefix: str = "") -> dict:
+    """The spec of every leaf of a decode state (a nested dict of tensors
+    or shapes, ``lm.init_decode_state``'s tree), as the reference's
+    ``_decode_state_shardings`` gives it: a 0-d leaf replicated, a KV
+    cache ``.../k`` or ``.../v`` (L, B, T, H, D) by :func:`cache_spec` with
+    its sequence on axis 2, a recurrent state (L, B, ...) with none."""
+    out = {}
+    for key, leaf in state.items():
+        name = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(leaf, Mapping):
+            out[key] = decode_state_specs(ctx, leaf, name)
+            continue
+        shape = tuple(getattr(leaf, "shape", leaf))
+        if not shape:
+            out[key] = ()
+        elif name.endswith("/k") or name.endswith("/v"):
+            out[key] = cache_spec(ctx, shape, seq_axis=2)
+        else:
+            out[key] = cache_spec(ctx, shape, seq_axis=None)
+    return out
+
+
 # ------------------------------------------------------------ placements
 
 
@@ -245,6 +271,38 @@ def to_placements(spec, mesh) -> list:
             if ax is not None:
                 where[ax] = dim
     return [Shard(where[n]) if n in where else Replicate() for n in names]
+
+
+def local_extent(shape, mesh, placements) -> tuple[tuple, tuple]:
+    """This rank's shard of a tensor of ``shape`` placed on ``mesh`` by
+    ``placements`` (``Shard``/``Replicate``, each sharded dim divisible):
+    (its shape, the global index of its first element).  A dim sharded
+    over several mesh dims is split in their order, the first outermost,
+    as DTensor and the reference's ``PartitionSpec`` both split it."""
+    size, start = list(shape), [0] * len(shape)
+    for i, pl in enumerate(placements):
+        if not hasattr(pl, "dim"):
+            continue
+        n, r = mesh.size(i), mesh.get_local_rank(i)
+        if size[pl.dim] % n:
+            raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not divide over {n} ranks")
+        size[pl.dim] //= n
+        start[pl.dim] += r * size[pl.dim]
+    return tuple(size), tuple(start)
+
+
+def local_zeros(shape, dtype, mesh, placements, *, device, fill: float = 0.0):
+    """A DTensor of ``shape`` on ``mesh`` with ``placements``, every element
+    ``fill``, built from this rank's shard alone (the whole is never
+    made)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    local, _ = local_extent(shape, mesh, placements)
+    t = torch.full(local, fill, dtype=dtype, device=device)
+    stride = tuple(int(math.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=tuple(shape),
+                              stride=stride)
 
 
 def place(t, mesh, placements):

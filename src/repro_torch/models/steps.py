@@ -21,7 +21,14 @@ ones it leaves alone, replicated over ``data`` by their spec, are
 averaged here.  ``loss`` and ``nll`` are the global batch's mean and
 ``grad_norm`` the whole gradient's norm.  The families other than dense
 train on a mesh whose ``model`` dim is 1 (FSDP alone); with ``model >
-1`` they raise until their tensor or expert parallelism is ported.
+1`` they raise until their tensor or expert parallelism is ported.  The
+MoE routes over the global batch: the data ranks' group
+(:func:`data_group`) reaches ``moe_ffn`` as an argument.
+
+``make_serve_step(cfg, mesh=...)`` decodes on a sharded model against a
+state from ``lm.init_decode_state(..., mesh=)`` (the reference's dry run
+places the same state by ``_decode_state_shardings``): each rank's rows
+of the batch, the logits back as ``batch_spec`` places them.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from .sharding import EP_ONLY_EXPERT_RULES, MeshCtx, batch_spec, param_specs, to
 
 __all__ = ["TensorSpec", "input_specs", "supports_shape", "make_train_step",
            "make_prefill_step", "make_serve_step", "shard_model", "expert_rules",
-           "local_batch"]
+           "local_batch", "data_group"]
 
 
 class TensorSpec(NamedTuple):
@@ -130,12 +137,7 @@ def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
 
     cfg = model.cfg
     ctx = MeshCtx(mesh)
-    tp = ctx.size("model") if "model" in ctx.shape else 1
-    if tp > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {cfg.family} family is not ported "
-            "(ROADMAP A2: TP/EP for the moe, hybrid, ssm, vlm and audio families); "
-            "train it on a mesh with model=1")
+    tp = _refuse_tp(cfg, ctx)
     specs = param_specs(ctx, cfg, model, extra_rules)
     if tp > 1:
         tp_mesh = mesh["model"]
@@ -158,6 +160,36 @@ def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
         fully_shard(layer, **kw)
     fully_shard(model, **kw)
     return model
+
+
+def _refuse_tp(cfg: ArchConfig, ctx: MeshCtx) -> int:
+    """The ``model`` dim's size; raises where it is > 1 for a family whose
+    tensor parallelism is not ported."""
+    tp = ctx.size("model") if "model" in ctx.shape else 1
+    if tp > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism for the {cfg.family} family is not ported "
+            "(ROADMAP A2: TP/EP for the moe, hybrid, ssm, vlm and audio families); "
+            "run it on a mesh with model=1")
+    return tp
+
+
+def data_group(cfg: ArchConfig, mesh, batch_size: int):
+    """The process group of the ranks over which a batch of
+    ``batch_size`` rows is split (``sharding.batch_spec``), in the batch's
+    order, for a model that reads it (the MoE routes over the whole batch;
+    the ssm family's (L, B, H) decode states hold every row); None where
+    the batch is not split, or over one rank, or the model does not read
+    it."""
+    if not (cfg.n_experts or cfg.family == "ssm"):
+        return None
+    ctx = MeshCtx(mesh)
+    entry = batch_spec(ctx, (batch_size,))[0]
+    if entry is None or ctx.size(entry) == 1:
+        return None
+    if not isinstance(entry, tuple):
+        return mesh.get_group(entry)
+    return mesh[entry]._flatten().get_group()
 
 
 def local_batch(batch: dict, mesh) -> dict:
@@ -197,9 +229,11 @@ def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
     """The train step on ``mesh``: each rank's slice of the batch, FSDP's
     backward and gradient reduction, the ignored parameters' gradients
     averaged here, the loss averaged over the data ranks.  With
-    microbatches, each one's reduced gradient is added into float32
-    zeros with the parameter's placements and divided by their count,
-    as the reference sums its microbatches' gradients."""
+    microbatches, microbatch i is the reference's (rows [i·B/n, (i+1)·B/n)
+    of the global batch) split over the data ranks; each one's reduced
+    gradient is added into float32 zeros with the parameter's placements
+    and divided by their count, as the reference sums its microbatches'
+    gradients."""
 
     def reduced(p):
         """``p``'s gradient from the last backward, in ``p``'s placements
@@ -212,18 +246,21 @@ def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
 
     def train_step(model, opt_state, batch, step):
         params = dict(model.named_parameters())
-        batch = local_batch(_on(model, batch), mesh)
+        batch = _on(model, batch)
         n = microbatch if microbatch and microbatch > 1 else 1
         b = batch["tokens"].shape[0]
         if b % n:
-            raise ValueError(f"local batch {b} is not a multiple of microbatch {n}")
+            raise ValueError(f"batch {b} is not a multiple of microbatch {n}")
         m = b // n
+        group = data_group(cfg, mesh, m)
         model.zero_grad(set_to_none=True)
         sums: dict = {}
         grads = None
         for i in range(n):
-            loss, metrics = model({k: v[i * m:(i + 1) * m] for k, v in batch.items()}, cfg,
-                                  use_kernel)
+            # microbatch i is the reference's, rows [i·m, (i+1)·m) of the global batch, split
+            # over the data ranks: the MoE routes over exactly those rows
+            mb = local_batch({k: v[i * m:(i + 1) * m] for k, v in batch.items()}, mesh)
+            loss, metrics = model(mb, cfg, use_kernel, group)
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach()
@@ -244,6 +281,8 @@ def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
                 g = grads[k]
                 _dp_mean(g.to_local() if isinstance(g, DTensor) else g, mesh)
         metrics = {k: _dp_mean(v / n, mesh) for k, v in sums.items()}
+        if n > 1:   # the mean loss, also as nll, as the reference and one device report it
+            metrics = dict(loss=metrics["loss"], nll=metrics["loss"])
         lr = sched(step)
         _, opt_state, gnorm = adamw_update(params, grads, opt_state, lr=lr)
         model.zero_grad(set_to_none=True)
@@ -270,9 +309,9 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
     zero gradient.
 
     With ``mesh`` the step runs on a model sharded by :func:`shard_model`
-    over that mesh (see the module's docstring); each microbatch's
-    gradient is reduced over the data ranks and summed in float32, as
-    on one device.  ``grad_compress`` is taken and not read, as in the reference
+    over that mesh (see the module's docstring); each microbatch, the
+    same rows as on one device, is split over the data ranks, and its
+    gradient is reduced over them and summed in float32, as on one device.  ``grad_compress`` is taken and not read, as in the reference
     (``repro/models/steps.py``): the int8 all-reduce is
     ``optim.compressed_psum``, for a data-parallel loop of one's own."""
     del grad_compress
@@ -320,7 +359,8 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel=False, mesh=None):
     if mesh is not None:
         @torch.no_grad()
         def sharded_prefill_step(model, batch):
-            _, metrics = model(local_batch(_on(model, batch), mesh), cfg, use_kernel)
+            group = data_group(cfg, mesh, batch["tokens"].shape[0])
+            _, metrics = model(local_batch(_on(model, batch), mesh), cfg, use_kernel, group)
             return {k: _dp_mean(v.detach().clone(), mesh) for k, v in metrics.items()}
 
         return sharded_prefill_step
@@ -333,14 +373,43 @@ def make_prefill_step(cfg: ArchConfig, *, use_kernel=False, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, *, mesh=None):
     """``(model, state, batch) -> (logits, state)``: one decode step of
     ``batch["tokens"]``, with ``batch["vision"]`` (vlm) or
-    ``batch["memory"]`` (audio: the encoder's output) where present."""
+    ``batch["memory"]`` (audio: the encoder's output) where present.
 
-    @torch.inference_mode()
-    def serve_step(model, state, batch):
-        return lm.decode_step(cfg, model, state, batch["tokens"], memory=batch.get("memory"),
-                              vision=batch.get("vision"))
+    With ``mesh``, on a model sharded by :func:`shard_model` and a state
+    from ``lm.init_decode_state(..., mesh=mesh)`` for the same global
+    batch: each rank decodes its rows of ``tokens`` (the same on every
+    rank), and the logits come back as a DTensor placed as
+    ``sharding.batch_spec`` says, the state's caches still sharded.  The
+    moe, hybrid and ssm families need ``model = 1``; the vlm and audio
+    families are refused (their cross-attention on a mesh is not
+    ported)."""
+    if mesh is None:
+        @torch.inference_mode()
+        def serve_step(model, state, batch):
+            return lm.decode_step(cfg, model, state, batch["tokens"],
+                                  memory=batch.get("memory"), vision=batch.get("vision"))
 
-    return serve_step
+        return serve_step
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: decode of the {cfg.family} family on a mesh is not ported "
+            "(ROADMAP A2: TP/EP for the moe, hybrid, ssm, vlm and audio families)")
+    ctx = MeshCtx(mesh)
+    _refuse_tp(cfg, ctx)
+
+    @torch.no_grad()
+    def sharded_serve_step(model, state, batch):
+        tokens = _on(model, dict(tokens=batch["tokens"]))["tokens"]
+        b = tokens.shape[0]
+        logits, state = lm.decode_step(cfg, model, state,
+                                       local_batch(dict(tokens=tokens), mesh)["tokens"],
+                                       dp_group=data_group(cfg, mesh, b))
+        logits = DTensor.from_local(logits, mesh, to_placements(batch_spec(ctx, (b, cfg.vocab)),
+                                                                mesh),
+                                    run_check=False, shape=(b, cfg.vocab), stride=(cfg.vocab, 1))
+        return logits, state
+
+    return sharded_serve_step

@@ -114,10 +114,11 @@ def step_on_mesh(rank, world, shape, arch, changes, folder, steps, batch, seq, k
     opt = adamw_init(model)
     step = make_train_step(cfg, mesh=mesh, **kw)
     history = []
-    for i in range(steps):
-        b = synthetic_batch(0, i, batch, seq, cfg.vocab)
-        opt, m = step(model, opt, b, i)
-        history.append({k: float(v) for k, v in m.items()})
+    with _counted_drops() as drops:
+        for i in range(steps):
+            b = synthetic_batch(0, i, batch, seq, cfg.vocab)
+            opt, m = step(model, opt, b, i)
+            history.append({k: float(v) for k, v in m.items()})
     params = interop.lm_params_to_numpy(cfg, model)
     moments = interop.opt_state_to_numpy(cfg, opt)
     refused = None
@@ -131,7 +132,72 @@ def step_on_mesh(rank, world, shape, arch, changes, folder, steps, batch, seq, k
         save_tree(os.path.join(folder, "mu.npz"), moments["mu"])
         with open(os.path.join(folder, "got.json"), "w") as f:
             json.dump(dict(history=history, wrong=wrong, refused=refused,
-                           count=int(moments["count"])), f)
+                           count=int(moments["count"]), drops=drops), f)
+
+
+class _counted_drops:
+    """Counts the slots the MoE's global routing drops on this rank (its
+    ``moe.global_slots``, looked up by ``moe_ffn`` at call time) while
+    entered: a list of one count per call."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.counts, self._orig = [], moe.global_slots
+
+        def counted(*args, **kwargs):
+            keep, slot = self._orig(*args, **kwargs)
+            self.counts.append(int((~keep).sum()))
+            return keep, slot
+        moe.global_slots = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.global_slots = self._orig
+
+
+def _leaves(tree, prefix=""):
+    """(path "a/b", leaf) for each leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}{SEP}")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def decode_on_mesh(rank, world, shape, arch, batch, seq, folder) -> None:
+    """The reference's weights (``folder``/params.npz) sharded over a
+    ``shape`` mesh, the decode state placed by ``init_decode_state(mesh=)``,
+    then ``make_serve_step(mesh=)`` over the tokens of ``folder``/
+    tokens.npy (steps, batch); rank 0 writes each step's logits, every
+    cache and state leaf gathered whole (keys "k", "mlstm/c", ...), and
+    each leaf's placements and local shape."""
+    from repro_torch import interop
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_serve_step, shard_model
+
+    cfg = _cfg(arch, {})
+    mesh = _mesh(shape)
+    model = interop.lm_params_from_numpy(cfg, load_tree(os.path.join(folder, "params.npz")),
+                                         device="cpu")
+    shard_model(model, mesh)
+    tokens = torch.from_numpy(np.load(os.path.join(folder, "tokens.npy")))
+    state = lm.init_decode_state(cfg, batch, seq, device="cpu", mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh)
+    logits = []
+    for t in tokens:
+        out, state = step(model, state, dict(tokens=t))
+        logits.append(out.full_tensor().numpy())
+    leaves = dict(_leaves(state["cache"]))
+    cache = {k: v.full_tensor().numpy() for k, v in leaves.items()}
+    local = {k: list(v.to_local().shape) for k, v in leaves.items()}
+    placements = {k: [str(p) for p in v.placements] for k, v in leaves.items()}
+    if rank == 0:
+        np.savez(os.path.join(folder, "got.npz"), logits=np.stack(logits), **cache)
+        with open(os.path.join(folder, "got.json"), "w") as f:
+            json.dump(dict(placements=placements, local=local, pos=int(state["pos"])), f)
 
 
 def loop_on_mesh(rank, world, shape, arch, tc_kw, folder) -> None:
@@ -170,6 +236,32 @@ def compress_loop(rank, world, folder, steps, lr) -> None:
         w = w - lr * g["w"]
     if rank == 0:
         np.save(os.path.join(folder, "w.npy"), w.numpy())
+
+
+def decode_refusals(rank, world, folder) -> None:
+    """What decode on a mesh refuses, each refusal's message (None where
+    nothing was raised): hymba-smoke at batch 1 on (8, 1), whose ring
+    cache the rules split on its positions; the moe family at model > 1;
+    the vlm family on any mesh."""
+    from repro_torch.models import lm
+    from repro_torch.models.steps import make_serve_step
+
+    def refused(fn):
+        try:
+            fn()
+        except NotImplementedError as e:
+            return str(e)
+        return None
+
+    out = dict(ring=refused(lambda: lm.init_decode_state(_cfg("hymba-1.5b", {}), 1, 64,
+                                                         device="cpu", mesh=_mesh((8, 1)))),
+               moe=refused(lambda: make_serve_step(_cfg("deepseek-moe-16b", {}),
+                                                   mesh=_mesh((4, 2)))),
+               vlm=refused(lambda: make_serve_step(_cfg("llama-3.2-vision-11b", {}),
+                                                   mesh=_mesh((8, 1)))))
+    if rank == 0:
+        with open(os.path.join(folder, "refusals.json"), "w") as f:
+            json.dump(out, f)
 
 
 def launch_train(rank, world, argv) -> None:
