@@ -511,6 +511,12 @@ LOSS_BAND = 1.5
 #: `decode_cache`-slot cache
 SHARDED = dict(n_layers=2, batch=2, seq=256, loop_steps=3, loop_cut=2, loop_batch=4,
                loop_seq=64, decode=16, decode_batch=2, decode_cache=32)
+#: the moe family's decode on the same mesh (MOE_ARCH at full width, SHARDED's depth,
+#: float32): its dispatch modes.  "manual" routes each data rank's rows alone on a
+#: mesh of several cards; on one card the mesh is (1, 1) and it computes what "auto"
+#: does.  No leg splits the experts over model: tests/test_torch_sharding.py (gloo)
+#: and tools/moe_mesh_cards.py (four cards) check that
+SHARDED_MOE_MODES = ("auto", "manual")
 #: the production-mesh dry runs printed beside it: (arch, shape, multi_pod)
 SHARDED_DRYRUN = ((LM_ARCH, "train_4k", False), ("qwen1.5-32b", "decode_32k", False))
 #: phase sharded's limit (seconds, host clock), the wait for the dry run included
@@ -2801,8 +2807,8 @@ class MoeRoutes:
             self.margin.append(top[:, top_k - 1] - top[:, top_k])
             return out
 
-        def slots(idx, n_experts, cap):
-            keep, slot = self._slots(idx, n_experts, cap)
+        def slots(idx, n_experts, cap, groups=1):
+            keep, slot = self._slots(idx, n_experts, cap, groups)
             self.dropped.append(((~keep).sum(), keep.numel()))
             return keep, slot
 
@@ -3840,6 +3846,14 @@ def sharded_checks(rank: int, world: int, dev, tmp: str) -> dict:
         out["restore_nll"] = resumed["history"][-1]["nll"]
     del resumed, got
     out.update(sharded_decode(rank, world, dev, cfg, mesh))
+    torch.cuda.empty_cache()
+    # the moe family through make_serve_step(mesh=) in two of its dispatch modes
+    t0 = time.perf_counter()
+    for mode in SHARDED_MOE_MODES:
+        mcfg = moe_config(n_layers=sh["n_layers"], dtype="float32", moe_dispatch_sharding=mode)
+        out[f"moe_{mode}"] = sharded_decode(rank, world, dev, mcfg, mesh)
+        torch.cuda.empty_cache()
+    out["moe_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3848,8 +3862,9 @@ def sharded_decode(rank: int, world: int, dev, cfg, mesh) -> dict:
     ``mesh`` decodes SHARDED["decode"] seeded tokens a row through
     ``make_serve_step(mesh=...)``, the state placed by
     ``init_decode_state(..., mesh=...)``; rank 0 decodes the same tokens
-    unsharded from the same weights and checks argmax ids and logits
-    (LM_TOL) each step."""
+    unsharded from the same weights (each data rank's rows alone under the
+    MoE's "manual" dispatch, which routes them alone) and checks argmax
+    ids and logits (LM_TOL) each step."""
     import copy
 
     import torch
@@ -3875,17 +3890,26 @@ def sharded_decode(rank: int, world: int, dev, cfg, mesh) -> dict:
     out = dict(decode_ms=(time.perf_counter() - t0) / sh["decode"] * 1e3,
                decode_placements=sorted({str(tuple(v.placements))
                                          for v in state["cache"].values()}))
+    del model, state
     if rank == 0:
-        pstate = lm.init_decode_state(cfg, b, sh["decode_cache"], device=dev)
+        parts = world if cfg.moe_dispatch_sharding == "manual" else 1
+        n = b // parts
         pstep = make_serve_step(cfg)
+        want = [[] for _ in tokens]
+        for r in range(parts):
+            pstate = lm.init_decode_state(cfg, n, sh["decode_cache"], device=dev)
+            for i, t in enumerate(tokens):
+                logits, pstate = pstep(plain, pstate, dict(tokens=t[r * n:(r + 1) * n]))
+                want[i].append(logits)
         worst = 0.0
-        for i, t in enumerate(tokens):
-            want, pstate = pstep(plain, pstate, dict(tokens=t))
-            check(torch.equal(got[i].argmax(-1), want.argmax(-1))
-                  and torch.allclose(got[i], want, **LM_TOL),
-                  f"sharded decode: step {i} ids or logits differ from the unsharded decode "
-                  f"(max |diff| {float((got[i] - want).abs().max()):.2e}, {LM_TOL})")
-            worst = max(worst, float((got[i] - want).abs().max()))
+        for i, w in enumerate(want):
+            w = torch.cat(w)
+            check(torch.equal(got[i].argmax(-1), w.argmax(-1))
+                  and torch.allclose(got[i], w, **LM_TOL),
+                  f"sharded decode ({cfg.name}): step {i} ids or logits differ from the "
+                  f"unsharded decode (max |diff| {float((got[i] - w).abs().max()):.2e}, "
+                  f"{LM_TOL})")
+            worst = max(worst, float((got[i] - w).abs().max()))
         out["decode_worst"] = worst
     return out
 
@@ -3992,6 +4016,15 @@ def phase_sharded(card: str, dry: DryRun) -> None:
         f"make_serve_step(mesh=), cache placements {r['decode_placements']}{whole}: argmax ids "
         f"equal to the unsharded decode's, logits max |diff| {r['decode_worst']:.2e} "
         f"({LM_TOL}); {r['decode_ms']:.1f} ms a step")
+    for mode in SHARDED_MOE_MODES:
+        m = r[f"moe_{mode}"]
+        alone = " (each data rank's rows alone)" if mode == "manual" else ""
+        say(f"phase sharded: {MOE_ARCH} {sh['n_layers']} layers float32 \"{mode}\" decoding "
+            f"{sh['decode']} steps of {sh['decode_batch'] * r['mesh'][0]} rows on the mesh "
+            f"through make_serve_step(mesh=), cache placements {m['decode_placements']}{whole}: "
+            f"argmax ids equal to the unsharded decode's{alone}, logits max |diff| "
+            f"{m['decode_worst']:.2e} ({LM_TOL}); {m['decode_ms']:.1f} ms a step")
+    say(f"phase sharded: the moe decode checks took {r['moe_s']:.1f} s")
     for (arch, shape, multi_pod), d in zip(SHARDED_DRYRUN, cells):
         check(d["status"] == "ok" and d["memory"]["temp_bytes"] > 0
               and d["collectives"]["total"] > 0,

@@ -23,13 +23,16 @@ cell, cache bytes from the placements; ``temp_bytes``, the most bytes the
 traced step held at once),
 ``roofline`` (the three terms with H100 constants, ``dominant``),
 ``model_flops``, ``useful_flops_ratio``, ``collectives`` and ``params``.
-``train``, ``prefill`` and ``decode`` cells run for the dense family (a
-decode cell traces ``make_serve_step(mesh=...)`` against a state made by
+``train``, ``prefill`` and ``decode`` cells run for the dense family, and
+``prefill`` and ``decode`` cells for the moe family, its expert stacks
+placed by ``steps.expert_rules`` (a decode cell traces
+``make_serve_step(mesh=...)`` against a state made by
 ``init_decode_state(..., mesh=...)`` under fake mode, placed as the
-reference's ``_decode_state_shardings`` places it); the other families
-return ``"skipped"`` with the reason (their tensor parallelism is ROADMAP
-A2's open item), or ``"error"`` with the traceback, as the reference's
-sweep does.  Nothing here imports jax or sets ``XLA_FLAGS``.
+reference's ``_decode_state_shardings`` places it); the moe family's ``train`` cells and every cell of the hybrid, ssm,
+vlm and audio families return ``"skipped"`` with the reason (their
+tensor parallelism is ROADMAP A2's open item), and a cell that fails
+``"error"`` with the traceback, as the reference's sweep does.  Nothing
+here imports jax or sets ``XLA_FLAGS``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -52,8 +55,8 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_leaves
 
 from ..configs import SHAPES, get_config, list_archs
-from ..models.steps import (expert_rules, input_specs, make_prefill_step, make_serve_step,
-                            make_train_step, shard_model, supports_shape)
+from ..models.steps import (input_specs, make_prefill_step, make_serve_step, make_train_step,
+                            shard_model, supports_shape)
 from ..roofline import collective_bytes, model_flops, roofline_terms
 from .mesh import make_production_mesh
 
@@ -82,9 +85,12 @@ def _skip(arch, shape_name, mesh_name, why):
     return dict(arch=arch, shape=shape_name, mesh=mesh_name, status="skipped", reason=why)
 
 
-def _mesh_cut(cfg) -> str:
-    """Why the port does not trace this arch's cells, or ''."""
-    if cfg.family != "dense":
+def _mesh_cut(cfg, shape) -> str:
+    """Why the port does not trace this cell, or ''."""
+    if cfg.family == "moe" and shape.kind == "train":
+        return ("training the moe family with tensor parallelism is not ported "
+                "(ROADMAP A2); the production mesh has model=16")
+    if cfg.family not in ("dense", "moe"):
         return (f"tensor parallelism for the {cfg.family} family is not ported "
                 "(ROADMAP A2); the production mesh has model=16")
     return ""
@@ -116,7 +122,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
                     seq_len=seq_len or shape.seq_len)
     ok, why = supports_shape(cfg, shape)
     if ok:
-        why = _mesh_cut(cfg)
+        why = _mesh_cut(cfg, shape)
     if why:
         return _skip(arch, shape_name, mesh_name, why)
     chips = math.prod(sizes.values())
@@ -128,7 +134,7 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False, verbose:
         else:
             dmesh = init_device_mesh("cpu", tuple(sizes.values()),
                                      mesh_dim_names=tuple(sizes))
-        model = shard_model(LM(cfg, device="meta"), dmesh, expert_rules(cfg))
+        model = shard_model(LM(cfg, device="meta"), dmesh)
         model.to_empty(device="cpu")
         params = dict(model.named_parameters())
         n_params = sum(p.numel() for p in params.values())

@@ -13,8 +13,12 @@ between blocks stay plain tensors, the same on every ``model`` rank.
 gradient), :func:`tp_out` leaves it (all-reduces a partial sum), and
 :func:`replicated` gives the whole of a weight that the block needs
 whole (a norm's scale).  On plain tensors the three do nothing.
+:class:`DataRanks` is what a sharded step hands its layers of the
+mesh's data ranks.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,11 +27,22 @@ from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = [
     "rms_norm", "layer_norm", "rope", "apply_rope", "dense_init", "swiglu", "gelu_mlp",
-    "Dtype", "DTYPES", "tp_in", "tp_out", "replicated",
+    "Dtype", "DTYPES", "tp_in", "tp_out", "replicated", "DataRanks",
 ]
 
 #: config dtype names → torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class DataRanks(NamedTuple):
+    """The data ranks of the mesh a model is sharded over, as a sharded
+    step hands them to the layers that read them (``models.steps.
+    data_ranks``): ``group``, the process group of the ranks the batch in
+    hand is split over, in the batch's order, where ``split``; else of
+    every ``pod`` × ``data`` rank, each of which holds the whole batch."""
+
+    group: object
+    split: bool
 
 
 def tp_in(x: torch.Tensor, like) -> torch.Tensor:

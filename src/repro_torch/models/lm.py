@@ -153,11 +153,11 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg, dtype, **kw)
 
     def forward(self, cfg: ArchConfig, h, use_kernel=False, remat=False, slstm=False,
-                dp_group=None):
+                dp=None):
         """This layer on h → (h, its aux terms or None); ``slstm`` picks an
-        ssm layer's branch; ``dp_group`` is the data ranks' group where h
-        is a slice of a batch split over them (the MoE routes over the
-        whole batch).  With ``remat``, under ``cfg.remat_policy``:
+        ssm layer's branch; ``dp`` is the mesh's data ranks
+        (``common.DataRanks``) where the model is sharded, for the MoE,
+        which routes over them.  With ``remat``, under ``cfg.remat_policy``:
         ``"full"`` recomputes the whole layer in the backward,
         ``"save_attn"`` each block on its own, keeping the attention's
         output.  Called through the module so that FSDP, where the model
@@ -168,15 +168,15 @@ class DecoderLayer(nn.Module):
             return (checkpoint(_ssm_layer, *args, use_reentrant=False) if remat
                     else _ssm_layer(*args)), None
         if not remat:
-            return _decoder_layer(cfg, self, h, use_kernel, dp_group)
+            return _decoder_layer(cfg, self, h, use_kernel, dp)
         if cfg.remat_policy != "save_attn":
-            return checkpoint(_decoder_layer, cfg, self, h, use_kernel, dp_group,
+            return checkpoint(_decoder_layer, cfg, self, h, use_kernel, dp,
                               use_reentrant=False)
         out = checkpoint(_attn_block, cfg, self, h, use_kernel, use_reentrant=False)
         if cfg.family == "hybrid":
             out = (out + checkpoint(_mamba_block, cfg, self, h, use_reentrant=False)) * 0.5
         h = h + out
-        y, a = checkpoint(_mlp_block, cfg, self, h, dp_group, use_reentrant=False)
+        y, a = checkpoint(_mlp_block, cfg, self, h, dp, use_reentrant=False)
         return h + y, a
 
 
@@ -257,12 +257,12 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, batch, cfg: ArchConfig | None = None, use_kernel=False, dp_group=None):
+    def forward(self, batch, cfg: ArchConfig | None = None, use_kernel=False, dp=None):
         """:func:`forward_loss` of ``batch`` under ``cfg`` (default: the
         model's): the training step's entry, through the module so that
         FSDP gathers the root's weights."""
         return forward_loss(cfg or self.cfg, self, batch, use_kernel=use_kernel,
-                            dp_group=dp_group)
+                            dp=dp)
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -286,12 +286,14 @@ def _mamba_block(cfg: ArchConfig, layer: DecoderLayer, h):
     return mamba(layer.mamba, rms_norm(h, layer.ln1), d_state=cfg.ssm_state)
 
 
-def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h, dp_group=None):
-    """The layer's MLP or MoE on the normed h → (y, aux terms or None)."""
+def _mlp_block(cfg: ArchConfig, layer: DecoderLayer, h, dp=None):
+    """The layer's MLP or MoE on the normed h → (y, aux terms or None).
+    ``dp`` (the mesh's data ranks) reaches ``moe_ffn``; on a sharded model
+    the MoE finds its ``model`` ranks in its expert stacks' placements."""
     x = rms_norm(h, layer.ln2)
     if cfg.n_experts:
         return moe_ffn(layer.moe, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       dispatch_sharding=cfg.moe_dispatch_sharding, group=dp_group)
+                       dispatch_sharding=cfg.moe_dispatch_sharding, dp=dp)
     return layer.mlp(x), None
 
 
@@ -312,13 +314,13 @@ def _ssm_layer(cfg: ArchConfig, layer: DecoderLayer, h, slstm: bool):
     return h + mlstm_seq(layer.mlstm, x, n_heads=cfg.n_heads)
 
 
-def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel, dp_group=None):
+def _decoder_layer(cfg: ArchConfig, layer: DecoderLayer, h, use_kernel, dp=None):
     """One decoder layer → (h, its aux terms or None)."""
     out = _attn_block(cfg, layer, h, use_kernel)
     if cfg.family == "hybrid":
         out = (out + _mamba_block(cfg, layer, h)) * 0.5    # Hymba mean-fuses the branches
     h = h + out
-    y, aux = _mlp_block(cfg, layer, h, dp_group)
+    y, aux = _mlp_block(cfg, layer, h, dp)
     return h + y, aux
 
 
@@ -363,7 +365,7 @@ def _audio_layer(cfg: ArchConfig, model: LM, i: int, h, memory, use_kernel, rema
 
 
 def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
-                 use_kernel=False, dp_group=None):
+                 use_kernel=False, dp=None):
     """The decoder stack → (h, the aux terms summed over the layers, or
     None for a family without them)."""
     remat = _remat(model)
@@ -388,7 +390,7 @@ def _run_decoder(cfg: ArchConfig, model: LM, h, *, vision=None, memory=None,
         if cfg.family == "ssm":
             h, _ = layer(cfg, h, remat=remat, slstm=_is_slstm(cfg, i))
             continue
-        h, a = layer(cfg, h, use_kernel, remat, dp_group=dp_group)
+        h, a = layer(cfg, h, use_kernel, remat, dp=dp)
         if aux is not None:
             aux = {k: aux[k] + a[k] for k in aux}
     return h, aux
@@ -501,15 +503,15 @@ def forward_logits(cfg: ArchConfig, model: LM, batch, *, use_kernel=False):
     return (rms_norm(h, model.final_norm) @ model.head()).float()
 
 
-def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False, dp_group=None):
+def forward_loss(cfg: ArchConfig, model: LM, batch, *, use_kernel=False, dp=None):
     """batch: tokens (B,S), labels (B,S), and ``vision`` (vlm) or
     ``frames`` (audio).  Returns (loss, metrics): ``nll``, ``loss`` and,
     for the moe family, ``load_balance`` and ``z_loss`` (summed over the
-    layers; ``loss`` adds 0.01 and 0.001 of them).  ``dp_group``: the data
-    ranks' group where ``batch`` is this rank's slice of a batch split
-    over them (the MoE's routing and terms are then the whole batch's)."""
+    layers; ``loss`` adds 0.01 and 0.001 of them).  ``dp``: the mesh's
+    data ranks (``common.DataRanks``), over which ``batch`` may be this
+    rank's slice (the MoE routes over them as its dispatch mode says)."""
     h, aux = _run_decoder(cfg, model, _embed(model, batch["tokens"]), use_kernel=use_kernel,
-                          dp_group=dp_group, **_features(cfg, model, batch))
+                          dp=dp, **_features(cfg, model, batch))
     loss = _chunked_loss(cfg, model, rms_norm(h, model.final_norm), batch["labels"])
     metrics = dict(nll=loss)
     if aux is not None:
@@ -610,7 +612,7 @@ def _ssm_decode(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int):
 
 
 def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos,
-                  seq_split=None, dp_group=None):
+                  seq_split=None, dp=None):
     """Attention decoder layer ``i``'s decode step; its caches (and Mamba
     state) are written in place."""
     x = rms_norm(h, layer.ln1)
@@ -625,7 +627,8 @@ def _decode_layer(cfg: ArchConfig, layer: DecoderLayer, h, cache, i: int, pos,
         cache["mamba_conv"][i].copy_(conv)
         out = (out + m_out) * 0.5
     h = h + out
-    return h + _mlp_block(cfg, layer, h, dp_group)[0]   # the MoE's T is the decode batch
+    # the MoE routes the decode batch (this rank's rows under "manual"), capacity from it
+    return h + _mlp_block(cfg, layer, h, dp)[0]
 
 
 @contextmanager
@@ -659,9 +662,9 @@ def _seq_split(cache: DTensor):
     return offset, [mesh.get_group(i) for i in dims]
 
 
-def _local_rows(cache, rows: int, dp_group):
+def _local_rows(cache, rows: int, dp):
     """The cache's local tensors for this rank's ``rows`` tokens, and the
-    leaves that hold every row of a batch split over ``dp_group`` (the
+    leaves that hold every row of a batch split over ``dp.group`` (the
     rules put ``model`` on the batch dim of an (L, B, H) state, so over
     the data ranks it is whole): of those, a view of this rank's rows,
     and (whole, first row) to share the rows again after the step."""
@@ -671,29 +674,29 @@ def _local_rows(cache, rows: int, dp_group):
         t = leaf.to_local() if isinstance(leaf, DTensor) else leaf
         if t.shape[1] == rows:
             return t
-        if name in ("k", "v") or dp_group is None:
+        if name in ("k", "v") or dp is None or not dp.split:
             raise NotImplementedError(
                 "decode of a KV cache whose batch is not split as the tokens are (the batch "
                 "divides the data ranks but not the pod and data ranks) is not ported "
                 "(ROADMAP A2)")
-        lo = dist.get_rank(dp_group) * rows
+        lo = dist.get_rank(dp.group) * rows
         shared.append((t, lo))
         return t[:, lo:lo + rows]
 
     return _map_leaves(one, cache), shared
 
 
-def _share_rows(shared, rows: int, dp_group) -> None:
+def _share_rows(shared, rows: int, dp) -> None:
     """Each rank's updated rows of the leaves :func:`_local_rows` returned
     whole, gathered back into every rank's copy."""
     for t, lo in shared:
-        parts = [torch.empty_like(t[:, :rows]) for _ in range(dist.get_world_size(dp_group))]
-        dist.all_gather(parts, t[:, lo:lo + rows].contiguous(), group=dp_group)
+        parts = [torch.empty_like(t[:, :rows]) for _ in range(dist.get_world_size(dp.group))]
+        dist.all_gather(parts, t[:, lo:lo + rows].contiguous(), group=dp.group)
         t.copy_(torch.cat(parts, 1))
 
 
 def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, vision=None,
-                dp_group=None):
+                dp=None):
     """One decode step.  tokens (B,) int → (logits (B,V) float32, state).
     The vlm family needs ``vision`` (B,T,d), the audio family the
     encoder's output as ``memory`` (B,F,d) (:func:`_run_encoder`); their
@@ -704,9 +707,10 @@ def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, visio
 
     On a mesh (``models.steps.make_serve_step(mesh=...)``) ``state`` is
     ``init_decode_state(..., mesh=)``'s, ``tokens`` this rank's rows of
-    the batch (all of them where the batch is not split), ``dp_group`` the
-    data ranks' group where it is split (the MoE routes over the whole
-    batch), and the model is sharded by ``shard_model``: each layer's
+    the batch (all of them where the batch is not split), ``dp`` the
+    mesh's data ranks (``common.DataRanks``: the MoE routes over them, and
+    the ssm family's states hold every row of a batch split over them),
+    and the model is sharded by ``shard_model``: each layer's
     weights are gathered by FSDP for its step, the attention runs on this
     rank's cache shard (``attention.decode_attention``) and the logits,
     gathered over ``model`` where the head is split over the vocab, are
@@ -718,7 +722,7 @@ def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, visio
     pos = state["pos"]
     split = _seq_split(state["cache"]["k"]) if isinstance(state["cache"].get("k"), DTensor) \
         else None
-    cache, shared = _local_rows(state["cache"], tokens.shape[0], dp_group)
+    cache, shared = _local_rows(state["cache"], tokens.shape[0], dp)
     g = cfg.cross_attn_every
     with _gathered(model):
         h = _embed(model, tokens[:, None])
@@ -729,11 +733,11 @@ def decode_step(cfg: ArchConfig, model: LM, state, tokens, *, memory=None, visio
                 if cfg.family == "ssm":
                     h = _ssm_decode(cfg, layer, h, cache, i)
                     continue
-                h = _decode_layer(cfg, layer, h, cache, i, pos, split, dp_group)
+                h = _decode_layer(cfg, layer, h, cache, i, pos, split, dp)
             if cfg.is_encdec:
                 h = h + _cross_block(cfg, model.dec_xattn[i], h, memory, False)
         head = model.head()
         h = rms_norm(h, model.final_norm)
         logits = tp_out(tp_in(h, head) @ head)
-    _share_rows(shared, tokens.shape[0], dp_group)
+    _share_rows(shared, tokens.shape[0], dp)
     return logits[:, 0].float(), dict(cache=state["cache"], pos=pos + 1)

@@ -21,9 +21,16 @@ ones it leaves alone, replicated over ``data`` by their spec, are
 averaged here.  ``loss`` and ``nll`` are the global batch's mean and
 ``grad_norm`` the whole gradient's norm.  The families other than dense
 train on a mesh whose ``model`` dim is 1 (FSDP alone); with ``model >
-1`` they raise until their tensor or expert parallelism is ported.  The
-MoE routes over the global batch: the data ranks' group
-(:func:`data_group`) reaches ``moe_ffn`` as an argument.
+1`` they raise until their tensor or expert parallelism is ported, and
+the moe family's ``"manual"`` and ``"grouped"`` dispatches, whose
+gradients on a mesh are not yet checked against the reference's, raise
+on any mesh.  The MoE routes over the mesh's data ranks
+(:func:`data_ranks`), which reach ``moe_ffn`` as an argument.
+
+The moe family also serves (``make_prefill_step`` and
+``make_serve_step`` with ``mesh``) at ``model > 1``: its attention is
+tensor-parallel as the dense family's, its experts split over ``model``
+(``moe_ffn``), in each of the reference's dispatch modes.
 
 ``make_serve_step(cfg, mesh=...)`` decodes on a sharded model against a
 state from ``lm.init_decode_state(..., mesh=)`` (the reference's dry run
@@ -43,12 +50,12 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from ..configs.base import ArchConfig, ShapeSpec
 from ..optim import adamw_update, cosine_schedule
 from . import lm
-from .common import Dtype
+from .common import DataRanks, Dtype
 from .sharding import EP_ONLY_EXPERT_RULES, MeshCtx, batch_spec, param_specs, to_placements
 
 __all__ = ["TensorSpec", "input_specs", "supports_shape", "make_train_step",
            "make_prefill_step", "make_serve_step", "shard_model", "expert_rules",
-           "local_batch", "data_group"]
+           "local_batch", "data_ranks"]
 
 
 class TensorSpec(NamedTuple):
@@ -117,19 +124,25 @@ def _has_axis(entry, axis: str) -> bool:
     return entry == axis or (isinstance(entry, tuple) and axis in entry)
 
 
-def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
+def shard_model(model: lm.LM, mesh) -> lm.LM:
     """Shard ``model`` in place over ``mesh`` by the reference's rules
     (``sharding.param_specs``) and return it.
 
     Tensor parallelism over ``model``: each parameter becomes a DTensor
     over ``mesh["model"]``, ``Shard(d)`` where its spec names ``model`` on
-    dim d, else ``Replicate()`` (the dense family only; the others need
-    ``model == 1``).  FSDP over ``data`` (and replicated over ``pod``, as
-    HSDP): FSDP2's ``fully_shard`` on each decoder layer and on the root,
-    ``shard_placement_fn`` giving the dim the spec names ``data`` on.  A
-    parameter whose spec names no ``data`` dim is left out of FSDP
+    dim d, else ``Replicate()`` (the dense and moe families; the others
+    need ``model == 1``), the specs' rules extended by ``expert_rules(cfg)``
+    (EP-only expert stacks, E over ``model`` and whole over ``data``, under
+    the grouped, manual and auto_ep dispatches, as the reference's dry run
+    places them).  FSDP over ``data`` (and
+    replicated over ``pod``, as HSDP): FSDP2's ``fully_shard`` on each
+    decoder layer and on the root, ``shard_placement_fn`` giving the dim
+    the spec names ``data`` on.  A parameter whose spec names no ``data``
+    dim is left out of FSDP
     (``ignored_params``), replicated over the data ranks as the spec
-    says; the step averages its gradient.  The rules never put ``data``
+    says; the step averages its gradient.  So is a parameter whose dtype
+    is not the model's (the MoE's float32 router in a bf16 model): FSDP2
+    gathers a unit in one dtype.  The rules never put ``data``
     and ``model`` on one dim, so each placement is the spec's own
     ``Shard``/``Replicate`` (FSDP's ``_StridedShard`` does not arise).
     Every rank must hold the same full weights when this is called."""
@@ -138,7 +151,7 @@ def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
     cfg = model.cfg
     ctx = MeshCtx(mesh)
     tp = _refuse_tp(cfg, ctx)
-    specs = param_specs(ctx, cfg, model, extra_rules)
+    specs = param_specs(ctx, cfg, model, expert_rules(cfg))
     if tp > 1:
         tp_mesh = mesh["model"]
         for name, p in list(model.named_parameters()):
@@ -148,9 +161,12 @@ def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
             setattr(mod, attr, nn.Parameter(d, requires_grad=p.requires_grad))
     dp = tuple(a for a in ("pod", "data") if a in ctx.shape)
     fsdp_dim, ignored = {}, set()
+    dtype = Dtype(cfg.dtype).param
     for name, p in model.named_parameters():
         dims = [i for i, e in enumerate(specs[name]) if _has_axis(e, "data")]
-        if dims:
+        # FSDP2 gathers a unit's parameters in one dtype: one kept in another (the MoE's
+        # float32 router in a bf16 model) stays whole over the data ranks
+        if dims and p.dtype == dtype:
             fsdp_dim[id(p)] = Shard(dims[0])
         else:
             ignored.add(p)
@@ -162,34 +178,46 @@ def shard_model(model: lm.LM, mesh, extra_rules=None) -> lm.LM:
     return model
 
 
-def _refuse_tp(cfg: ArchConfig, ctx: MeshCtx) -> int:
+#: the families whose tensor parallelism is ported: for serving, for training
+TP_SERVE, TP_TRAIN = ("dense", "moe"), ("dense",)
+
+
+def _refuse_tp(cfg: ArchConfig, ctx: MeshCtx, train: bool = False) -> int:
     """The ``model`` dim's size; raises where it is > 1 for a family whose
-    tensor parallelism is not ported."""
+    tensor parallelism is not ported (for training, with ``train``)."""
     tp = ctx.size("model") if "model" in ctx.shape else 1
-    if tp > 1 and cfg.family != "dense":
+    if tp > 1 and cfg.family not in (TP_TRAIN if train else TP_SERVE):
+        what = "training with tensor parallelism" if train else "tensor parallelism"
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {cfg.family} family is not ported "
-            "(ROADMAP A2: TP/EP for the moe, hybrid, ssm, vlm and audio families); "
+            f"{cfg.name}: {what} for the {cfg.family} family is not ported "
+            "(ROADMAP A2: TP/EP for the moe training, hybrid, ssm, vlm and audio families); "
             "run it on a mesh with model=1")
     return tp
 
 
-def data_group(cfg: ArchConfig, mesh, batch_size: int):
-    """The process group of the ranks over which a batch of
-    ``batch_size`` rows is split (``sharding.batch_spec``), in the batch's
-    order, for a model that reads it (the MoE routes over the whole batch;
-    the ssm family's (L, B, H) decode states hold every row); None where
-    the batch is not split, or over one rank, or the model does not read
-    it."""
+def data_ranks(cfg: ArchConfig, mesh, batch_size: int) -> DataRanks | None:
+    """The mesh's data ranks as a model that reads them sees a batch of
+    ``batch_size`` rows (the MoE routes over them; the ssm family's (L, B,
+    H) decode states hold every row): where ``sharding.batch_spec`` splits
+    the batch, the ranks it is split over, in the batch's order; else
+    every ``pod`` × ``data`` rank, each holding the whole batch.  None
+    where they are one rank or the model does not read them."""
     if not (cfg.n_experts or cfg.family == "ssm"):
         return None
     ctx = MeshCtx(mesh)
+    every = tuple(a for a in ("pod", "data") if a in ctx.shape)
     entry = batch_spec(ctx, (batch_size,))[0]
-    if entry is None or ctx.size(entry) == 1:
+    split = entry is not None and ctx.size(entry) > 1
+    axes = (entry if isinstance(entry, tuple) else (entry,)) if split else every
+    if not axes or ctx.size(axes) == 1:
         return None
-    if not isinstance(entry, tuple):
-        return mesh.get_group(entry)
-    return mesh[entry]._flatten().get_group()
+    if split and axes != every and cfg.moe_dispatch_sharding in ("manual", "grouped"):
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE batch split over some of the data ranks only (it divides the "
+            "data but not the pod and data ranks) under 'manual' or 'grouped' is not ported "
+            "(ROADMAP A2)")
+    group = mesh[axes]._flatten().get_group() if len(axes) > 1 else mesh.get_group(axes[0])
+    return DataRanks(group, split)
 
 
 def local_batch(batch: dict, mesh) -> dict:
@@ -252,7 +280,7 @@ def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
         if b % n:
             raise ValueError(f"batch {b} is not a multiple of microbatch {n}")
         m = b // n
-        group = data_group(cfg, mesh, m)
+        dp = data_ranks(cfg, mesh, m)
         model.zero_grad(set_to_none=True)
         sums: dict = {}
         grads = None
@@ -260,7 +288,7 @@ def _make_sharded_step(cfg: ArchConfig, sched, mesh, use_kernel, microbatch):
             # microbatch i is the reference's, rows [i·m, (i+1)·m) of the global batch, split
             # over the data ranks: the MoE routes over exactly those rows
             mb = local_batch({k: v[i * m:(i + 1) * m] for k, v in batch.items()}, mesh)
-            loss, metrics = model(mb, cfg, use_kernel, group)
+            loss, metrics = model(mb, cfg, use_kernel, dp)
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach()
@@ -311,12 +339,21 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
     With ``mesh`` the step runs on a model sharded by :func:`shard_model`
     over that mesh (see the module's docstring); each microbatch, the
     same rows as on one device, is split over the data ranks, and its
-    gradient is reduced over them and summed in float32, as on one device.  ``grad_compress`` is taken and not read, as in the reference
+    gradient is reduced over them and summed in float32, as on one device;
+    every family but dense needs ``model == 1``, and the moe family's
+    ``"manual"`` and ``"grouped"`` dispatches are refused on any mesh
+    (``NotImplementedError``).  ``grad_compress`` is taken and not read, as in the reference
     (``repro/models/steps.py``): the int8 all-reduce is
     ``optim.compressed_psum``, for a data-parallel loop of one's own."""
     del grad_compress
     sched = cosine_schedule(base_lr, warmup_steps, total_steps)
     if mesh is not None:
+        _refuse_tp(cfg, MeshCtx(mesh), train=True)
+        if cfg.n_experts and cfg.moe_dispatch_sharding in ("manual", "grouped"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the MoE's {cfg.moe_dispatch_sharding!r} dispatch on a "
+                "mesh is not ported (ROADMAP A2): its routing and gradients there are not "
+                "checked against the reference's; use 'auto'")
         return _make_sharded_step(cfg, sched, mesh, use_kernel, microbatch)
 
     def train_step(model, opt_state, batch, step):
@@ -354,13 +391,15 @@ def make_train_step(cfg: ArchConfig, *, base_lr=3e-4, total_steps=10_000, warmup
 
 def make_prefill_step(cfg: ArchConfig, *, use_kernel=False, mesh=None):
     """Forward-only loss eval at prefill shape (inference-prefill cell).
-    With ``mesh``, on a model sharded by :func:`shard_model`: each rank's
-    slice of the batch, the metrics averaged over the data ranks."""
+    With ``mesh``, on a model sharded by :func:`shard_model` (the dense and
+    moe families at any ``model``, the others at ``model == 1``): each
+    rank's slice of the batch, the metrics averaged over the data ranks."""
     if mesh is not None:
+        _refuse_tp(cfg, MeshCtx(mesh))
         @torch.no_grad()
         def sharded_prefill_step(model, batch):
-            group = data_group(cfg, mesh, batch["tokens"].shape[0])
-            _, metrics = model(local_batch(_on(model, batch), mesh), cfg, use_kernel, group)
+            dp = data_ranks(cfg, mesh, batch["tokens"].shape[0])
+            _, metrics = model(local_batch(_on(model, batch), mesh), cfg, use_kernel, dp)
             return {k: _dp_mean(v.detach().clone(), mesh) for k, v in metrics.items()}
 
         return sharded_prefill_step
@@ -383,9 +422,10 @@ def make_serve_step(cfg: ArchConfig, *, mesh=None):
     batch: each rank decodes its rows of ``tokens`` (the same on every
     rank), and the logits come back as a DTensor placed as
     ``sharding.batch_spec`` says, the state's caches still sharded.  The
-    moe, hybrid and ssm families need ``model = 1``; the vlm and audio
-    families are refused (their cross-attention on a mesh is not
-    ported)."""
+    dense and moe families decode at any ``model`` (the MoE routes the
+    decode batch as its dispatch mode says, capacity from the batch); the
+    hybrid and ssm families need ``model = 1``; the vlm and audio families
+    are refused (their cross-attention on a mesh is not ported)."""
     if mesh is None:
         @torch.inference_mode()
         def serve_step(model, state, batch):
@@ -406,7 +446,7 @@ def make_serve_step(cfg: ArchConfig, *, mesh=None):
         b = tokens.shape[0]
         logits, state = lm.decode_step(cfg, model, state,
                                        local_batch(dict(tokens=tokens), mesh)["tokens"],
-                                       dp_group=data_group(cfg, mesh, b))
+                                       dp=data_ranks(cfg, mesh, b))
         logits = DTensor.from_local(logits, mesh, to_placements(batch_spec(ctx, (b, cfg.vocab)),
                                                                 mesh),
                                     run_check=False, shape=(b, cfg.vocab), stride=(cfg.vocab, 1))

@@ -50,7 +50,7 @@ from ..data import TokenPipeline
 from ..interop import load_lm_params, lm_params_to_numpy, opt_state_from_numpy, \
     opt_state_to_numpy, stacked_layout
 from ..models.lm import LM
-from ..models.steps import expert_rules, make_train_step, shard_model
+from ..models.steps import make_train_step, shard_model
 from ..optim import adamw_init
 
 __all__ = ["TrainLoop", "TrainConfig"]
@@ -143,7 +143,7 @@ class TrainLoop:
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         model = LM(cfg, generator=gen, device=self.device)
         if self.mesh is not None:
-            shard_model(model, self.mesh, expert_rules(cfg))
+            shard_model(model, self.mesh)
         opt = adamw_init(model)
         start = 0
         if latest_step(tc.ckpt_dir) is not None:

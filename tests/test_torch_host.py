@@ -202,7 +202,8 @@ def test_workspace_estimators_match(kernel, nd, tile_dim, devices):
 
 def _py_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "examples").glob("torch_*.py")))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: p.name)

@@ -159,6 +159,28 @@ def test_moe_ffn_bf16_within_bf16_tolerance():
         np.testing.assert_allclose(float(aux[key]), float(waux[key]), **AUX_TOL, err_msg=key)
 
 
+def test_auto_ep_computes_auto_in_both_packages():
+    """``"auto_ep"`` (a mode the reference's configs name, whose only
+    effect there is the EP-only sharding rules) computes ``"auto"`` in
+    both packages, bit for bit within each, without a mesh."""
+    rng = np.random.default_rng(3)
+    params = _moe_params(rng, True)
+    x = rng.standard_normal((2, 16, D)).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    ref = {mode: r_moe.moe_ffn(jp, jnp.asarray(x), top_k=K, capacity_factor=1.0,
+                               dispatch_sharding=mode) for mode in ("auto", "auto_ep")}
+    m = _port_moe(params, torch.float32)
+    with torch.no_grad():
+        got = {mode: moe.moe_ffn(m, torch.from_numpy(x), top_k=K, capacity_factor=1.0,
+                                 dispatch_sharding=mode) for mode in ("auto", "auto_ep")}
+    np.testing.assert_array_equal(np.asarray(ref["auto_ep"][0]), np.asarray(ref["auto"][0]))
+    assert torch.equal(got["auto_ep"][0], got["auto"][0])
+    for key in ("load_balance", "z_loss"):
+        assert float(got["auto_ep"][1][key]) == float(got["auto"][1][key])
+    np.testing.assert_allclose(got["auto_ep"][0].numpy(), np.asarray(ref["auto_ep"][0]),
+                               **F32_TOL)
+
+
 def test_moe_ffn_rejects_an_unknown_dispatch_mode():
     m = _port_moe(_moe_params(np.random.default_rng(0), False), torch.float32)
     with pytest.raises(ValueError, match="dispatch_sharding"):

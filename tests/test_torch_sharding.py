@@ -22,7 +22,10 @@ so each check holds the port to what can be:
   unsharded, on the same weights and tokens: heads split over ``model``,
   the positions split over ``model``, and over ``data`` at batch 1; the
   moe and ssm families' rows over ``data`` (argmax ids equal, logits and
-  every state leaf gathered whole within DECODE_TOL); the
+  every state leaf gathered whole within DECODE_TOL); the moe family
+  with its experts split over ``model`` (deepseek-moe-smoke on (2, 4),
+  qwen3-moe-smoke on (4, 2)), in ``"auto"`` and in ``"manual"``, whose
+  oracle is the reference's unsharded step on each data rank's rows; the
   decode state's placements against the reference's
   ``_decode_state_shardings`` for every dense arch's ``decode_32k`` on the
   production meshes;
@@ -34,6 +37,11 @@ so each check holds the port to what can be:
   ``jax.vmap`` over a named axis of 8, the same ``psum``, which agreed with
   its 8-host-device shard_map run to 7.5e-9: that form times out under
   load, ROADMAP C);
+* ``moe_ffn`` on (4, 2) and (2, 4) gloo meshes in the reference's six
+  dispatch modes against the reference's own ``moe_ffn`` under the same
+  mesh (8 forced host devices, ``AxisType.Auto`` axes: under jax 0.9.0's
+  default ``Explicit`` axes its ``constrain`` raises), and the sharded
+  prefill's metrics against the reference's ``forward_loss``;
 * checkpoints both ways between one device and the mesh, and the
   production-mesh dry run on a fake process group.
 
@@ -276,8 +284,37 @@ DECODE_CASES = {
     "deepseek-moe-smoke-8x1-batch8": ("deepseek-moe-16b", (8, 1), 8, ("k", 1, "data")),
     # the rows over data; the (L, B, H) states whole on every rank, their rows shared back
     "xlstm-smoke-8x1-batch8": ("xlstm-1.3b", (8, 1), 8, ("mlstm/c", 1, "data")),
+    # the rows over data, the heads and the experts' hidden f over model; global routing
+    "deepseek-moe-smoke-2x4-batch8": ("deepseek-moe-16b", (2, 4), 8, ("k", 3, "model")),
+    "qwen3-moe-smoke-4x2-batch8": ("qwen3-moe-235b-a22b", (4, 2), 8, ("k", 3, "model")),
+    # "manual": each data rank routes its own 2 rows, 4 of the 8 experts a model rank
+    "deepseek-moe-smoke-4x2-batch8-manual": ("deepseek-moe-16b", (4, 2), 8, ("k", 1, "data"),
+                                             dict(moe_dispatch_sharding="manual")),
+    "qwen3-moe-smoke-4x2-batch8-manual": ("qwen3-moe-235b-a22b", (4, 2), 8, ("k", 3, "model"),
+                                          dict(moe_dispatch_sharding="manual")),
 }
 DECODE = dict(seq=16, steps=8)
+#: sharded prefill case → (arch, mesh, config changes); the metrics of synthetic_batch(0, 0,
+#: PREFILL["batch"], PREFILL["seq"]) against the reference's forward_loss (each data rank's
+#: rows alone, averaged, under "manual")
+PREFILL_CASES = {
+    "deepseek-moe-smoke-2x4": ("deepseek-moe-16b", (2, 4), {}),
+    "deepseek-moe-smoke-4x2-ep": ("deepseek-moe-16b", (4, 2), dict(moe_dispatch_sharding="ep")),
+    "qwen3-moe-smoke-4x2-manual": ("qwen3-moe-235b-a22b", (4, 2),
+                                   dict(moe_dispatch_sharding="manual")),
+}
+PREFILL = dict(batch=8, seq=32)
+#: moe_ffn case → (mesh, dispatch mode, x); d 64, E 8, K 2, one shared expert, capacity
+#: factor 1.0, which drops slots; x8 (8, 16, 64) splits over the data ranks, x2 (2, 16, 64)
+#: does not (batch_spec leaves it whole: "manual" slices the tokens, "grouped" forms 4 groups)
+MOE_MODES = ("auto", "ep", "grouped", "manual", "tokens_dp", "auto_ep")
+MOE_FFN_CASES = {f"{mode}-{m[0]}x{m[1]}": (m, mode, "x8") for m in ((4, 2), (2, 4))
+                 for mode in MOE_MODES}
+MOE_FFN_CASES.update({f"{mode}-4x2-batch2": ((4, 2), mode, "x2") for mode in ("grouped", "manual")})
+MOE_FFN = dict(d=64, e=8, f=64, k=2, cf=1.0)
+#: moe_ffn on a mesh against the reference's under the same mesh (float32: the partial
+#: sums' order and the all-reduce move the last bits, ~1.4e-6 seen)
+MOE_FFN_TOL = dict(atol=1e-5, rtol=1e-4)
 #: float32 on the CPU: the sharded decode against the reference's, logits and caches (the
 #: log-sum-exp combine and the partial sums' order move the last bits: ~4e-6 seen)
 DECODE_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -318,11 +355,23 @@ def mesh_runs(tmp_path_factory):
         workers.save_tree(str(folder / case / "params.npz"), refs[case][0])
         plan.append(("step_on_mesh", (shape, arch, changes, str(folder / case), STEPS["steps"],
                                       batch, STEPS["seq"], kw)))
-    for case, (arch, shape, batch, _) in DECODE_CASES.items():
+    for case, (arch, shape, batch, _, *changes) in DECODE_CASES.items():
         (folder / case).mkdir()
-        refs[case] = _reference_decode(arch, shape, batch, folder / case)
-        plan.append(("decode_on_mesh", (shape, arch, batch, DECODE["seq"], str(folder / case))))
-    plan.append(("decode_refusals", (str(folder),)))
+        changes = changes[0] if changes else {}
+        refs[case] = _reference_decode(arch, shape, batch, folder / case, changes)
+        plan.append(("decode_on_mesh", (shape, arch, batch, DECODE["seq"], str(folder / case),
+                                        changes)))
+    for case, (arch, shape, changes) in PREFILL_CASES.items():
+        (folder / case).mkdir()
+        refs[case] = _reference_prefill(arch, shape, changes, folder / case)
+        plan.append(("prefill_on_mesh", (shape, arch, changes, str(folder / case),
+                                         PREFILL["batch"], PREFILL["seq"])))
+    (folder / "moe_ffn").mkdir()
+    refs["moe_ffn"] = _reference_moe_ffn(folder / "moe_ffn")
+    plan.append(("moe_ffn_on_mesh", (str(folder / "moe_ffn"),
+                                     {case: (*v, MOE_FFN["cf"], MOE_FFN["k"])
+                                      for case, v in MOE_FFN_CASES.items()})))
+    plan.append(("mesh_refusals", (str(folder),)))
     (folder / "compress").mkdir()
     np.savez(folder / "compress" / "data.npz",
              x=np.random.default_rng(1).standard_normal((8, 1, 64, 16)).astype(np.float32),
@@ -365,31 +414,119 @@ def _reference_run(rcfg, batch, seq, steps, kw):
     return params, jax.tree.map(np.asarray, jp), jopt, metrics, tiny, lr_sum
 
 
-def _reference_decode(arch, mesh, batch, folder):
+def _rank_rows(cfg, mesh, batch) -> list:
+    """The slices of a batch each data rank decodes alone: one per data
+    rank under the "manual" dispatch (its _manual_moe routes each data
+    shard's tokens alone), else the whole batch."""
+    if cfg.moe_dispatch_sharding != "manual":
+        return [slice(0, batch)]
+    n = batch // mesh[0]
+    return [slice(r * n, (r + 1) * n) for r in range(mesh[0])]
+
+
+def _reference_decode(arch, mesh, batch, folder, changes=None):
     """The reference's unsharded jitted serve step from init_params(key(0))
-    over seeded tokens: the weights and tokens saved for the ranks, each
-    step's logits, the final state's leaves by path ("k", "mlstm/c", ...)
-    and their specs on the case's mesh as the reference's dry run places
-    them (``_decode_state_shardings``) returned."""
+    over seeded tokens (on each data rank's rows alone under "manual"):
+    the weights and tokens saved for the ranks, each step's logits, the
+    final state's leaves by path ("k", "mlstm/c", ...) and their specs on
+    the case's mesh as the reference's dry run places them
+    (``_decode_state_shardings``) returned."""
     from repro.launch.dryrun import _decode_state_shardings
 
-    rcfg = replace(r_get_smoke(arch), dtype="float32")
+    rcfg = replace(r_get_smoke(arch), dtype="float32", **(changes or {}))
     params = jax.tree.map(np.asarray, r_lm.init_params(rcfg, jax.random.key(0)))
     workers.save_tree(str(folder / "params.npz"), params)
     tokens = np.random.default_rng(5).integers(0, rcfg.vocab, (DECODE["steps"], batch),
                                                dtype=np.int32)
     np.save(folder / "tokens.npy", tokens)
     step = jax.jit(r_make_serve_step(rcfg))
-    state = r_lm.init_decode_state(rcfg, batch, DECODE["seq"])
-    logits = []
-    for t in tokens:
-        out, state = step(params, state, dict(tokens=jnp.asarray(t)))
-        logits.append(np.asarray(out))
+    parts = []
+    for rows in _rank_rows(rcfg, mesh, batch):
+        state = r_lm.init_decode_state(rcfg, rows.stop - rows.start, DECODE["seq"])
+        logits = []
+        for t in tokens:
+            out, state = step(params, state, dict(tokens=jnp.asarray(t[rows])))
+            logits.append(np.asarray(out))
+        parts.append((np.stack(logits), _flat(jax.tree.map(np.asarray, state["cache"]))))
+    whole = r_lm.init_decode_state(rcfg, batch, DECODE["seq"])
     rctx = r_sharding.MeshCtx(AbstractMesh(mesh, ("data", "model")))
-    specs = _flat(_decode_state_shardings(rctx, state)["cache"],
+    specs = _flat(_decode_state_shardings(rctx, whole)["cache"],
                   is_leaf=lambda x: hasattr(x, "spec"))
-    return dict(logits=np.stack(logits), cache=_flat(jax.tree.map(np.asarray, state["cache"])),
+    cache = {k: np.concatenate([c[k] for _, c in parts], axis=1) for k in parts[0][1]}
+    return dict(logits=np.concatenate([lg for lg, _ in parts], axis=1), cache=cache,
                 specs={k: tuple(v.spec) for k, v in specs.items()})
+
+
+def _reference_prefill(arch, mesh, changes, folder):
+    """The reference's forward_loss metrics of synthetic_batch(0, 0,
+    PREFILL["batch"], PREFILL["seq"]) from init_params(key(0)) (the mean
+    of each data rank's rows' metrics under "manual"); the weights saved
+    for the ranks."""
+    rcfg = replace(r_get_smoke(arch), dtype="float32", **changes)
+    params = jax.tree.map(np.asarray, r_lm.init_params(rcfg, jax.random.key(0)))
+    workers.save_tree(str(folder / "params.npz"), params)
+    batch = synthetic_batch(0, 0, PREFILL["batch"], PREFILL["seq"], rcfg.vocab)
+    fn = jax.jit(lambda p, b: r_lm.forward_loss(rcfg, p, b)[1])
+    runs = [fn(params, {k: jnp.asarray(v[rows]) for k, v in batch.items()})
+            for rows in _rank_rows(rcfg, mesh, PREFILL["batch"])]
+    return {k: float(np.mean([float(m[k]) for m in runs])) for k in runs[0]}
+
+
+REF_MOE_FFN = """if True:
+    import json, sys
+    import numpy as np
+    import jax
+    from jax.sharding import AxisType
+    from repro.models import moe
+    from repro.models.sharding import set_mesh_ctx
+
+    folder, cases = sys.argv[1], json.loads(sys.argv[2])
+    k, cf = int(sys.argv[3]), float(sys.argv[4])
+    with np.load(f"{folder}/params.npz") as z:
+        params = {name: jax.numpy.asarray(z[name]) for name in z.files}
+    for case, (shape, mode, xname) in cases.items():
+        x = jax.numpy.asarray(np.load(f"{folder}/{xname}.npy"))
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+        set_mesh_ctx(mesh)
+        with mesh:
+            y, aux = jax.jit(lambda p, x: moe.moe_ffn(p, x, top_k=k, capacity_factor=cf,
+                                                      dispatch_sharding=mode))(params, x)
+        set_mesh_ctx(None)
+        np.savez(f"{folder}/ref_{case}.npz", y=np.asarray(y),
+                 **{name: np.asarray(v) for name, v in aux.items()})
+    print("REF_MOE_FFN done")
+"""
+
+
+def _reference_moe_ffn(folder):
+    """MOE_FFN's weights and the two x, seeded with numpy, saved for the
+    ranks; the reference's ``moe_ffn`` of each of MOE_FFN_CASES under its
+    mesh, run once in a child process with 8 forced host devices (its
+    outputs in ``folder``/ref_<case>.npz).  Returns the global routing's
+    dropped slots of x8 (its capacity from all 128 tokens)."""
+    rng = np.random.default_rng(11)
+    d, e, f = MOE_FFN["d"], MOE_FFN["e"], MOE_FFN["f"]
+    shapes = dict(router=(d, e), w_gate=(e, d, f), w_up=(e, d, f), w_down=(e, f, d),
+                  sh_gate=(d, f), sh_up=(d, f), sh_down=(f, d))
+    params = {k: (rng.standard_normal(v) / np.sqrt(v[-2])).astype(np.float32)
+              for k, v in shapes.items()}
+    np.savez(folder / "params.npz", **params)
+    for name, b in (("x8", 8), ("x2", 2)):
+        np.save(folder / f"{name}.npy", rng.standard_normal((b, 16, d)).astype(np.float32))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", REF_MOE_FFN, str(folder),
+                        json.dumps(MOE_FFN_CASES), str(MOE_FFN["k"]), str(MOE_FFN["cf"])],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert "REF_MOE_FFN done" in r.stdout, r.stdout[-2000:] + r.stderr[-4000:]
+    x = np.load(folder / "x8.npy").reshape(-1, d)
+    idx = np.argsort(-(x @ params["router"]), axis=-1, kind="stable")[:, :MOE_FFN["k"]]
+    cap = int(max(1, round(x.shape[0] * MOE_FFN["k"] / e * MOE_FFN["cf"])))
+    seen, drops = np.zeros(e, np.int64), 0
+    for ex in idx.T.reshape(-1):
+        drops += int(seen[ex] >= cap)
+        seen[ex] += 1
+    return dict(drops=drops)
 
 
 def _assert_tree_close(got: dict, want: dict, tiny=None, lr_sum=0.0):
@@ -449,11 +586,13 @@ def test_sharded_decode_matches_the_reference(case, mesh_runs):
     case's tolerance (DECODE_TOL unless DECODE_CASE_TOL says otherwise),
     a KV cache's slots past the last position still zero; and the same
     against the port's unsharded decode of the same weights."""
-    arch, shape, batch, (leaf, dim, axis) = DECODE_CASES[case]
+    arch, shape, batch, (leaf, dim, axis), *changes = DECODE_CASES[case]
+    changes = changes[0] if changes else {}
     folder = mesh_runs["folder"] / case
     want = mesh_runs["refs"][case]
     with open(folder / "got.json") as f:
         meta = json.load(f)
+    assert meta["wrong"] == []                # every parameter placed as its spec says
     got = np.load(folder / "got.npz")
     ctx = MeshCtx(dict(data=shape[0], model=shape[1]))
     assert set(meta["placements"]) == set(want["specs"]) == set(want["cache"])
@@ -470,27 +609,93 @@ def test_sharded_decode_matches_the_reference(case, mesh_runs):
         np.testing.assert_allclose(got[path], w, err_msg=path, **tol)
         if path in ("k", "v"):
             assert not got[path][:, :, DECODE["steps"]:].any()
-    cfg = replace(get_smoke(arch), dtype="float32")
+    cfg = replace(get_smoke(arch), dtype="float32", **changes)
     model = interop.lm_params_from_numpy(cfg, workers.load_tree(str(folder / "params.npz")),
                                          device="cpu")
-    state = lm.init_decode_state(cfg, batch, DECODE["seq"], device="cpu")
     step = make_serve_step(cfg)
-    for i, t in enumerate(np.load(folder / "tokens.npy")):
-        out, state = step(model, state, dict(tokens=torch.from_numpy(t)))
-        np.testing.assert_allclose(got["logits"][i], out.numpy(), err_msg=f"step {i}", **tol)
-    for path, leaf in _flat(state["cache"]).items():
-        np.testing.assert_allclose(got[path], leaf.numpy(), err_msg=path, **tol)
+    for rows in _rank_rows(cfg, shape, batch):
+        state = lm.init_decode_state(cfg, rows.stop - rows.start, DECODE["seq"], device="cpu")
+        for i, t in enumerate(np.load(folder / "tokens.npy")):
+            out, state = step(model, state, dict(tokens=torch.from_numpy(t[rows])))
+            np.testing.assert_allclose(got["logits"][i, rows], out.numpy(), err_msg=f"step {i}",
+                                       **tol)
+        for path, leaf in _flat(state["cache"]).items():
+            np.testing.assert_allclose(got[path][:, rows], leaf.numpy(), err_msg=path, **tol)
 
 
 def test_decode_refuses_what_it_cannot_place(mesh_runs):
     """A sliding-window ring whose positions the rules split over ranks
-    (hymba-smoke at batch 1 on (8, 1)), the moe family at model > 1 and
+    (hymba-smoke at batch 1 on (8, 1)), the hybrid family at model > 1 and
     the vlm family on a mesh raise ``NotImplementedError`` naming ROADMAP
     A2, before any cache is made or gathered."""
     with open(mesh_runs["folder"] / "refusals.json") as f:
         got = json.load(f)
-    for what in ("ring", "moe", "vlm"):
+    for what in ("ring", "hybrid", "vlm"):
         assert got[what] is not None and "ROADMAP A2" in got[what], (what, got[what])
+
+
+@pytest.mark.parametrize("mode", ["manual", "grouped"])
+def test_moe_training_refuses_the_dispatch_it_has_not_checked(mode, mesh_runs):
+    """``make_train_step(mesh=)`` of the moe family under ``"manual"`` or
+    ``"grouped"`` raises ``NotImplementedError`` naming ROADMAP A2, even at
+    model = 1: there each data rank routes its own tokens as the
+    reference's does, and no case holds that step's gradients against the
+    reference's yet."""
+    with open(mesh_runs["folder"] / "refusals.json") as f:
+        got = json.load(f)[f"train-{mode}"]
+    assert got is not None and "ROADMAP A2" in got and mode in got, got
+
+
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_sharded_prefill_matches_the_reference(case, mesh_runs):
+    """``make_prefill_step(mesh=)`` of the moe family with its experts split
+    over ``model``: loss, nll, load_balance and z_loss against the
+    reference's ``forward_loss`` on the same weights and batch (under
+    "manual", the mean of its metrics on each data rank's rows alone, as
+    its ``_manual_moe`` routes each data shard's tokens alone and averages
+    the aux terms over them), every parameter placed as its spec says."""
+    with open(mesh_runs["folder"] / case / "got.json") as f:
+        got = json.load(f)
+    assert got["wrong"] == []
+    want = mesh_runs["refs"][case]
+    assert set(got["metrics"]) == set(want) >= {"loss", "nll", "load_balance", "z_loss"}
+    for key, value in want.items():
+        np.testing.assert_allclose(got["metrics"][key], value, rtol=1e-4, atol=1e-6,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("case", list(MOE_FFN_CASES))
+def test_moe_ffn_on_a_mesh_matches_the_reference(case, mesh_runs):
+    """``moe_ffn`` with its weights split over ``model`` (E over it under
+    the EP-only rules of "grouped", "manual" and "auto_ep", the experts'
+    hidden f under the reference's default rules) and x over ``data``,
+    against the reference's ``moe_ffn`` under the same mesh: the output
+    gathered whole, ``load_balance`` and ``z_loss`` within MOE_FFN_TOL.
+    The global routing of x8 drops slots at capacity factor 1.0."""
+    shape, mode, _ = MOE_FFN_CASES[case]
+    folder = mesh_runs["folder"] / "moe_ffn"
+    got, want = np.load(folder / f"got_{case}.npz"), np.load(folder / f"ref_{case}.npz")
+    ep = mode in ("grouped", "manual", "auto_ep")
+    assert int(got["local_experts"]) == (MOE_FFN["e"] // shape[1] if ep else MOE_FFN["e"])
+    np.testing.assert_allclose(got["y"], want["y"], **MOE_FFN_TOL)
+    for key in ("load_balance", "z_loss"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]), **MOE_FFN_TOL,
+                                   err_msg=key)
+    assert mesh_runs["refs"]["moe_ffn"]["drops"] > 0
+
+
+def test_moe_ffn_modes_part_where_the_reference_parts(mesh_runs):
+    """On (4, 2) the reference's "manual" and "grouped" route each data
+    shard alone and so differ from its "auto"; "auto_ep", "ep" (capacity
+    under 256) and "tokens_dp" compute "auto"; the port's outputs part and
+    agree alike."""
+    folder = mesh_runs["folder"] / "moe_ffn"
+    for pkg in ("ref", "got"):
+        y = {m: np.load(folder / f"{pkg}_{m}-4x2.npz")["y"] for m in MOE_MODES}
+        for m in ("auto_ep", "ep", "tokens_dp"):
+            np.testing.assert_allclose(y[m], y["auto"], **MOE_FFN_TOL, err_msg=(pkg, m))
+        for m in ("manual", "grouped"):
+            assert np.abs(y[m] - y["auto"]).max() > 1e-3, (pkg, m)
 
 
 @pytest.mark.parametrize("mesh", MESHES[:2], ids=lambda m: "x".join(map(str, m[0])))
@@ -584,8 +789,9 @@ def test_dryrun_on_a_fake_world(tmp_path):
     one child process: the fake process group is the process's default
     one, and the dry run must load neither jax nor XLA_FLAGS); a smoke
     arch's decode cell on the (4, 2) world, its per-device cache bytes
-    those of the reference's cache specs; then the moe family's train and
-    decode cells skipped with their reasons."""
+    those of the reference's cache specs; deepseek-moe-16b's decode cell on
+    16 x 16, its cache bytes those of the reference's specs; then the moe
+    family's train cell and a hybrid cell skipped with their reasons."""
     from repro_torch.launch.dryrun import dryrun_cell
 
     code = """if True:
@@ -600,6 +806,7 @@ def test_dryrun_on_a_fake_world(tmp_path):
                             verbose=False) for mp in (False, True)]
         out.append(dryrun_cell("qwen2.5-32b", "decode_32k", mesh=dict(data=4, model=2),
                                global_batch=8, seq_len=64, overrides=smoke, verbose=False))
+        out.append(dryrun_cell("deepseek-moe-16b", "decode_32k", verbose=False))
         assert "jax" not in sys.modules and "XLA_FLAGS" not in os.environ
         print(json.dumps(out))
     """
@@ -608,7 +815,7 @@ def test_dryrun_on_a_fake_world(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
                        env=env)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
-    smoke, *granite, decode = json.loads(r.stdout.strip().splitlines()[-1])
+    smoke, *granite, decode, moe = json.loads(r.stdout.strip().splitlines()[-1])
     assert smoke["status"] == "ok" and smoke["chips"] == 8, smoke
     assert smoke["memory"]["temp_bytes"] > 0 and smoke["collectives"]["total"] > 0
     assert set(smoke["collectives"]["per_kind"]) == {"all-gather", "all-reduce", "reduce-scatter"}
@@ -626,6 +833,17 @@ def test_dryrun_on_a_fake_world(tmp_path):
     itemsize = np.dtype(jnp.dtype(rcfg.dtype)).itemsize
     assert decode["memory"]["cache_bytes"] == 2 * np.prod(kv) * itemsize // shards
     assert decode["memory"]["param_bytes"] > 0 and decode["collectives"]["total"] > 0
-    for arch, shape in (("deepseek-moe-16b", "decode_32k"), ("deepseek-moe-16b", "train_4k")):
-        d = dryrun_cell(arch, shape, verbose=False)
-        assert d["status"] == "skipped" and "ROADMAP A2" in d["reason"], d
+    # the moe family's decode cell on 16 x 16, its cache bytes those of the reference's specs
+    assert moe["status"] == "ok" and moe["chips"] == 256, moe
+    rcfg, shape = r_get_config("deepseek-moe-16b"), SHAPES["decode_32k"]
+    rctx = r_sharding.MeshCtx(AbstractMesh((16, 16), ("data", "model")))
+    kv = (rcfg.n_layers, shape.global_batch, shape.seq_len, rcfg.n_kv_heads, rcfg.d_head)
+    spec = r_sharding.cache_spec(rctx, kv, seq_axis=2)
+    shards = np.prod([rctx.mesh.shape[a] for a in spec if a is not None])
+    itemsize = np.dtype(jnp.dtype(rcfg.dtype)).itemsize
+    assert moe["memory"]["cache_bytes"] == 2 * np.prod(kv) * itemsize // shards
+    assert moe["memory"]["param_bytes"] > 0 and moe["collectives"]["total"] > 0
+    d = dryrun_cell("deepseek-moe-16b", "train_4k", verbose=False)
+    assert d["status"] == "skipped" and "ROADMAP A2" in d["reason"], d
+    d = dryrun_cell("hymba-1.5b", "decode_32k", verbose=False)
+    assert d["status"] == "skipped" and "ROADMAP A2" in d["reason"], d

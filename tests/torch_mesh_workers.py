@@ -83,34 +83,17 @@ def step_on_mesh(rank, world, shape, arch, changes, folder, steps, batch, seq, k
     ``shape`` mesh, ``steps`` sharded train steps on ``synthetic_batch``;
     rank 0 writes the metrics, the placements against the specs', and the
     gathered parameters.  On a mesh with ``model > 1``, also whether the
-    moe family's tensor parallelism is refused."""
-    from torch.distributed.tensor import DTensor, Replicate
-
+    moe family's sharded training step is refused."""
     from repro_torch import interop
     from repro_torch.data import synthetic_batch
-    from repro_torch.models import lm
-    from repro_torch.models.sharding import MeshCtx, param_specs, to_placements
-    from repro_torch.models.steps import make_train_step, shard_model
+    from repro_torch.models.steps import make_train_step
     from repro_torch.optim import adamw_init
 
     cfg = _cfg(arch, changes)
     mesh = _mesh(shape)
     model = interop.lm_params_from_numpy(cfg, load_tree(os.path.join(folder, "params.npz")),
                                          device="cpu")
-    specs = param_specs(MeshCtx(mesh), cfg, model)
-    shard_model(model, mesh)
-    wrong = []
-    for name, p in model.named_parameters():
-        want = to_placements(specs[name], mesh)
-        # a mesh dim a parameter's DTensor does not span holds it whole
-        on = dict(zip(p.device_mesh.mesh_dim_names, p.placements)) if isinstance(
-            p, DTensor) else {}
-        got = [on.get(n, Replicate()) for n in mesh.mesh_dim_names]
-        # on a dim of one rank every placement holds the whole
-        got, want = ([Replicate() if mesh.size(i) == 1 else x for i, x in enumerate(pl)]
-                     for pl in (got, want))
-        if got != want:
-            wrong.append([name, str(got), str(want)])
+    wrong = _sharded(model, mesh)
     opt = adamw_init(model)
     step = make_train_step(cfg, mesh=mesh, **kw)
     history = []
@@ -124,7 +107,7 @@ def step_on_mesh(rank, world, shape, arch, changes, folder, steps, batch, seq, k
     refused = None
     if shape[1] > 1:
         try:
-            shard_model(lm.LM(_cfg("deepseek-moe-16b", {}), device="cpu"), mesh)
+            make_train_step(_cfg("deepseek-moe-16b", {}), mesh=mesh)
         except NotImplementedError as e:
             refused = str(e)
     if rank == 0:
@@ -133,6 +116,32 @@ def step_on_mesh(rank, world, shape, arch, changes, folder, steps, batch, seq, k
         with open(os.path.join(folder, "got.json"), "w") as f:
             json.dump(dict(history=history, wrong=wrong, refused=refused,
                            count=int(moments["count"]), drops=drops), f)
+
+
+def _sharded(model, mesh) -> list:
+    """Shard ``model`` over ``mesh`` (``shard_model``, the expert stacks by
+    ``expert_rules``) and return each parameter whose placements are not
+    its spec's, as [name, got, want]."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.models.sharding import MeshCtx, param_specs, to_placements
+    from repro_torch.models.steps import expert_rules, shard_model
+
+    specs = param_specs(MeshCtx(mesh), model.cfg, model, expert_rules(model.cfg))
+    shard_model(model, mesh)
+    wrong = []
+    for name, p in model.named_parameters():
+        want = to_placements(specs[name], mesh)
+        # a mesh dim a parameter's DTensor does not span holds it whole
+        on = dict(zip(p.device_mesh.mesh_dim_names, p.placements)) if isinstance(
+            p, DTensor) else {}
+        got = [on.get(n, Replicate()) for n in mesh.mesh_dim_names]
+        # on a dim of one rank every placement holds the whole
+        got, want = ([Replicate() if mesh.size(i) == 1 else x for i, x in enumerate(pl)]
+                     for pl in (got, want))
+        if got != want:
+            wrong.append([name, str(got), str(want)])
+    return wrong
 
 
 class _counted_drops:
@@ -167,22 +176,23 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def decode_on_mesh(rank, world, shape, arch, batch, seq, folder) -> None:
+def decode_on_mesh(rank, world, shape, arch, batch, seq, folder, changes=None) -> None:
     """The reference's weights (``folder``/params.npz) sharded over a
     ``shape`` mesh, the decode state placed by ``init_decode_state(mesh=)``,
     then ``make_serve_step(mesh=)`` over the tokens of ``folder``/
     tokens.npy (steps, batch); rank 0 writes each step's logits, every
-    cache and state leaf gathered whole (keys "k", "mlstm/c", ...), and
-    each leaf's placements and local shape."""
+    cache and state leaf gathered whole (keys "k", "mlstm/c", ...), each
+    leaf's placements and local shape, and the parameters placed otherwise
+    than their specs say."""
     from repro_torch import interop
     from repro_torch.models import lm
-    from repro_torch.models.steps import make_serve_step, shard_model
+    from repro_torch.models.steps import make_serve_step
 
-    cfg = _cfg(arch, {})
+    cfg = _cfg(arch, changes or {})
     mesh = _mesh(shape)
     model = interop.lm_params_from_numpy(cfg, load_tree(os.path.join(folder, "params.npz")),
                                          device="cpu")
-    shard_model(model, mesh)
+    wrong = _sharded(model, mesh)
     tokens = torch.from_numpy(np.load(os.path.join(folder, "tokens.npy")))
     state = lm.init_decode_state(cfg, batch, seq, device="cpu", mesh=mesh)
     step = make_serve_step(cfg, mesh=mesh)
@@ -197,7 +207,29 @@ def decode_on_mesh(rank, world, shape, arch, batch, seq, folder) -> None:
     if rank == 0:
         np.savez(os.path.join(folder, "got.npz"), logits=np.stack(logits), **cache)
         with open(os.path.join(folder, "got.json"), "w") as f:
-            json.dump(dict(placements=placements, local=local, pos=int(state["pos"])), f)
+            json.dump(dict(placements=placements, local=local, pos=int(state["pos"]),
+                           wrong=wrong), f)
+
+
+def prefill_on_mesh(rank, world, shape, arch, changes, folder, batch, seq) -> None:
+    """The reference's weights (``folder``/params.npz) sharded over a
+    ``shape`` mesh, ``make_prefill_step(mesh=)`` on ``synthetic_batch(0, 0,
+    batch, seq)``; rank 0 writes the metrics and the parameters placed
+    otherwise than their specs say."""
+    from repro_torch import interop
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models.steps import make_prefill_step
+
+    cfg = _cfg(arch, changes)
+    mesh = _mesh(shape)
+    model = interop.lm_params_from_numpy(cfg, load_tree(os.path.join(folder, "params.npz")),
+                                         device="cpu")
+    wrong = _sharded(model, mesh)
+    metrics = make_prefill_step(cfg, mesh=mesh)(model, synthetic_batch(0, 0, batch, seq,
+                                                                       cfg.vocab))
+    if rank == 0:
+        with open(os.path.join(folder, "got.json"), "w") as f:
+            json.dump(dict(metrics={k: float(v) for k, v in metrics.items()}, wrong=wrong), f)
 
 
 def loop_on_mesh(rank, world, shape, arch, tc_kw, folder) -> None:
@@ -238,13 +270,14 @@ def compress_loop(rank, world, folder, steps, lr) -> None:
         np.save(os.path.join(folder, "w.npy"), w.numpy())
 
 
-def decode_refusals(rank, world, folder) -> None:
-    """What decode on a mesh refuses, each refusal's message (None where
-    nothing was raised): hymba-smoke at batch 1 on (8, 1), whose ring
-    cache the rules split on its positions; the moe family at model > 1;
-    the vlm family on any mesh."""
+def mesh_refusals(rank, world, folder) -> None:
+    """What the steps on a mesh refuse, each refusal's message (None where
+    nothing was raised): decode of hymba-smoke at batch 1 on (8, 1), whose
+    ring cache the rules split on its positions, of the hybrid family at
+    model > 1 and of the vlm family on any mesh; training deepseek-moe's
+    "manual" and "grouped" dispatches on (8, 1)."""
     from repro_torch.models import lm
-    from repro_torch.models.steps import make_serve_step
+    from repro_torch.models.steps import make_serve_step, make_train_step
 
     def refused(fn):
         try:
@@ -255,13 +288,59 @@ def decode_refusals(rank, world, folder) -> None:
 
     out = dict(ring=refused(lambda: lm.init_decode_state(_cfg("hymba-1.5b", {}), 1, 64,
                                                          device="cpu", mesh=_mesh((8, 1)))),
-               moe=refused(lambda: make_serve_step(_cfg("deepseek-moe-16b", {}),
-                                                   mesh=_mesh((4, 2)))),
+               hybrid=refused(lambda: make_serve_step(_cfg("hymba-1.5b", {}),
+                                                      mesh=_mesh((4, 2)))),
                vlm=refused(lambda: make_serve_step(_cfg("llama-3.2-vision-11b", {}),
                                                    mesh=_mesh((8, 1)))))
+    for mode in ("manual", "grouped"):
+        cfg = _cfg("deepseek-moe-16b", dict(moe_dispatch_sharding=mode))
+        out[f"train-{mode}"] = refused(lambda: make_train_step(cfg, mesh=_mesh((8, 1))))
     if rank == 0:
         with open(os.path.join(folder, "refusals.json"), "w") as f:
             json.dump(out, f)
+
+
+def moe_ffn_on_mesh(rank, world, folder, cases) -> None:
+    """``moe_ffn`` of ``folder``/params.npz on each case's mesh: the
+    expert stacks split over ``model`` (``E/M`` experts a rank), the router
+    and the shared experts placed by their specs, the case's x
+    (``folder``/<x>.npy) split over the data ranks as ``batch_spec`` says
+    and the data ranks handed down as the steps hand them
+    (``data_ranks``); rank 0 writes the output
+    gathered whole and the two aux terms (``folder``/got_<case>.npz)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import MeshCtx, spec_for_param, to_placements
+    from repro_torch.models.steps import data_ranks, expert_rules, local_batch
+
+    cfg = _cfg("deepseek-moe-16b", {})
+    with np.load(os.path.join(folder, "params.npz")) as z:
+        params = {k: torch.from_numpy(z[k]) for k in z.files}
+    for case, (shape, mode, xname, cf, k) in cases.items():
+        mesh = _mesh(shape)
+        e, d, f = params["w_gate"].shape
+        m = moe.MoE(d, e, f, int("sh_gate" in params), torch.float32, device="cpu")
+        rules = expert_rules(replace(cfg, moe_dispatch_sharding=mode))
+        with torch.no_grad():
+            for name, v in params.items():
+                spec = spec_for_param(MeshCtx(mesh), f"layers/moe/{name}", tuple(v.shape), rules)
+                w = distribute_tensor(v.clone(), mesh["model"], to_placements(spec, ["model"]),
+                                      src_data_rank=None)
+                setattr(m, name, torch.nn.Parameter(w, requires_grad=False))
+        x = torch.from_numpy(np.load(os.path.join(folder, f"{xname}.npy")))
+        dp = data_ranks(cfg, mesh, x.shape[0])
+        with torch.no_grad():
+            y, aux = moe.moe_ffn(m, local_batch(dict(x=x), mesh)["x"], top_k=k,
+                                 capacity_factor=cf, dispatch_sharding=mode, dp=dp)
+        if dp.split:
+            parts = [torch.empty_like(y) for _ in range(dist.get_world_size(dp.group))]
+            dist.all_gather(parts, y.contiguous(), group=dp.group)
+            y = torch.cat(parts)
+        if rank == 0:
+            np.savez(os.path.join(folder, f"got_{case}.npz"), y=y.numpy(),
+                     local_experts=m.w_gate.to_local().shape[0],
+                     **{key: float(v) for key, v in aux.items()})
 
 
 def launch_train(rank, world, argv) -> None:

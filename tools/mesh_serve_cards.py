@@ -128,20 +128,21 @@ def _init_scale(name: str, shape) -> float | None:
     return 0.02 if leaf == "embed" else shape[0] ** -0.5
 
 
-def seeded_fill(model, seed: int, rows: int = 4096) -> None:
-    """Fill every parameter of ``model`` (a dense-family LM with storage;
-    plain tensors or DTensor shards) in place: element i of parameter
-    ``name`` gets √3 · scale · u(seed, name, i), u uniform in [-1, 1), so
-    its value depends on the global index alone and each rank fills its
-    shard without the whole; norm scales 1, biases 0.  ``rows`` rows of
-    dim 0 at a time."""
+def seeded_fill(model, seed: int, rows: int = 4096, chunk: int = 1 << 25) -> None:
+    """Fill every parameter of ``model`` (a dense- or moe-family LM with
+    storage; plain tensors or DTensor shards) in place: element i of
+    parameter ``name`` gets √3 · scale · u(seed, name, i), u uniform in
+    [-1, 1), so its value depends on the global index alone and each rank
+    fills its shard without the whole; norm scales 1, biases 0.  At most
+    ``rows`` rows of dim 0, and about ``chunk`` elements, at a time."""
     import torch
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models.sharding import local_extent
 
-    if model.cfg.family != "dense":
-        raise NotImplementedError(f"seeded_fill: {model.cfg.name} is not a dense-family model")
+    if model.cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"seeded_fill: {model.cfg.name} is neither a dense- nor a "
+                                  "moe-family model")
     with torch.no_grad():
         for name, p in model.named_parameters():
             local = p.to_local() if isinstance(p, DTensor) else p
@@ -160,8 +161,9 @@ def seeded_fill(model, seed: int, rows: int = 4096) -> None:
             for d in range(1, p.ndim):
                 ax = (start[d] + torch.arange(local.shape[d], device=dev)) * strides[d]
                 inner = inner[..., None] + ax
-            for a in range(0, local.shape[0], rows):
-                n = min(rows, local.shape[0] - a)
+            step = max(1, min(rows, chunk // max(1, inner.numel())))
+            for a in range(0, local.shape[0], step):
+                n = min(step, local.shape[0] - a)
                 first = (start[0] + a + torch.arange(n, device=dev)) * strides[0]
                 index = first.reshape(n, *([1] * (p.ndim - 1))) + inner
                 local[a:a + n].copy_(_uniform(key, index) * (3.0 ** 0.5 * scale))
@@ -226,25 +228,25 @@ def greedy(cfg, model, dev, prompts, mesh=None) -> tuple:
     return torch.stack(ids), torch.stack(seen)
 
 
-def compare(ids, seen, want_ids, want_seen, tol) -> dict:
+def compare(ids, seen, want_ids, want_seen, tol, new: int = NEW) -> dict:
     """The mesh's greedy run against one card's: the first generated step
     whose ids part (NEW if none) and the one-card logits' top-two margin
     there; the logits' largest gap up to it, and whether that is within
-    ``tol``."""
+    ``tol``; ``new`` generated steps."""
     import torch
 
     differ = (ids != want_ids).any(1).nonzero()
-    first = int(differ[0]) if len(differ) else NEW
+    first = int(differ[0]) if len(differ) else new
     out = dict(steps_equal=first)
-    if first < NEW:
+    if first < new:
         top2 = want_seen[first].topk(2, -1).values
         out["margin"] = float((top2[:, 0] - top2[:, 1]).min())
         out["near_tie"] = out["margin"] <= tol["atol"]
-    n = first + 1 if first < NEW else NEW
+    n = first + 1 if first < new else new
     gap = (seen[:n] - want_seen[:n]).abs()
     out["max_abs"] = float(gap.max())
     out["within"] = bool((gap <= tol["atol"] + tol["rtol"] * want_seen[:n].abs()).all())
-    out["ok"] = out["within"] and (first == NEW or out["near_tie"])
+    out["ok"] = out["within"] and (first == new or out["near_tie"])
     return out
 
 
@@ -310,8 +312,8 @@ def kernel_times(q, k, v) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     out = dict(shape=list(q.shape), dtype=str(q.dtype),
                kernel_ms=cuda_ms(lambda: flash_attention_cuda(q, k, v), 5),
-               sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                               5),
+               sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True), 5),
                plain_ms=cuda_ms(lambda: ref.attention_ref(q, k, v), 2))
     out["max_abs_err"] = float((flash_attention_cuda(q, k, v).float()
                                 - ref.attention_ref(q, k, v).float()).abs().max())

@@ -211,9 +211,11 @@ def nccl_bytes(trace_path: str) -> dict:
     return {g: collective_bytes(r) for g, r in groups.items()}
 
 
-def profile_step(run):
+def profile_step(run, ops=()):
     """``run()`` under torch.profiler on this rank's card: (result, wall ms,
-    busy ms, NCCL ms, busiest kernels).  Busy is the union of the card's
+    busy ms, NCCL ms, busiest kernels) and, with ``ops``, a dict of the
+    device ms of the kernels each of those CPU ops (e.g. ``"aten::bmm"``)
+    launched.  Busy is the union of the card's
     kernel intervals: NCCL runs on a stream of its own beside the compute
     and the profiler also reports each collective as a device-side range,
     so a plain sum would count those instants twice.  Where the profiler
@@ -230,10 +232,13 @@ def profile_step(run):
     wall = (time.perf_counter() - t0) * 1e3
     try:
         prof.stop()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+        events = prof.events()
+        evs = [e for e in events if e.device_type == DeviceType.CUDA
                and e.time_range.end > e.time_range.start]
+        op_ms = {op: sum(e.self_device_time_total for e in events if e.name == op) / 1e3
+                 for op in ops}
     except Exception as e:  # the profiler's own failure
-        return out, wall, None, None, f"{type(e).__name__}: {e}"
+        return (out, wall, None, None, f"{type(e).__name__}: {e}") + (({},) if ops else ())
     spans = [(e.time_range.start, e.time_range.end) for e in evs]
     nccl = [(e.time_range.start, e.time_range.end) for e in evs if "nccl" in e.name.lower()]
     by_name: dict = {}
@@ -241,7 +246,7 @@ def profile_step(run):
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (e.time_range.end
                                                                   - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return out, wall, _union_ms(spans), _union_ms(nccl), top
+    return (out, wall, _union_ms(spans), _union_ms(nccl), top) + ((op_ms,) if ops else ())
 
 
 def one_cell(cfg, mesh, dev, batch, run, rank) -> dict:
